@@ -1,0 +1,417 @@
+// Batched M3TSZ decode on Hopper: one thread per lane, the decoder state in
+// registers.
+//
+// Replaces, from m3_tpu/ops/m3tsz_decode.py:
+//   K1  _decode_step (+ _init_state, _window128, _parse_timestamp,
+//       _parse_sig_mult, _parse_xor, _plan_value, _apply_value, _emit_value)
+//       -> decode_step(), a __device__ function shared by K2 and K3;
+//   K2  decode_downsample_fused -> decode_downsample_fused_kernel;
+//   K3  decode_batched          -> decode_batched_kernel.
+//
+// The JAX kernel reads each lane's 128-bit window with a one-hot masked
+// row-sum over all of [L, W] on every step, because the TPU has no fast
+// gather.  Here each thread loads the five words at its cursor directly.
+// Every select of the branchless JAX state machine becomes a branch of the
+// thread's own control flow; the values committed are the same.
+//
+// What bounds it on an H100: the integer work of the state machine, some
+// 44 64-bit operations per datapoint, run by one thread per lane (the bytes
+// are small: the compressed words are ~4.5 bits per datapoint, the K2
+// outputs 16-48 bytes per window).  The per-lane word loads are not
+// coalesced across a warp; a warp-per-lane-group layout is later work.
+//
+// Bit-exactness: build with --fmad=false so `ssq + vz * vz` is a multiply
+// then an add, as in the plain PyTorch version.  Shifts by 64 or more are
+// undefined in C++; every shift whose count can reach 64 is guarded the way
+// the JAX code guards it.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxMult = 6;  // m3tsz_scalar.MAX_MULT
+constexpr int kThreads = 128;
+
+struct Divisors {
+  double d[kMaxMult + 1];  // MULT_DIVISORS, passed by value from the host
+};
+
+struct State {
+  int32_t cursor;  // bit position
+  bool started, done, error, is_float;
+  int64_t prev_time, prev_delta, int_val;
+  uint64_t prev_float, prev_xor;
+  int32_t sig, mult;
+};
+
+// Logical shifts that yield 0 for a count outside [0, 63], as XLA's do.
+__device__ __forceinline__ uint64_t shl(uint64_t x, int n) {
+  return (unsigned)n >= 64u ? 0ull : x << n;
+}
+__device__ __forceinline__ uint64_t shr(uint64_t x, int n) {
+  return (unsigned)n >= 64u ? 0ull : x >> n;
+}
+// Two's-complement wrap-around, as the JAX int64 arithmetic does.
+__device__ __forceinline__ int64_t wadd(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+__device__ __forceinline__ int64_t wmul(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a * (uint64_t)b);
+}
+__device__ __forceinline__ int clz64(uint64_t x) {  // clz64(0) == 64
+  return __clzll((long long)x);
+}
+__device__ __forceinline__ int ctz64(uint64_t x) {  // ctz64(0) == 0
+  return x == 0 ? 0 : __ffsll((long long)x) - 1;
+}
+__device__ __forceinline__ bool bit_at(uint64_t w, int pos) {  // pos 0 = MSB
+  return (w >> (63 - pos)) & 1ull;
+}
+__device__ __forceinline__ uint64_t field_at(uint64_t w, int pos, int width) {
+  return (w >> (64 - width - pos)) & ((1ull << width) - 1ull);
+}
+// Sign-extended `nbits` field after `skip` bits from the window top.
+__device__ __forceinline__ int64_t sext(uint64_t w, int skip, int nbits) {
+  return ((int64_t)(w << skip)) >> (64 - nbits);
+}
+// Top n (0..64) bits of w, right-aligned; n == 0 yields 0.
+__device__ __forceinline__ uint64_t take_top(uint64_t w, int n) {
+  return n == 0 ? 0ull : shr(w, 64 - n);
+}
+__device__ __forceinline__ uint64_t load_word(const uint32_t* row, int W, int idx) {
+  return (idx >= 0 && idx < W) ? (uint64_t)__ldg(row + idx) : 0ull;
+}
+
+__device__ __forceinline__ State init_state(const uint32_t* row, int W, int32_t nbits) {
+  State st;
+  st.cursor = 64;
+  st.started = false;
+  // Streams too small for start + EOS marker are immediately done.
+  st.done = nbits < 64 + 11;
+  st.error = false;
+  st.is_float = false;
+  st.prev_time = (int64_t)((load_word(row, W, 0) << 32) | load_word(row, W, 1));
+  st.prev_delta = 0;
+  st.int_val = 0;
+  st.prev_float = 0;
+  st.prev_xor = 0;
+  st.sig = 0;
+  st.mult = 0;
+  return st;
+}
+
+struct Plan {
+  int ctrl, payload_len, trail, new_sig, new_mult;
+  bool full_float, int_active, xor_active, xor_zero, add, set_float, sig_mult_active;
+};
+
+// sig/mult update block + sign bit at bit `base` of cwin (iterator.go:145-168).
+__device__ __forceinline__ void parse_sig_mult(uint64_t cwin, int base, const State& st, Plan& p) {
+  const bool s_upd = bit_at(cwin, base);
+  const bool s_nonzero = bit_at(cwin, base + 1);
+  const int sig_field = (int)field_at(cwin, base + 2, 6);
+  const int k = s_upd ? (s_nonzero ? 8 : 2) : 1;
+  p.new_sig = s_upd ? (s_nonzero ? sig_field + 1 : 0) : st.sig;
+  const bool m_upd = bit_at(cwin, base + k);
+  const int mult_field = (int)field_at(cwin, base + k + 1, 3);
+  const int m = m_upd ? 4 : 1;
+  p.new_mult = m_upd ? mult_field : st.mult;
+  p.add = bit_at(cwin, base + k + m);
+  p.ctrl = base + k + m + 1;
+}
+
+// Float XOR record with its opcode at window bit 0 (float_encoder_iterator.go:117-166).
+__device__ __forceinline__ void parse_xor(uint64_t xwin, uint64_t prev_xor, Plan& p) {
+  const bool x0 = bit_at(xwin, 0);
+  const bool x1 = bit_at(xwin, 1);
+  p.xor_zero = !x0;
+  if (!x0) {
+    p.ctrl = 1;
+    p.payload_len = 0;
+    p.trail = 0;  // unused: a zero record XORs nothing
+  } else if (!x1) {
+    const int prev_trail = ctz64(prev_xor);
+    p.ctrl = 2;
+    p.payload_len = 64 - clz64(prev_xor) - prev_trail;
+    p.trail = prev_trail;
+  } else {
+    const int u_lead = (int)field_at(xwin, 2, 6);
+    const int u_mlen = (int)field_at(xwin, 8, 6) + 1;
+    p.ctrl = 14;
+    p.payload_len = u_mlen;
+    p.trail = 64 - u_lead - u_mlen;
+  }
+}
+
+// Value-record control bits, cwin top-aligned at the record (_plan_value).
+__device__ __forceinline__ Plan plan_value(uint64_t cwin, const State& st, bool int_optimized) {
+  Plan p;
+  p.ctrl = 0;
+  p.payload_len = 0;
+  p.trail = 0;
+  p.new_sig = st.sig;
+  p.new_mult = st.mult;
+  p.full_float = p.int_active = p.xor_active = p.xor_zero = p.add = false;
+  p.sig_mult_active = false;
+  p.set_float = st.is_float;
+  if (!int_optimized) {
+    p.set_float = true;
+    if (!st.started) {
+      p.payload_len = 64;
+      p.full_float = true;
+    } else {
+      parse_xor(cwin, st.prev_xor, p);
+      p.xor_active = true;
+    }
+    return p;
+  }
+  if (!st.started) {  // mode bit, then raw float or sig/mult + diff (iterator.go:88-106)
+    if (bit_at(cwin, 0)) {
+      p.ctrl = 1;
+      p.payload_len = 64;
+      p.full_float = true;
+      p.set_float = true;
+    } else {
+      parse_sig_mult(cwin, 1, st, p);
+      p.payload_len = p.new_sig;
+      p.int_active = true;
+      p.sig_mult_active = true;
+      p.set_float = false;
+    }
+    return p;
+  }
+  // next value, int-optimized (iterator.go:108-143)
+  if (!bit_at(cwin, 0)) {  // opcodeUpdate
+    if (bit_at(cwin, 1)) {  // repeat: nothing changes
+      p.ctrl = 2;
+    } else if (bit_at(cwin, 2)) {  // switch to float
+      p.ctrl = 3;
+      p.payload_len = 64;
+      p.full_float = true;
+      p.set_float = true;
+    } else {  // int state update
+      parse_sig_mult(cwin, 3, st, p);
+      p.payload_len = p.new_sig;
+      p.int_active = true;
+      p.sig_mult_active = true;
+      p.set_float = false;
+    }
+  } else if (st.is_float) {  // XOR record after the no-update bit
+    parse_xor(cwin << 1, st.prev_xor, p);
+    p.ctrl += 1;
+    p.xor_active = true;
+  } else {  // int diff with the tracked sig
+    p.ctrl = 2;
+    p.payload_len = st.sig;
+    p.int_active = true;
+    p.add = bit_at(cwin, 1);
+  }
+  return p;
+}
+
+__device__ __forceinline__ double emit_value(const State& st, const Divisors& div) {
+  if (st.is_float) return __longlong_as_double((long long)st.prev_float);
+  const int m = st.mult < 0 ? 0 : (st.mult > kMaxMult ? kMaxMult : st.mult);
+  return (double)st.int_val / div.d[m];
+}
+
+// K1: decode one datapoint of one lane.  Returns `valid`.  A lane that is
+// done or in error keeps its state unchanged, exactly as the masked JAX
+// step leaves it, so it returns at once.
+__device__ __forceinline__ bool decode_step(const uint32_t* row, int W, int32_t nbits, State& st,
+                                            bool int_optimized, int64_t unit_nanos) {
+  if (st.done || st.error) return false;
+  const int base = st.cursor >> 5;
+  const int off = st.cursor & 31;
+  const uint64_t w01 = (load_word(row, W, base) << 32) | load_word(row, W, base + 1);
+  const uint64_t w23 = (load_word(row, W, base + 2) << 32) | load_word(row, W, base + 3);
+  const uint64_t w45 = load_word(row, W, base + 4) << 32;
+  uint64_t hi = w01, lo = w23;
+  if (off != 0) {  // the aligned case would shift by 64
+    hi = (w01 << off) | (w23 >> (64 - off));
+    lo = (w23 << off) | (w45 >> (64 - off));
+  }
+
+  // delta-of-delta timestamp with marker look-ahead (timestamp_iterator.go:136-284)
+  const bool is_marker = (hi >> 55) == 0x100ull;
+  const uint64_t marker_val = (hi >> 53) & 3ull;
+  if (is_marker) {
+    if (marker_val == 0) st.done = true;  // end of stream
+    else st.error = true;                 // annotation or time-unit marker
+    return false;
+  }
+  const int lead_ones = clz64(~hi);
+  int64_t dod;
+  int t_len;
+  switch (lead_ones) {
+    case 0: dod = 0; t_len = 1; break;
+    case 1: dod = sext(hi, 2, 7); t_len = 9; break;
+    case 2: dod = sext(hi, 3, 9); t_len = 12; break;
+    case 3: dod = sext(hi, 4, 12); t_len = 16; break;
+    default: dod = sext(hi, 4, 32); t_len = 36; break;
+  }
+  st.prev_delta = wadd(st.prev_delta, wmul(dod, unit_nanos));
+  st.prev_time = wadd(st.prev_time, st.prev_delta);
+
+  const uint64_t cwin = shl(hi, t_len < 63 ? t_len : 63);
+  const Plan p = plan_value(cwin, st, int_optimized);
+  const int skip = t_len + p.ctrl;  // _mid_window: skip == 0 keeps hi
+  const uint64_t mid = skip == 0 ? hi : (shl(hi, skip) | shr(lo, 64 - skip));
+  const uint64_t payload = take_top(mid, p.payload_len);
+
+  // _apply_value
+  if (p.int_active) {
+    const int64_t diff = (int64_t)payload;
+    st.int_val = wadd(st.int_val, p.add ? diff : (int64_t)(0ull - (uint64_t)diff));
+  }
+  if (p.full_float) {
+    st.prev_float = payload;
+    st.prev_xor = payload;
+  } else if (p.xor_active) {
+    const uint64_t x = p.xor_zero ? 0ull : shl(payload, p.trail > 0 ? p.trail : 0);
+    st.prev_float ^= x;
+    st.prev_xor = x;
+  }
+  if (p.sig_mult_active) {
+    st.sig = p.new_sig;
+    st.mult = p.new_mult;
+  }
+  st.is_float = p.set_float;
+  st.cursor += t_len + p.ctrl + p.payload_len;
+  st.started = true;
+  if (st.cursor > nbits) st.error = true;  // not done here: done only on EOS
+  return !st.error;
+}
+
+// IEEE-754 minimum/maximum on non-NaN operands: -0.0 orders below +0.0,
+// as XLA's min/max (and so jnp.minimum/jnp.maximum) do.
+__device__ __forceinline__ double min_ieee(double a, double b) {
+  if (a < b) return a;
+  if (b < a) return b;
+  return signbit(a) ? a : b;
+}
+__device__ __forceinline__ double max_ieee(double a, double b) {
+  if (a > b) return a;
+  if (b > a) return b;
+  return signbit(a) ? b : a;
+}
+
+// K2: decode `window` datapoints per window inline and write only the
+// per-window accumulators, [L, n_win] each.
+__global__ void __launch_bounds__(kThreads) decode_downsample_fused_kernel(
+    const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
+    int n_win, int window, bool int_optimized, int64_t unit_nanos, bool full_agg, Divisors div,
+    double* __restrict__ sum, int64_t* __restrict__ count, double* __restrict__ sum_sq,
+    double* __restrict__ vmin_out, double* __restrict__ vmax_out, double* __restrict__ last_out,
+    int32_t* __restrict__ total, bool* __restrict__ error) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  const uint32_t* row = words + (size_t)lane * W;
+  const int32_t nb = nbits[lane];
+  State st = init_state(row, W, nb);
+  int64_t tot = 0;
+  for (int w = 0; w < n_win; ++w) {
+    double s = 0.0, ssq = 0.0, mn = INFINITY, mx = -INFINITY, last = NAN;
+    bool has_last = false;
+    int64_t cnt = 0;
+    for (int j = 0; j < window; ++j) {
+      const bool valid = decode_step(row, W, nb, st, int_optimized, unit_nanos);
+      if (!valid) continue;  // adds +0.0 and 0 in the reference: no change
+      const double v = emit_value(st, div);
+      const bool contrib = !isnan(v);
+      const double vz = contrib ? v : 0.0;
+      s = __dadd_rn(s, vz);
+      cnt += 1;
+      if (full_agg) {
+        ssq = __dadd_rn(ssq, __dmul_rn(vz, vz));
+        if (contrib) {
+          mn = min_ieee(mn, v);
+          mx = max_ieee(mx, v);
+        }
+        last = v;
+        has_last = true;
+      }
+    }
+    const size_t o = (size_t)lane * n_win + w;
+    sum[o] = s;
+    count[o] = cnt;
+    if (full_agg) {
+      const bool any_c = mn != INFINITY;
+      sum_sq[o] = ssq;
+      vmin_out[o] = any_c ? mn : NAN;
+      vmax_out[o] = any_c ? mx : NAN;
+      last_out[o] = has_last ? last : NAN;
+    }
+    tot += cnt;
+  }
+  total[lane] = (int32_t)tot;
+  error[lane] = st.error;
+}
+
+// K3: decode up to n_steps datapoints per lane into [L, n_steps] grids.
+// scan_len == n_steps + 1 with flag_truncation: the extra step lets a
+// stream holding exactly n_steps records reach its EOS marker.
+__global__ void __launch_bounds__(kThreads) decode_batched_kernel(
+    const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
+    int n_steps, int scan_len, bool int_optimized, int64_t unit_nanos, bool flag_truncation,
+    Divisors div, int64_t* __restrict__ ts, double* __restrict__ vs, bool* __restrict__ valid,
+    int32_t* __restrict__ count, bool* __restrict__ error) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  const uint32_t* row = words + (size_t)lane * W;
+  const int32_t nb = nbits[lane];
+  State st = init_state(row, W, nb);
+  int32_t cnt = 0;
+  for (int step = 0; step < scan_len; ++step) {
+    const bool ok = decode_step(row, W, nb, st, int_optimized, unit_nanos);
+    if (step < n_steps) {
+      const size_t o = (size_t)lane * n_steps + step;
+      ts[o] = st.prev_time;
+      vs[o] = emit_value(st, div);
+      valid[o] = ok;
+      cnt += ok;
+    }
+  }
+  count[lane] = cnt;
+  error[lane] = st.error || (flag_truncation && !st.done);
+}
+
+inline Divisors load_divisors(const double* host) {
+  Divisors d;
+  for (int i = 0; i <= kMaxMult; ++i) d.d[i] = host[i];
+  return d;
+}
+
+inline int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on `stream` and returns cudaGetLastError().
+int m3_decode_downsample_fused(const uint32_t* words, const int32_t* nbits, int L, int W,
+                               int n_win, int window, int int_optimized, long long unit_nanos,
+                               int full_agg, const double* divisors_host, double* sum,
+                               int64_t* count, double* sum_sq, double* vmin, double* vmax,
+                               double* last, int32_t* total, bool* error, void* stream) {
+  decode_downsample_fused_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
+      words, nbits, L, W, n_win, window, int_optimized != 0, unit_nanos, full_agg != 0,
+      load_divisors(divisors_host), sum, count, sum_sq, vmin, vmax, last, total, error);
+  return (int)cudaGetLastError();
+}
+
+int m3_decode_batched(const uint32_t* words, const int32_t* nbits, int L, int W, int n_steps,
+                      int scan_len, int int_optimized, long long unit_nanos, int flag_truncation,
+                      const double* divisors_host, int64_t* ts, double* vs, bool* valid,
+                      int32_t* count, bool* error, void* stream) {
+  decode_batched_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
+      words, nbits, L, W, n_steps, scan_len, int_optimized != 0, unit_nanos,
+      flag_truncation != 0, load_divisors(divisors_host), ts, vs, valid, count, error);
+  return (int)cudaGetLastError();
+}
+
+const char* m3_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"
