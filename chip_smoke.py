@@ -1,4 +1,4 @@
-"""Chip smoke test: the PyTorch/CUDA port's read path on one NVIDIA GPU.
+"""Chip smoke test: the PyTorch/CUDA port's read and query paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
@@ -12,7 +12,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit for bit, on seed-42 walks plus probe streams (error lanes, float
    mode, millisecond unit, NaN/+-Inf/-0.0, truncated and garbage streams,
    odd lane counts) and a quantile grid of NaNs, ties and signed zeros;
-4. main   — the north-star read path: 1,000,000 series x 360 datapoints
+4. query parity — the query slice's kernels (merge QK1, rate family QK2,
+   prefix-sum reducers QK3, group-by QK4) against their plain versions on
+   the card, on probe batches: counter resets, NaN/+-Inf samples, empty,
+   one-sample and all-NaN windows, lane overflow past n_cap, truncation at
+   n_dp, an unsorted lane, a two-tier stitch, padding streams parked on a
+   spare lane, 14 and 67 lanes, lanes of 32,768 samples (QK2/QK3), ranges
+   of 93s and 5m.  Integer results and copies bit for bit, sums at rtol
+   1e-12, stddev/stdvar at rtol 1e-9; NaN patterns always equal; every
+   kernel gives the same bits twice;
+5. main   — the north-star read path: 1,000,000 series x 360 datapoints
    at 10s, window 6 (10s -> 1min), through ``decode_downsample`` for
    MEAN, STDEV and P99.  Launch counts are reset just before each
    aggregate is driven and read just after; every lane is checked
@@ -20,7 +29,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    and a few against the scalar oracle.  Then each kernel is timed with
    CUDA events at these shapes beside its plain version, its bound and,
    for the quantile kernel, ``torch.sort``;
-5. report — one JSON line listing the kernels, then the result line.
+6. query main — BASELINE config 4, the m3query fan-out read: 50,000
+   series x 6h of 10s data in 2h blocks (150,000 streams, n_dp 720,
+   n_cap 2160, 355 steps at 60s, range 5m) through
+   ``device_rate_pipeline`` (rate(m[5m]) of every series),
+   ``device_grouped_pipeline`` (sum by (g) (rate(m[5m])), 100 groups) and
+   ``device_reduce_pipeline`` (avg_over_time(m[5m])).  Launch counts are
+   reset just before each query and read just after; every lane is checked
+   against its unique lane, a few against the host tier
+   (``ops/consolidate.py``) at rtol 1e-9, the grouped result against the
+   per-lane one summed on the host.  Each query is timed (CUDA events,
+   median of 7, and wall time with the result's ``.cpu()``), then each
+   query kernel beside its plain version, its bound and, where one exists,
+   a PyTorch call (``torch.searchsorted``, ``index_add_``);
+7. report — one JSON line listing the kernels, then the result line.
 
 The script imports nothing of JAX.  It exits non-zero without a result
 when no CUDA device is present.
@@ -38,8 +60,10 @@ import numpy as np
 import torch
 
 from m3_tpu_torch.models import corpus
+from m3_tpu_torch.models import query_pipeline as qp
 from m3_tpu_torch.models.read_pipeline import _SIMPLE_AGGS, decode_downsample, inputs_from_numpy
-from m3_tpu_torch.ops import _build, m3tsz_scalar
+from m3_tpu_torch.ops import _build, m3tsz_scalar, query_grouped, query_merge, query_temporal
+from m3_tpu_torch.ops import consolidate as cons
 from m3_tpu_torch.ops import downsample as ds
 from m3_tpu_torch.ops import m3tsz_decode as dec
 from m3_tpu_torch.ops.bitstream import pack_streams
@@ -182,7 +206,7 @@ def compare_quantile_grid():
     log("parity quantile grid (NaN, +-Inf, ties, signed zeros; k=1,6,36,72): bit for bit")
 
 
-# --- phase 4: the main path at full size -----------------------------------
+# --- phase 5: the read path at full size -----------------------------------
 
 
 def plain_pipeline(words, nbits, agg_type):
@@ -321,6 +345,322 @@ def kernel_times(words, nbits, datapoints: int):
     return rows
 
 
+# --- phase 4: the query kernels vs their plain versions ------------------
+
+SEC = 1_000_000_000
+Q_RANGES = (93 * SEC, 300 * SEC)
+Q_SERIES = 50_000
+DEVICE = torch.device("cuda")
+RATE_MODES = {"rate": (True, True), "increase": (True, False), "delta": (False, False)}
+FP64_OPS_PER_S = 67e12 / 4  # non-tensor FP64 adds/multiplies: 64 lanes per SM per clock
+BIT_EXACT_REDUCERS = ("count_over_time", "present_over_time", "last_over_time")
+BIT_EXACT_AGGS = ("count", "min", "max", "group")
+
+
+def close(a: torch.Tensor, b: torch.Tensor, rtol: float, what: str, atol: float = 1e-12) -> float:
+    """Raise unless a and b have the same NaN pattern, the same infinities
+    and |a - b| <= atol + rtol * |b| elsewhere.  Returns max |a - b|."""
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{what}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+    an, bn = torch.isnan(a), torch.isnan(b)
+    check(torch.equal(an, bn), f"{what}: NaN patterns differ")
+    fin = torch.isfinite(b)
+    inf = ~fin & ~bn
+    check(torch.equal(a[inf], b[inf]), f"{what}: infinities differ")
+    err = (a[fin] - b[fin]).abs()
+    e = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= atol + rtol * b[fin].abs()).all()),
+          f"{what}: the two differ beyond rtol {rtol}, atol {atol} (max abs err {e})")
+    return e
+
+
+def twice(fn, what: str):
+    """fn() run twice; the two results must be the same bits."""
+    a, b = fn(), fn()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        same_bits(x, y, f"{what}: second run")
+    return a
+
+
+def compare_query(b: corpus.QueryBatch, tag: str):
+    """QK1-QK4 against their plain versions on one probe batch."""
+    dev = DEVICE
+    words, nbits, slots, steps, tiers = qp._inputs(b.words, b.nbits, b.slots, b.steps, b.tiers,
+                                                   dev)
+    ts, vs, valid, _, _ = dec.decode_batched(words, nbits, b.n_dp, flag_truncation=True)
+    k = twice(lambda: query_merge.lane_merge(ts, vs, valid, slots, b.n_lanes, b.n_cap, tiers,
+                                             b.n_tiers), f"{tag} query_merge")
+    p = query_merge.lane_merge_plain(ts, vs, valid, slots, b.n_lanes, b.n_cap, tiers, b.n_tiers)
+    for field, kt, pt in zip(("times", "values", "counts", "unsorted"), k, p):
+        _record("query_merge", same_bits(kt, pt, f"{tag} query_merge.{field}"))
+    check(bool(k[3].any()) and bool((k[2] > b.n_cap).any()),
+          f"{tag}: the unsorted and overflow probes did not fire")
+    times, values = k[0], k[1]
+    served = []
+    for r in Q_RANGES:
+        _, left, right = query_temporal.window_bounds_plain(times, steps, r)
+        for fn, (counter, per_s) in RATE_MODES.items():
+            out, kl, kr = twice(lambda: query_temporal.rate(
+                times, values, steps, r, counter, per_s, with_bounds=True), f"{tag} {fn}")
+            same_bits(kl, left, f"{tag} {fn} left bounds")
+            same_bits(kr, right, f"{tag} {fn} right bounds")
+            want = query_temporal.rate_plain(times, values, steps, r, counter, per_s)
+            _record("query_rate", close(out, want, 1e-12, f"{tag} {fn} {r // SEC}s"))
+            served.append(out)
+        for fn in query_temporal.INSTANT_FNS:
+            out = twice(lambda: query_temporal.instant(times, values, steps, r, fn == "irate"),
+                        f"{tag} {fn}")
+            want = query_temporal.instant_plain(times, values, steps, r, fn == "irate")
+            _record("query_rate", same_bits(out, want, f"{tag} {fn} {r // SEC}s"))
+        for red in query_temporal.REDUCERS:
+            out, kl, kr = twice(lambda: query_temporal.reduce_window(
+                times, values, steps, r, red, with_bounds=True), f"{tag} {red}")
+            same_bits(kl, left, f"{tag} {red} left bounds")
+            same_bits(kr, right, f"{tag} {red} right bounds")
+            want = query_temporal.reduce_plain(times, values, steps, r, red)
+            if red in BIT_EXACT_REDUCERS:
+                _record("query_reduce", same_bits(out, want, f"{tag} {red} {r // SEC}s"))
+            else:
+                _record("query_reduce", close(out, want, 1e-12, f"{tag} {red} {r // SEC}s"))
+            served.append(out)
+    mat = torch.cat(served)  # NaN/+-Inf cells, signed zeros, all-NaN padding lanes
+    groups = torch.arange(mat.shape[0], device=dev) % 5
+    for agg in query_grouped.AGGS:
+        out = twice(lambda: query_grouped.grouped_reduce(mat, groups, 5, agg), f"{tag} {agg}")
+        want = query_grouped.grouped_reduce_plain(mat, groups, 5, agg)
+        if agg in BIT_EXACT_AGGS:
+            _record("query_grouped", same_bits(out, want, f"{tag} {agg}"))
+        else:
+            rtol = 1e-9 if agg in ("stddev", "stdvar") else 1e-12
+            _record("query_grouped", close(out, want, rtol, f"{tag} {agg}"))
+    out = twice(lambda: query_grouped.fleet_nansum(mat), f"{tag} fleet")
+    _record("query_grouped", close(out, query_grouped.fleet_nansum_plain(mat), 1e-12,
+                                   f"{tag} fleet"))
+    torch.cuda.synchronize()
+    log(f"query parity {tag}: {b.n_lanes} lanes, {len(b.slots)} streams, "
+        f"{int(k[3].sum())} unsorted and {int((k[2] > b.n_cap).sum())} overflowing lanes: "
+        f"QK1 bit for bit, QK2/QK3 bounds bit for bit, every kernel repeatable")
+
+
+def compare_long_lanes(n_cap: int = 32768):
+    """QK2/QK3 against their plain versions on lanes of n_cap samples (the
+    engine's cap for a raw 10s lane of more than 2.2 days)."""
+    t, v, st = (torch.from_numpy(x).to(DEVICE) for x in corpus.long_lanes(n_cap))
+    for r in Q_RANGES:
+        for fn, (counter, per_s) in RATE_MODES.items():
+            out = twice(lambda: query_temporal.rate(t, v, st, r, counter, per_s), f"long {fn}")
+            _record("query_rate", close(out, query_temporal.rate_plain(t, v, st, r, counter,
+                                                                       per_s), 1e-12, f"long {fn}"))
+        for fn in query_temporal.INSTANT_FNS:
+            out = twice(lambda: query_temporal.instant(t, v, st, r, fn == "irate"), f"long {fn}")
+            _record("query_rate", same_bits(out, query_temporal.instant_plain(
+                t, v, st, r, fn == "irate"), f"long {fn}"))
+        for red in query_temporal.REDUCERS:
+            out = twice(lambda: query_temporal.reduce_window(t, v, st, r, red), f"long {red}")
+            want = query_temporal.reduce_plain(t, v, st, r, red)
+            if red in BIT_EXACT_REDUCERS:
+                _record("query_reduce", same_bits(out, want, f"long {red}"))
+            else:
+                _record("query_reduce", close(out, want, 1e-12, f"long {red}"))
+    torch.cuda.synchronize()
+    log(f"query parity long lanes: {t.shape[0]} lanes x {n_cap} samples, {st.shape[0]} steps: "
+        f"QK2/QK3 match their plain versions and repeat")
+
+
+# --- phase 6: the query path at full size ---------------------------------
+
+
+def host_lanes(fc: corpus.FanoutCorpus, lanes):
+    """The host tier's merged (times, values) of some fan-out lanes."""
+    frags = [(i, ts_u[lane % fc.n_unique], vs_u[lane % fc.n_unique])
+             for i, lane in enumerate(lanes) for ts_u, vs_u in fc.grids]
+    t, v, _ = cons.merge_packed(frags, len(lanes))
+    return t, v
+
+
+def wall_ms(fn, reps: int = 7) -> float:
+    """Median host time of fn() with its first result brought to the host."""
+    fn()[0].cpu()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()[0].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def query_main(n_series: int):
+    t0 = time.time()
+    fc = corpus.fanout_corpus(n_series)
+    b = fc.batch
+    log(f"query data: {n_series} series x 6h at 10s in 2h blocks, {len(b.slots)} streams of "
+        f"<= {b.n_dp} dp, words u32{tuple(b.words.shape)}, n_cap {b.n_cap}, {len(b.steps)} "
+        f"steps, range {b.range_nanos // SEC}s; encoded in {time.time() - t0:.1f} s")
+    check(n_series % fc.n_unique == 0, "series must tile the unique walks")
+    dev = DEVICE
+    words, nbits, slots, steps, _ = qp._inputs(b.words, b.nbits, b.slots, b.steps, None, dev)
+    kw = dict(n_lanes=b.n_lanes, n_cap=b.n_cap, range_nanos=b.range_nanos, n_dp=b.n_dp)
+    front = ["decode_batched", "query_merge"]
+    queries = {
+        "rate": (lambda: qp.device_rate_pipeline(words, nbits, slots, steps, **kw),
+                 front + ["query_rate", "query_grouped"]),
+        "sum_by_rate": (lambda: qp.device_grouped_pipeline(
+            words, nbits, slots, steps, b.groups, n_groups=b.n_groups, fn="rate", agg="sum",
+            **kw), front + ["query_rate", "query_grouped"]),
+        "avg_over_time": (lambda: qp.device_reduce_pipeline(
+            words, nbits, slots, steps, reducer="avg_over_time", **kw),
+            front + ["query_reduce"]),
+    }
+    reps, S = n_series // fc.n_unique, len(b.steps)
+    oracle_lanes = [0, 1, min(n_series - 1, fc.n_unique + 2)]
+    t_ref, v_ref = host_lanes(fc, oracle_lanes)
+    results = {}
+    for name, (fn, want) in queries.items():
+        _build.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        for kernel in want:
+            check(launches.get(kernel, 0) > 0, f"query {name}: {kernel} not launched")
+        out, err = res[0], res[-1]
+        check(not bool(err.any()), f"query {name}: error flags")
+        rows = b.n_groups if name == "sum_by_rate" else n_series
+        check(tuple(out.shape) == (rows, S), f"query {name}: shape {tuple(out.shape)}")
+        live = out[:min(rows, n_series)]  # groups lane % 100 with no lane are NaN
+        check(bool(torch.isfinite(live).all()), f"query {name}: non-finite output")
+        if name != "sum_by_rate":
+            # every lane equals its unique lane (the lanes tile the unique walks)
+            same_bits(out.view(reps, fc.n_unique, S),
+                      out[:fc.n_unique].expand(reps, fc.n_unique, S).contiguous(),
+                      f"query {name}: tiled lanes")
+            if name == "rate":
+                want_host = cons.extrapolated_rate(t_ref, v_ref, b.steps, b.range_nanos,
+                                                   True, True)
+            else:
+                want_host = cons.window_reduce(t_ref, v_ref, b.steps, b.range_nanos, name)
+            close(out[oracle_lanes].cpu(), torch.from_numpy(want_host), 1e-9,
+                  f"query {name} vs the host tier")
+        if name == "rate":
+            fleet = res[1]
+            _record("query_grouped", close(fleet, query_grouped.fleet_nansum_plain(out), 1e-12,
+                                           "fleet sum at full size"))
+            rate_np = out.cpu().numpy()
+        ms = time_ms(fn, reps=7)
+        wall = wall_ms(fn)
+        results[name] = {"launches": launches, "ms": ms, "wall_ms": wall,
+                         "series_per_s": n_series / (ms / 1e3),
+                         "series_per_s_wall": n_series / (wall / 1e3)}
+        log(f"query {name}: launches {launches}; {ms:.3f} ms device (median of 7) = "
+            f"{n_series / (ms / 1e3):.0f} series/s; {wall:.3f} ms with the result's .cpu(); "
+            f"checks passed")
+        if name == "sum_by_rate":
+            g = out.cpu().numpy()
+            want_g = np.zeros((b.n_groups, S))
+            cnt_g = np.zeros((b.n_groups, S))
+            np.add.at(want_g, b.groups, np.nan_to_num(rate_np))
+            np.add.at(cnt_g, b.groups, ~np.isnan(rate_np))
+            want_g = np.where(cnt_g == 0, np.nan, want_g)
+            close(torch.from_numpy(g), torch.from_numpy(want_g), 1e-9,
+                  "sum by (g) vs the per-lane rates summed on the host", atol=1e-9)
+        del res, out, err
+    torch.cuda.synchronize()
+    return b, (words, nbits, slots, steps), results
+
+
+def query_kernel_times(b: corpus.QueryBatch, inputs):
+    """Each query kernel at the fan-out read's shapes: its time, its plain
+    version's (held against it), its bound, and a PyTorch call where one
+    computes the same function."""
+    words, nbits, slots, steps = inputs
+    dev = words.device
+    rows = {}
+
+    def row(name, ms, plain_ms, bytes_, ops_ms, library_ms=None, library=""):
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                      "library_ms": library_ms}
+        log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{rows[name]['bound_ms']:.3f} ms by {rows[name]['bound_by']} (bytes "
+            f"{bytes_ms:.3f} ms, operations {ops_ms:.3f} ms)"
+            + (f", {library} {library_ms:.3f} ms" if library_ms is not None else ""))
+
+    M, T, L, N, S = len(b.slots), b.n_dp, b.n_lanes, b.n_cap, len(b.steps)
+    in_bytes = words.numel() * 4 + nbits.numel() * 4
+    k = dec.decode_batched(words, nbits, T, flag_truncation=True)
+    p = dec.decode_batched_plain(words, nbits, T, flag_truncation=True)
+    for field, kt, pt in zip(("ts", "vs", "valid", "count", "error"), k, p):
+        _record("decode_batched", same_bits(kt, pt, f"query decode_batched.{field}"))
+    del p
+    datapoints = int(k[3].sum())
+    ms = time_ms(lambda: dec.decode_batched(words, nbits, T, flag_truncation=True), reps=5)
+    plain_ms = time_ms(lambda: dec.decode_batched_plain(words, nbits, T, flag_truncation=True),
+                       reps=3, warmup=0)
+    row("decode_batched[flag_truncation]", ms, plain_ms, in_bytes + M * T * 17 + M * 5,
+        datapoints * INT32_OPS_PER_DATAPOINT / INT32_OPS_PER_S * 1e3)
+
+    ts, vs, valid, _, _ = k
+    del k
+    merge = lambda: query_merge.lane_merge(ts, vs, valid, slots, L, N)  # noqa: E731
+    km = merge()
+    pm = query_merge.lane_merge_plain(ts, vs, valid, slots, L, N)
+    for field, kt, pt in zip(("times", "values", "counts", "unsorted"), km, pm):
+        _record("query_merge", same_bits(kt, pt, f"main query_merge.{field}"))
+    del pm
+    torch.cuda.empty_cache()
+    row("query_merge", time_ms(merge, reps=7),
+        time_ms(lambda: query_merge.lane_merge_plain(ts, vs, valid, slots, L, N), reps=3),
+        M * T * 17 + M * 8 + L * N * 16 + L * 9, 0.0)
+    times, values = km[0], km[1]
+    del ts, vs, valid, km
+    torch.cuda.empty_cache()
+
+    r = b.range_nanos
+    lane_bytes = L * N * 16 + S * 8 + L * S * 8
+    levels = query_temporal.search_levels(N)
+    # per (lane, step): two bisections of `levels` 64-bit compare/select
+    # steps (4 INT32 operations each) and some 30 FP64 operations
+    rate_ops_ms = L * S * (2 * levels * 4 / INT32_OPS_PER_S + 30 / FP64_OPS_PER_S) * 1e3
+    fn = lambda: query_temporal.rate(times, values, steps, r, True, True)  # noqa: E731
+    rate = fn()
+    _record("query_rate", close(rate, query_temporal.rate_plain(times, values, steps, r, True,
+                                                                True), 1e-12, "main rate"))
+    queries = torch.cat([steps - r - 1, steps]).expand(L, 2 * S).contiguous()
+    row("query_rate", time_ms(fn, reps=7),
+        time_ms(lambda: query_temporal.rate_plain(times, values, steps, r, True, True), reps=3),
+        lane_bytes, rate_ops_ms,
+        time_ms(lambda: torch.searchsorted(times, queries, right=True), reps=7),
+        "torch.searchsorted (the bounds alone)")
+    del queries
+
+    fn = lambda: query_temporal.reduce_window(times, values, steps, r, "avg_over_time")  # noqa
+    _record("query_reduce", close(fn(), query_temporal.reduce_plain(
+        times, values, steps, r, "avg_over_time"), 1e-12, "main avg_over_time"))
+    row("query_reduce", time_ms(fn, reps=7),
+        time_ms(lambda: query_temporal.reduce_plain(times, values, steps, r, "avg_over_time"),
+                reps=3), lane_bytes + L * 8, L * S * 2 * levels * 4 / INT32_OPS_PER_S * 1e3)
+    del times, values
+    torch.cuda.empty_cache()
+
+    G = b.n_groups
+    groups = torch.from_numpy(b.groups).to(dev)
+    csr = query_grouped.group_csr(b.groups, G)
+    fn = lambda: query_grouped.grouped_reduce(rate, groups, G, "sum", csr)  # noqa: E731
+    _record("query_grouped", close(fn(), query_grouped.grouped_reduce_plain(
+        rate, groups, G, "sum"), 1e-12, "main sum by (g)"))
+    vz = torch.nan_to_num(rate, nan=0.0)
+    row("query_grouped", time_ms(fn, reps=7),
+        time_ms(lambda: query_grouped.grouped_reduce_plain(rate, groups, G, "sum"), reps=3),
+        L * S * 8 + L * 8 + G * S * 8, L * S / FP64_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.zeros((G, S), dtype=torch.float64, device=dev).index_add_(
+            0, groups, vz), reps=7), "index_add_")
+    fleet_ms = time_ms(lambda: query_grouped.fleet_nansum(rate), reps=7)
+    log(f"time fleet sum (QK4, one group of {L} lanes): {fleet_ms:.3f} ms")
+    del rate, vz
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -344,30 +684,50 @@ def main() -> int:
     walks = corpus.walk_streams(N_UNIQUE, N_DP)
     log(f"data: {N_UNIQUE} seed-42 walk streams in {time.time() - t0:.1f} s")
     compare_decoders(walks + corpus.probe_streams(N_DP), "walks+probes")
-    compare_decoders(corpus.probe_streams(N_DP, int_optimized=False) + corpus.golden_streams(),
-                     "float mode", int_optimized=False)
+    compare_decoders(corpus.probe_streams(N_DP, int_optimized=False)
+                     + corpus.golden_streams(), "float mode", int_optimized=False)
     compare_decoders(corpus.ms_streams(256, N_DP), "millisecond unit", unit=MS)
     probes = corpus.probe_streams(N_DP)
     for lanes in (1, 7, 129):
         compare_decoders((probes + walks)[:lanes], f"{lanes} lanes")
     compare_quantile_grid()
-    log(f"parity phase done at {time.time() - t_start:.1f} s")
+    compare_query(corpus.query_probe_corpus(), "probes")
+    compare_query(corpus.query_probe_corpus(tiered=True), "two-tier")
+    compare_query(corpus.query_probe_corpus(n_real=61, n_lanes=67, seed=5), "67 lanes")
+    compare_long_lanes()
+    log(f"parity phases done at {time.time() - t_start:.1f} s")
 
     words, nbits, results = main_path(walks)
     rows = kernel_times(words, nbits, results["MEAN"]["datapoints"])
-    log(f"main phase done at {time.time() - t_start:.1f} s; peak device memory "
+    del words, nbits
+    torch.cuda.empty_cache()
+    log(f"read main phase done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
+    qb, q_inputs, q_results = query_main(Q_SERIES)
+    rows_q = query_kernel_times(qb, q_inputs)
+    del q_inputs
+    log(f"query main phase done at {time.time() - t_start:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    q_launch = {}
+    for r in q_results.values():
+        for kernel, n in r["launches"].items():
+            q_launch[kernel] = q_launch.get(kernel, 0) + n
+    e2e_q = {name: {k: r[k] for k in ("ms", "wall_ms", "series_per_s", "series_per_s_wall")}
+             for name, r in q_results.items()}
+    log(json.dumps({"query_end_to_end": e2e_q, "card": name_power}))
 
     k2 = results["MEAN"]["launches"].get("decode_downsample_fused", 0)
     k2f = results["STDEV"]["launches"].get("decode_downsample_fused", 0)
     k3 = results["P99"]["launches"].get("decode_batched", 0)
     k4 = results["P99"]["launches"].get("window_quantiles", 0)
+    k3q = q_launch.get("decode_batched", 0)
     src = "m3_tpu_torch/csrc/"
+    qsrc = "m3_tpu/models/query_pipeline.py:"
     kernels = [
         # K1 is the __device__ step inside K2 and K3: it launches with them,
         # and its time is that of K2 in the MEAN configuration (decode only).
         dict(name="decode_step", source=src + "m3tsz_decode.cu",
-             replaces="m3_tpu/ops/m3tsz_decode.py:405", launches=k2 + k2f + k3,
+             replaces="m3_tpu/ops/m3tsz_decode.py:405", launches=k2 + k2f + k3 + k3q,
              max_abs_err=max(ERRORS["decode_downsample_fused"], ERRORS["decode_batched"]),
              **rows["decode_downsample_fused"]),
         dict(name="decode_downsample_fused", source=src + "m3tsz_decode.cu",
@@ -380,9 +740,25 @@ def main() -> int:
         dict(name="decode_batched", source=src + "m3tsz_decode.cu",
              replaces="m3_tpu/ops/m3tsz_decode.py:440", launches=k3,
              max_abs_err=ERRORS["decode_batched"], **rows["decode_batched"]),
+        # K3 again, on the query path: [150,000 streams, 720 + 1 steps]
+        dict(name="decode_batched[flag_truncation]", source=src + "m3tsz_decode.cu",
+             replaces="m3_tpu/ops/m3tsz_decode.py:440", launches=k3q,
+             max_abs_err=ERRORS["decode_batched"], **rows_q["decode_batched[flag_truncation]"]),
         dict(name="window_quantiles", source=src + "window_quantiles.cu",
              replaces="m3_tpu/ops/downsample.py:166", launches=k4,
              max_abs_err=ERRORS["window_quantiles"], **rows["window_quantiles"]),
+        dict(name="query_merge", source=src + "query_merge.cu", replaces=qsrc + "175",
+             launches=q_launch.get("query_merge", 0), max_abs_err=ERRORS["query_merge"],
+             **rows_q["query_merge"]),
+        dict(name="query_rate", source=src + "query_temporal.cu", replaces=qsrc + "98",
+             launches=q_launch.get("query_rate", 0), max_abs_err=ERRORS["query_rate"],
+             **rows_q["query_rate"]),
+        dict(name="query_reduce", source=src + "query_temporal.cu", replaces=qsrc + "474",
+             launches=q_launch.get("query_reduce", 0), max_abs_err=ERRORS["query_reduce"],
+             **rows_q["query_reduce"]),
+        dict(name="query_grouped", source=src + "query_grouped.cu", replaces=qsrc + "915",
+             launches=q_launch.get("query_grouped", 0), max_abs_err=ERRORS["query_grouped"],
+             **rows_q["query_grouped"]),
     ]
     for k in kernels:
         k["route"] = "cuda"

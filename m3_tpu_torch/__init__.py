@@ -17,7 +17,8 @@ Rules this package keeps:
 
 Layout mirrors the reference so each module's counterpart is easy to find:
     ops/        kernels' wrappers + plain versions, host oracles
-    models/     end-to-end pipelines (read path: decode + downsample)
+    models/     end-to-end pipelines (read path: decode + downsample;
+                query path: decode -> merge -> rate/reduce -> group-by)
     utils/      time units, bit IO
     csrc/       CUDA C++ sources, built by ops/_build.py at first use
 """

@@ -9,6 +9,18 @@
   that fall back to the scalar oracle); truncated and garbage streams;
   streams shorter than the decode grid.
 
+- ``fanout_corpus``: BASELINE config 4, the m3query fan-out read —
+  series x hours of 10s data in 2h blocks, one stream per (series,
+  block), rate(m[5m]) at 60s steps, ``arange(lanes) % 100`` groups.
+- ``query_probe_corpus``: small query-path batches with one lane per
+  corner the serving pipelines must agree on: counter resets, NaN/+-Inf
+  samples, sparse lanes (empty and one-sample windows), signed zeros,
+  an unsorted lane, lane overflow past ``n_cap``, truncation at ``n_dp``,
+  a two-tier stitch, and padding streams (``nbits == 0``) parked on the
+  last lane.
+- ``long_lanes``: merged lanes of tens of thousands of samples, the
+  length of a raw query over days, one lane per probe kind.
+
 Everything is built from a seed with the scalar encoder, so the same
 bytes feed the JAX package and the port.
 """
@@ -17,10 +29,12 @@ from __future__ import annotations
 
 import math
 import random
+from typing import NamedTuple
 
 import numpy as np
 
 from m3_tpu_torch.ops import m3tsz_scalar as tsz
+from m3_tpu_torch.ops.bitstream import pack_streams
 from m3_tpu_torch.utils import xtime
 
 SEC = xtime.SECOND
@@ -142,3 +156,195 @@ def ms_streams(n: int, n_dp: int, seed: int = 3) -> list[bytes]:
         vs = [float(rng.randint(0, 100)) for _ in range(n_dp)]
         out.append(tsz.encode_series(ts, vs, START, unit=xtime.Unit.MILLISECOND))
     return out
+
+
+# --- the query path -------------------------------------------------------
+
+
+def gen_grids(n_unique: int, n_dp: int, start: int = START):
+    """[n_unique, n_dp] timestamp/value grids of seed-42 integer-gauge
+    walks at 10s (the generator of the reference's ``bench.py``; every
+    call restarts the seed)."""
+    rng = random.Random(42)
+    ts = np.zeros((n_unique, n_dp), dtype=np.int64)
+    vs = np.zeros((n_unique, n_dp), dtype=np.float64)
+    for u in range(n_unique):
+        t, v = start, float(rng.randint(0, 1000))
+        for i in range(n_dp):
+            t += 10 * SEC
+            v = max(0.0, v + rng.choice([-2.0, -1.0, 0.0, 0.0, 1.0, 2.0]))
+            ts[u, i] = t
+            vs[u, i] = v
+    return ts, vs
+
+
+class QueryBatch(NamedTuple):
+    """A packed fan-out read: stream rows grouped by output lane."""
+
+    words: np.ndarray  # u32[M, W]
+    nbits: np.ndarray  # i32[M]
+    slots: np.ndarray  # i64[M] output lane per stream, ascending
+    tiers: np.ndarray | None  # i64[M] dense tier rank per stream (0 finest)
+    n_tiers: int
+    steps: np.ndarray  # i64[S]
+    groups: np.ndarray  # i64[n_lanes]
+    n_lanes: int
+    n_groups: int
+    n_cap: int  # samples per lane
+    n_dp: int  # samples per stream
+    range_nanos: int
+
+
+class FanoutCorpus(NamedTuple):
+    batch: QueryBatch
+    n_unique: int
+    grids: list  # per block: (ts i64[n_unique, n_dp], vs f64[n_unique, n_dp])
+
+
+def fanout_corpus(n_series: int) -> FanoutCorpus:
+    """BASELINE config 4 (m3query fan-out read, the reference's
+    ``bench.py:bench_fanout_read_device``): ``n_series`` series x 6h of
+    10s data in 2h blocks.  The 2,000 seed-42 walks of each block (fewer
+    if there are fewer series) are encoded once (stream start = block
+    start) and tiled to the lanes: lane l reads unique ``l % 2000`` of
+    every block.  Steps every 60s from start+5min to start+6h-10s, range
+    5m, groups ``lane % 100``."""
+    hours, n_groups = 6, 100
+    block = 2 * xtime.HOUR
+    n_dp = int(block // (10 * SEC))
+    n_blocks = int(hours * xtime.HOUR // block)
+    n_unique = min(2000, n_series)
+    streams, grids = [], []
+    for b in range(n_blocks):
+        bs = START + b * block
+        ts_u, vs_u = gen_grids(n_unique, n_dp, start=bs - 10 * SEC)
+        for u in range(n_unique):
+            enc = tsz.Encoder(bs)
+            for t, v in zip(ts_u[u].tolist(), vs_u[u].tolist()):
+                enc.encode(t, v)
+            streams.append(enc.finalize())
+        grids.append((ts_u, vs_u))
+    uniq_words, uniq_nbits = pack_streams(streams)  # [n_blocks * n_unique, W]
+    lane_u = np.arange(n_series, dtype=np.int64) % n_unique
+    flat = (np.repeat(lane_u, n_blocks)
+            + np.tile(np.arange(n_blocks, dtype=np.int64) * n_unique, n_series))
+    steps = np.arange(START + 5 * xtime.MINUTE, START + n_blocks * block - 10 * SEC + 1,
+                      60 * SEC, dtype=np.int64)
+    batch = QueryBatch(
+        words=uniq_words[flat], nbits=uniq_nbits[flat],
+        slots=np.repeat(np.arange(n_series, dtype=np.int64), n_blocks), tiers=None,
+        n_tiers=1, steps=steps, groups=np.arange(n_series, dtype=np.int64) % n_groups,
+        n_lanes=n_series, n_groups=n_groups, n_cap=n_blocks * n_dp, n_dp=n_dp,
+        range_nanos=5 * xtime.MINUTE)
+    return FanoutCorpus(batch, n_unique, grids)
+
+
+def _probe_values(kind: int, n: int, rng: np.random.Generator) -> np.ndarray:
+    """One block of a probe lane's values."""
+    if kind == 0:  # counter with resets
+        v = np.cumsum(rng.random(n) * 3)
+        for r in rng.choice(n, 2, replace=False):
+            v[r:] -= v[r] - rng.random()
+        return np.round(v, 3)
+    if kind == 1:  # gauge with NaN and +-Inf samples
+        v = np.round(rng.standard_normal(n) * 10, 2)
+        pick = rng.random(n)
+        v[pick < 0.1] = np.nan
+        v[(pick >= 0.1) & (pick < 0.13)] = np.inf
+        v[(pick >= 0.13) & (pick < 0.15)] = -np.inf
+        return v
+    if kind == 2:  # signed zeros and small integers
+        v = rng.integers(-2, 3, n).astype(np.float64)
+        v[v == 0] = np.where(rng.random(int((v == 0).sum())) < 0.5, -0.0, 0.0)
+        return v
+    if kind == 3:  # counter at 1e9 magnitudes
+        return 1e9 + np.cumsum(rng.integers(0, 1000, n)).astype(np.float64)
+    if kind == 4:  # all-NaN block
+        return np.full(n, np.nan)
+    return np.round(np.cumsum(rng.standard_normal(n)), 2)  # float walk
+
+
+def query_probe_corpus(n_real: int = 11, n_lanes: int = 14, seed: int = 11,
+                       tiered: bool = False) -> QueryBatch:
+    """A small query batch with one lane per probe (see the module note).
+
+    Lanes ``[0, n_real)`` carry three blocks of 40 samples at 10s,
+    ``[n_real, n_lanes)`` are padding lanes: three empty streams park on
+    the last lane.  ``n_cap = 120`` (plus the 11 coarse samples the cut
+    keeps when tiered), ``n_dp = 40``, range 5m, 4 groups.  Lane 1 steps back in time at its
+    second block (unsorted), lane 2 has an extra block (overflow), lane 4
+    a stream longer than ``dp`` (truncation), lane 5 keeps three samples
+    per block (sparse).  With ``tiered`` every third lane also reads a
+    coarser tier (rank 1, 60s samples reaching back before and into the
+    fine data; its row comes first), stitched by the tier cut."""
+    n_blocks, dp, n_pad_streams, n_groups = 3, 40, 3, 4
+    rng = np.random.default_rng(seed)
+    rows = []  # (slot, tier, ts list, vs list, stream start)
+    for lane in range(n_real):
+        kind = lane % 6
+        if tiered and lane % 3 == 0:
+            t = START + np.arange(-10, 10, dtype=np.int64) * 60 * SEC
+            rows.append((lane, 1, t, np.round(rng.random(len(t)) * 50, 1), int(t[0])))
+        for b in range(n_blocks + (lane == 2)):
+            base = START + b * dp * 10 * SEC
+            if lane == 1 and b == 1:
+                base -= 25 * 10 * SEC  # block 1 starts before block 0 ends
+            n = dp + 2 if (lane == 4 and b == 0) else dp
+            t = base + (np.arange(n, dtype=np.int64) + 1) * 10 * SEC
+            v = _probe_values(kind, n, rng)
+            if lane == 5:
+                keep = np.sort(rng.choice(n, 3, replace=False))
+                t, v = t[keep], v[keep]
+            rows.append((lane, 0, t, v, int(base)))
+    for _ in range(n_pad_streams):
+        rows.append((n_lanes - 1, 0, None, None, START))
+    streams = [b"" if t is None else tsz.encode_series(t.tolist(), v.tolist(), start)
+               for _, _, t, v, start in rows]
+    words, nbits = pack_streams(streams)
+    span = n_blocks * dp * 10 * SEC
+    steps = START + np.arange(-1, span // (60 * SEC) + 3, dtype=np.int64) * 60 * SEC
+    groups = np.arange(n_lanes, dtype=np.int64) % n_groups
+    groups[n_real:] = 0  # padding lanes parked on group 0
+    return QueryBatch(
+        words=words, nbits=nbits, slots=np.asarray([r[0] for r in rows], dtype=np.int64),
+        tiers=np.asarray([r[1] for r in rows], dtype=np.int64) if tiered else None,
+        n_tiers=2 if tiered else 1, steps=steps, groups=groups, n_lanes=n_lanes,
+        n_groups=n_groups, n_cap=n_blocks * dp + (11 if tiered else 0), n_dp=dp,
+        range_nanos=5 * xtime.MINUTE)
+
+
+def long_lanes(n_cap: int = 32768, seed: int = 13):
+    """Merged lanes of ``n_cap`` samples at 10s (32768 is the power of two
+    the query engine rounds a raw 10s lane of more than 2.2 days up to):
+    ``(times i64[6, n_cap], values f64[6, n_cap], steps i64[S])``.
+
+    Integer values, as the fan-out corpus's walks are, so every running
+    sum is exact and any summation order gives the same prefix sums (with
+    fractional values two orders differ by an ulp of the running sum,
+    which the prefix-difference form turns into a relative error that
+    grows with the lane; ROADMAP.md queue 3).  Lanes: an integer walk, a
+    counter with resets, a counter at 1e9, the walk with NaN holes and
+    +-Inf samples, an all-NaN lane, and the walk filling half of
+    ``n_cap`` (INT64_MAX / NaN tail).  Steps every 60s from before the
+    first sample to after the last."""
+    rng = np.random.default_rng(seed)
+    n_lanes = 6
+    times = np.full((n_lanes, n_cap), np.iinfo(np.int64).max, dtype=np.int64)
+    values = np.full((n_lanes, n_cap), np.nan)
+    walk = np.maximum(0, 500 + np.cumsum(rng.integers(-2, 3, n_cap))).astype(np.float64)
+    counter = np.cumsum(rng.integers(0, 100, n_cap)).astype(np.float64)
+    for r in rng.choice(n_cap, 3, replace=False):
+        counter[r:] -= counter[r] - rng.integers(0, 10)
+    holes = walk.copy()
+    pick = rng.random(n_cap)
+    holes[pick < 0.1] = np.nan
+    holes[(pick >= 0.1) & (pick < 0.1005)] = np.inf
+    holes[(pick >= 0.1005) & (pick < 0.101)] = -np.inf
+    half = n_cap // 2
+    rows = (walk, counter, 1e9 + np.cumsum(rng.integers(0, 1000, n_cap)), holes,
+            np.full(n_cap, np.nan), walk[:half])
+    for lane, v in enumerate(rows):
+        times[lane, :len(v)] = START + (np.arange(len(v), dtype=np.int64) + 1) * 10 * SEC
+        values[lane, :len(v)] = v
+    steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
+    return times, values, steps

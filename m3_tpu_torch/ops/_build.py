@@ -119,3 +119,4 @@ def check(lib: ctypes.CDLL, code: int, kernel: str) -> None:
 P = ctypes.c_void_p  # device pointers, the stream, host pointers
 I = ctypes.c_int
 LL = ctypes.c_longlong
+D = ctypes.c_double

@@ -92,7 +92,7 @@ def test_port_imports_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 12  # every module was imported
+    assert int(res.stdout.strip()) >= 21  # every module was imported, the query slice too
 
 
 def test_default_device_never_falls_back_to_cpu(monkeypatch):
