@@ -50,6 +50,7 @@ when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -59,6 +60,8 @@ import time
 import numpy as np
 import torch
 
+from m3_tpu_torch import metrics
+from m3_tpu_torch.aggregator import Aggregator, ElemPool, elems
 from m3_tpu_torch.models import corpus
 from m3_tpu_torch.models import query_pipeline as qp
 from m3_tpu_torch.models.read_pipeline import _SIMPLE_AGGS, decode_downsample, inputs_from_numpy
@@ -66,7 +69,10 @@ from m3_tpu_torch.ops import _build, m3tsz_scalar, query_grouped, query_merge, q
 from m3_tpu_torch.ops import consolidate as cons
 from m3_tpu_torch.ops import downsample as ds
 from m3_tpu_torch.ops import m3tsz_decode as dec
-from m3_tpu_torch.ops.bitstream import pack_streams
+from m3_tpu_torch.ops import m3tsz_encode as enc
+from m3_tpu_torch.ops.bitstream import pack_streams, unpack_stream
+from m3_tpu_torch.storage import shard
+from m3_tpu_torch.utils import native
 
 N_SERIES = 1_000_000
 N_UNIQUE = 2000
@@ -147,6 +153,20 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def row(name, rows, ms, plain_ms, bytes_, ops_ms, library_ms=None, library=""):
+    """Record and print one kernel's time beside its plain version's, its
+    bound (the larger of the bytes over the memory rate and the operations
+    over their rate) and, where one exists, a PyTorch call's time."""
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                  "library_ms": library_ms}
+    log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rows[name]['bound_ms']:.3f} ms by {rows[name]['bound_by']} (bytes {bytes_ms:.3f} ms, "
+        f"operations {ops_ms:.3f} ms)"
+        + (f", {library} {library_ms:.3f} ms" if library_ms is not None else ""))
 
 
 # --- phase 3: kernel vs plain version on the card -------------------------
@@ -290,17 +310,6 @@ def kernel_times(words, nbits, datapoints: int):
     in_bytes = words.numel() * 4 + nbits.numel() * 4
     rows = {}
 
-    def row(name, ms, plain_ms, bytes_, ops_ms, library_ms=None):
-        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-        rows[name] = {"ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                      "library_ms": library_ms}
-        log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{rows[name]['bound_ms']:.3f} ms by {rows[name]['bound_by']} "
-            f"(bytes {bytes_ms:.3f} ms, operations {ops_ms:.3f} ms)"
-            + (f", torch.sort {library_ms:.3f} ms" if library_ms is not None else ""))
-
     for full in (False, True):
         name = "decode_downsample_fused" + ("[full_agg]" if full else "")
         k = dec.decode_downsample_fused(words, nbits, N_DP, WINDOW, full_agg=full)
@@ -314,7 +323,7 @@ def kernel_times(words, nbits, datapoints: int):
         plain_ms = time_ms(lambda: dec.decode_downsample_fused_plain(
             words, nbits, N_DP, WINDOW, full_agg=full), reps=3, warmup=0)
         out_bytes = L * n_win * (8 + 8 + (32 if full else 0)) + L * 5
-        row(name, ms, plain_ms, in_bytes + out_bytes, decode_ops_ms)
+        row(name, rows, ms, plain_ms, in_bytes + out_bytes, decode_ops_ms)
     torch.cuda.empty_cache()
 
     k = dec.decode_batched(words, nbits, N_DP)
@@ -325,7 +334,7 @@ def kernel_times(words, nbits, datapoints: int):
     torch.cuda.empty_cache()
     ms = time_ms(lambda: dec.decode_batched(words, nbits, N_DP), reps=5)
     plain_ms = time_ms(lambda: dec.decode_batched_plain(words, nbits, N_DP), reps=3, warmup=0)
-    row("decode_batched", ms, plain_ms, in_bytes + L * N_DP * 17 + L * 5, decode_ops_ms)
+    row("decode_batched", rows, ms, plain_ms, in_bytes + L * N_DP * 17 + L * 5, decode_ops_ms)
 
     _, vs, valid, _, _ = k
     del k
@@ -339,7 +348,7 @@ def kernel_times(words, nbits, datapoints: int):
     library_ms = time_ms(lambda: torch.sort(keys, dim=2), reps=7)
     q_bytes = L * N_DP * 9 + L * n_win * 8 * len(q)
     q_ops_ms = L * n_win * 2 * WINDOW * WINDOW / FP64_CMP_PER_S * 1e3
-    row("window_quantiles", ms, plain_ms, q_bytes, q_ops_ms, library_ms)
+    row("window_quantiles", rows, ms, plain_ms, q_bytes, q_ops_ms, library_ms, "torch.sort")
     del vs, valid, keys, kq, pq
     torch.cuda.empty_cache()
     return rows
@@ -575,16 +584,6 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     dev = words.device
     rows = {}
 
-    def row(name, ms, plain_ms, bytes_, ops_ms, library_ms=None, library=""):
-        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                      "library_ms": library_ms}
-        log(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{rows[name]['bound_ms']:.3f} ms by {rows[name]['bound_by']} (bytes "
-            f"{bytes_ms:.3f} ms, operations {ops_ms:.3f} ms)"
-            + (f", {library} {library_ms:.3f} ms" if library_ms is not None else ""))
-
     M, T, L, N, S = len(b.slots), b.n_dp, b.n_lanes, b.n_cap, len(b.steps)
     in_bytes = words.numel() * 4 + nbits.numel() * 4
     k = dec.decode_batched(words, nbits, T, flag_truncation=True)
@@ -596,7 +595,7 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     ms = time_ms(lambda: dec.decode_batched(words, nbits, T, flag_truncation=True), reps=5)
     plain_ms = time_ms(lambda: dec.decode_batched_plain(words, nbits, T, flag_truncation=True),
                        reps=3, warmup=0)
-    row("decode_batched[flag_truncation]", ms, plain_ms, in_bytes + M * T * 17 + M * 5,
+    row("decode_batched[flag_truncation]", rows, ms, plain_ms, in_bytes + M * T * 17 + M * 5,
         datapoints * INT32_OPS_PER_DATAPOINT / INT32_OPS_PER_S * 1e3)
 
     ts, vs, valid, _, _ = k
@@ -608,7 +607,7 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
         _record("query_merge", same_bits(kt, pt, f"main query_merge.{field}"))
     del pm
     torch.cuda.empty_cache()
-    row("query_merge", time_ms(merge, reps=7),
+    row("query_merge", rows, time_ms(merge, reps=7),
         time_ms(lambda: query_merge.lane_merge_plain(ts, vs, valid, slots, L, N), reps=3),
         M * T * 17 + M * 8 + L * N * 16 + L * 9, 0.0)
     times, values = km[0], km[1]
@@ -626,7 +625,7 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     _record("query_rate", close(rate, query_temporal.rate_plain(times, values, steps, r, True,
                                                                 True), 1e-12, "main rate"))
     queries = torch.cat([steps - r - 1, steps]).expand(L, 2 * S).contiguous()
-    row("query_rate", time_ms(fn, reps=7),
+    row("query_rate", rows, time_ms(fn, reps=7),
         time_ms(lambda: query_temporal.rate_plain(times, values, steps, r, True, True), reps=3),
         lane_bytes, rate_ops_ms,
         time_ms(lambda: torch.searchsorted(times, queries, right=True), reps=7),
@@ -636,7 +635,7 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     fn = lambda: query_temporal.reduce_window(times, values, steps, r, "avg_over_time")  # noqa
     _record("query_reduce", close(fn(), query_temporal.reduce_plain(
         times, values, steps, r, "avg_over_time"), 1e-12, "main avg_over_time"))
-    row("query_reduce", time_ms(fn, reps=7),
+    row("query_reduce", rows, time_ms(fn, reps=7),
         time_ms(lambda: query_temporal.reduce_plain(times, values, steps, r, "avg_over_time"),
                 reps=3), lane_bytes + L * 8, L * S * 2 * levels * 4 / INT32_OPS_PER_S * 1e3)
     del times, values
@@ -649,7 +648,7 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     _record("query_grouped", close(fn(), query_grouped.grouped_reduce_plain(
         rate, groups, G, "sum"), 1e-12, "main sum by (g)"))
     vz = torch.nan_to_num(rate, nan=0.0)
-    row("query_grouped", time_ms(fn, reps=7),
+    row("query_grouped", rows, time_ms(fn, reps=7),
         time_ms(lambda: query_grouped.grouped_reduce_plain(rate, groups, G, "sum"), reps=3),
         L * S * 8 + L * 8 + G * S * 8, L * S / FP64_OPS_PER_S * 1e3,
         time_ms(lambda: torch.zeros((G, S), dtype=torch.float64, device=dev).index_add_(
@@ -659,6 +658,533 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     del rate, vz
     torch.cuda.empty_cache()
     return rows
+
+
+# --- phase 7: the write side's kernels vs their plain versions -------------
+
+ENC_SERIES = 250_000  # the reference's bench_encode shape (bench.py:323, side_leg_specs)
+ROLLUP_LANES = 1_000_000  # bench.py:652 bench_rollup_flush at its side-leg size
+ROLLUP_WARMUP, ROLLUP_ROUNDS = 2, 12
+ROLLUP_SAMPLE = 10_000  # lanes also run through the plain ElemPool on the card
+ROLLUP_SLO_MS = 1000.0  # the reference's p99 flush SLO (bench.py:692), printed, not a gate
+TIMER_WINDOWS, TIMER_PER_WINDOW = 100_000, 10
+TIMER_HOT = (64, 4096)  # hot windows x points (2 x the default timer_summary_size)
+TIMER_QS = (0.5, 0.9, 0.95, 0.99, 0.999)
+CONFIG2_SERIES, CONFIG2_CPU_SERIES = 100_000, 5_000
+CONFIG2_WINDOWS, CONFIG2_BATCHES = 5, 6
+SEAL_LANES = 10_000
+# 64-bit integer operations csrc/m3tsz_encode.cu spends per step, counted from
+# the code: the delta-of-delta (3) and its bucket (8), three field appends of
+# ~10 each (mask, space test, shift, or, count, word test/emit): 41.
+ENC_INT32_OPS_PER_STEP = 2 * 41
+
+
+def _encode_args(ts, vs, start, n_valid):
+    """pack_encode's arguments on the card, the value fields from the
+    native value grammar (as encode_batched computes them)."""
+    cb, cn, pb, pn = native.prepare_value_fields_native(vs, n_valid)
+    host = (ts, start, n_valid, cb.view(np.int64), cn, pb.view(np.int64), pn)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE) for x in host)
+
+
+def _words_bits(words: torch.Tensor) -> torch.Tensor:
+    return words.view(torch.int32)
+
+
+def compare_encode(series, tag: str):
+    """E1 against its plain version on one batch, twice; every lane's
+    stream against the scalar encoder's."""
+    args = _encode_args(*corpus.encode_batch(series))
+    k = twice(lambda: tuple(enc.pack_encode(*args)), f"{tag} pack_encode")
+    p = enc.pack_encode_plain(*args)
+    _record("pack_encode", same_bits(_words_bits(k[0]), _words_bits(p[0]),
+                                     f"{tag} pack_encode words"))
+    same_bits(k[1], p[1], f"{tag} pack_encode nbits")
+    words, nbits = k[0].cpu().numpy(), k[1].cpu().numpy()
+    for lane, (t, v, st) in enumerate(series):
+        want = m3tsz_scalar.encode_series(t, v, st) if t else b""
+        got = unpack_stream(words[lane], ((int(nbits[lane]) + 7) // 8) * 8)
+        check(got == want, f"{tag} lane {lane}: E1's stream differs from the scalar encoder's")
+    torch.cuda.synchronize()
+    log(f"write parity encode {tag}: {len(series)} lanes x {k[0].shape[1]} words: E1 bit for bit "
+        f"with its plain version and twice, every stream byte for byte with the scalar encoder")
+
+
+def compare_elems(batches, tag: str, n_slots: int = 64):
+    """A1a and A1b against their plain versions on a run of ingest batches
+    (each kernel also re-run from the same state for the same bits)."""
+    st_k = elems.init_state(n_slots // 8, 8, DEVICE)
+    st_p = elems.ElemState(*(x.clone() for x in st_k))
+    rng = np.random.default_rng(17)
+    dropped = 0
+    for b, host in enumerate(batches):
+        batch = [torch.from_numpy(x).to(DEVICE) for x in host]
+        again = elems.ElemState(*(x.clone() for x in st_k))
+        dk = elems.scatter_update(st_k, *batch)
+        d2 = elems.scatter_update(again, *batch)
+        dp = elems.scatter_update_plain(st_p, *batch)
+        check(int(dk) == int(dp) == int(d2), f"{tag} batch {b}: stale counts {int(dk)}, "
+              f"{int(d2)}, plain {int(dp)}")
+        dropped += int(dk)
+        for name, x, y, z in zip(elems.ElemState._fields, st_k, again, st_p):
+            same_bits(x, y, f"{tag} batch {b} scatter_update.{name}: second run")
+            _record("scatter_update", same_bits(x, z, f"{tag} batch {b} scatter_update.{name}"))
+        flats = torch.from_numpy(np.sort(rng.choice(n_slots, 20, replace=False))).to(DEVICE)
+        again = elems.ElemState(*(x.clone() for x in st_k))
+        ok = elems.gather_reset(st_k, flats)
+        o2 = elems.gather_reset(again, flats)
+        op = elems.gather_reset_plain(st_p, flats)
+        for name, x, y, z in zip(elems.ElemState._fields, ok, o2, op):
+            same_bits(x, y, f"{tag} batch {b} gather_reset.{name}: second run")
+            _record("gather_reset", same_bits(x, z, f"{tag} batch {b} gather_reset.{name}"))
+        for name, x, z in zip(elems.ElemState._fields, st_k, st_p):
+            _record("gather_reset", same_bits(x, z, f"{tag} batch {b} reset state.{name}"))
+    check(dropped > 0, f"{tag}: no stale sample was dropped")
+    torch.cuda.synchronize()
+    log(f"write parity slots {tag}: {len(batches)} batches of {len(batches[0][0])} samples over "
+        f"{n_slots} slots ({dropped} stale): A1a and A1b bit for bit with their plain versions "
+        f"and twice")
+
+
+def compare_padded_quantiles():
+    cases = corpus.quantile_probes() + [
+        corpus.long_quantile_rows(*TIMER_HOT), corpus.long_quantile_rows(3, 5000),
+        corpus.long_quantile_rows(1, 65536)]
+    qs = TIMER_QS + (0.0, 1.0)
+    for v, w in cases:
+        F, K = v.shape
+        tv, tw = torch.from_numpy(v).to(DEVICE), torch.from_numpy(w).to(DEVICE)
+        k = twice(lambda: elems.padded_quantiles(tv, tw, qs), f"padded_quantiles {F}x{K}")
+        _record("padded_quantiles", same_bits(k, elems.padded_quantiles_plain(tv, tw, qs),
+                                              f"padded_quantiles {F}x{K}"))
+        P = 1 << (K - 1).bit_length()
+        log(f"write parity quantiles {F}x{K}: "
+            f"{'global scratch' if P > elems.SMEM_MAX_P else 'shared memory'} sort, A1c bit for "
+            f"bit with its plain version and twice")
+
+
+# --- phase 8: the rollup flush at full size (BASELINE configs 2-3) ----------
+
+
+@contextlib.contextmanager
+def plain_elem_kernels():
+    """ElemPool with the slot kernels' plain versions (on whatever device
+    its state lies): the yardstick of the rollup check.  Clears the launch
+    counts and fails if a kernel was launched inside."""
+    saved = elems.scatter_update, elems.gather_reset, elems.padded_quantiles
+    elems.scatter_update, elems.gather_reset, elems.padded_quantiles = (
+        elems.scatter_update_plain, elems.gather_reset_plain, elems.padded_quantiles_plain)
+    _build.reset_launches()
+    try:
+        yield
+    finally:
+        elems.scatter_update, elems.gather_reset, elems.padded_quantiles = saved
+    check(not _build.LAUNCHES, f"the plain pool launched kernels: {dict(_build.LAUNCHES)}")
+
+
+def _check_single_sample_windows(fw, vals, t, n, what):
+    check(fw is not None and fw.lanes.size == n, f"{what}: {n} windows expected")
+    check(np.array_equal(fw.lanes, np.arange(n)) and bool((fw.starts == t).all()),
+          f"{what}: lanes/starts")
+    check(bool((fw.count == 1).all()), f"{what}: counts")
+    for name in ("sum", "min", "max", "last"):
+        check(np.array_equal(getattr(fw, name).view(np.int64), vals.view(np.int64)),
+              f"{what}: {name} != the sample")
+    check(np.array_equal(fw.sum_sq.view(np.int64), (vals * vals).view(np.int64)),
+          f"{what}: sum_sq != value^2")
+
+
+def rollup_main():
+    """bench.py:652 bench_rollup_flush on the card: ElemPool(10s,
+    capacity=1M, windows=8), one sample per lane per window at t + 5s,
+    2 warm-up rounds, then 12 rounds of update + flush_before."""
+    n, res = ROLLUP_LANES, 10 * SEC
+    t0 = time.time()
+    pool = ElemPool(res, capacity=n, windows=8, device=DEVICE)
+    for _ in range(n):
+        pool.alloc_lane()
+    with plain_elem_kernels():
+        ref = ElemPool(res, capacity=ROLLUP_SAMPLE, windows=8, device=DEVICE)
+        for _ in range(ROLLUP_SAMPLE):
+            ref.alloc_lane()
+    lanes = np.arange(n, dtype=np.int64)
+    rounds = corpus.rollup_rounds(n, ROLLUP_WARMUP + ROLLUP_ROUNDS)
+    log(f"rollup data: {n} lanes x 8 windows ({8 * n} slots, 8 x {8 * n * 8} B of state), "
+        f"{len(rounds)} rounds of seed-42 values; set up in {time.time() - t0:.1f} s")
+    t = corpus.START
+    upd, lat, windows, launches = [], [], 0, {}
+    for i, vals in enumerate(rounds):
+        times = np.full(n, t + 5 * SEC, dtype=np.int64)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pool.update(lanes, times, vals)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fw = pool.flush_before(t + res)
+        t3 = time.perf_counter()
+        got = dict(_build.LAUNCHES)
+        for kernel in ("scatter_update", "gather_reset"):
+            check(got.get(kernel, 0) > 0, f"rollup round {i}: {kernel} not launched")
+        _check_single_sample_windows(fw, vals, t, n, f"rollup round {i}")
+        with plain_elem_kernels():
+            ref.update(lanes[:ROLLUP_SAMPLE], times[:ROLLUP_SAMPLE], vals[:ROLLUP_SAMPLE])
+            fr = ref.flush_before(t + res)
+        for name, x, y in zip(fw._fields, fw, fr):
+            check(np.array_equal(np.asarray(x[:ROLLUP_SAMPLE]).view(np.int64),
+                                 np.asarray(y).view(np.int64)),
+                  f"rollup round {i}: {name} of the first {ROLLUP_SAMPLE} lanes vs the plain pool")
+        if i >= ROLLUP_WARMUP:
+            upd.append((t2 - t1) * 1e3)
+            lat.append((t3 - t2) * 1e3)
+            windows += fw.lanes.size
+            for kernel, c in got.items():
+                launches[kernel] = launches.get(kernel, 0) + c
+        t += res
+    lat_a = np.asarray(lat)
+    res_ = {"update_ms_p50": float(np.median(upd)), "flush_ms_p50": float(np.quantile(lat_a, 0.5)),
+            "flush_ms_p99": float(np.quantile(lat_a, 0.99)),
+            "windows_per_s": windows / (lat_a.sum() / 1e3), "launches": launches}
+    log(f"rollup main: {ROLLUP_ROUNDS} rounds of {n} lanes; launches {launches}; update "
+        f"{res_['update_ms_p50']:.3f} ms (median); flush p50 {res_['flush_ms_p50']:.3f} ms, p99 "
+        f"{res_['flush_ms_p99']:.3f} ms (host clock, as bench.py; the reference's SLO is p99 <= "
+        f"{ROLLUP_SLO_MS:.0f} ms, not a gate here); {res_['windows_per_s']:.0f} windows/s; every "
+        f"window has its sample's moments, the first {ROLLUP_SAMPLE} lanes equal the plain pool's")
+    res_["stages_ms"] = flush_stages(pool, lanes, rounds[-1], t)
+    t += res
+    res_["device"] = profile_round(pool, lanes, rounds[-1], t)
+    t += res
+    flat = torch.from_numpy(pool._flat(lanes, np.full(n, t, dtype=np.int64))).to(DEVICE)
+    batch = (flat, torch.full((n,), t, dtype=torch.int64, device=DEVICE),
+             torch.full((n,), t + 5 * SEC, dtype=torch.int64, device=DEVICE),
+             torch.from_numpy(rounds[-1]).to(DEVICE))
+    return pool, batch, res_
+
+
+def flush_stages(pool, lanes, vals, t):
+    """One more round with ElemPool.flush_before's steps timed one by one
+    (host clock, each ending in a sync): where the flush latency goes."""
+    pool.update(lanes, np.full(lanes.size, t + 5 * SEC, dtype=np.int64), vals)
+    torch.cuda.synchronize()
+    stages = {}
+    t0 = time.perf_counter()
+    ws = pool._state.win_start.cpu().numpy()
+    stages[f"win_start to host ({ws.nbytes} B)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flats = np.nonzero((ws != elems.EMPTY) & (ws + pool.resolution <= t + pool.resolution))[0]
+    flats = flats[np.argsort(ws[flats], kind="stable")]
+    stages["nonzero + stable argsort"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = elems.gather_reset(pool._state, torch.from_numpy(flats).to(DEVICE))
+    torch.cuda.synchronize()
+    stages["flats to card + gather_reset"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = elems.ElemState(*(x.cpu().numpy() for x in out))
+    stages["8 fields to host"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.where(np.isinf(out.min), np.nan, out.min), np.where(np.isinf(out.max), np.nan, out.max)
+    stages["NaN fill of min/max"] = time.perf_counter() - t0
+    _check_single_sample_windows(elems.FlushedWindows(flats // pool.windows, *out[:6], out.last),
+                                 vals, t, lanes.size, "staged flush")
+    ms = {k: v * 1e3 for k, v in stages.items()}
+    log("rollup flush stages (host clock, ms): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; total {sum(ms.values()):.3f}")
+    return ms
+
+
+def profile_round(pool, lanes, vals, t):
+    """One update + flush round under torch.profiler: the device's kernel
+    and copy time against the round's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    times = np.full(lanes.size, t + 5 * SEC, dtype=np.int64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pool.update(lanes, times, vals)
+        pool.flush_before(t + pool.resolution)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel_us = copy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # a host op: its kernels are counted on their own
+            continue
+        dev_us = ev.self_device_time_total
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copy_us += dev_us
+        else:
+            kernel_us += dev_us
+    res = {"wall_ms": wall, "kernel_ms": kernel_us / 1e3, "copy_ms": copy_us / 1e3}
+    if kernel_us + copy_us == 0:
+        log(f"rollup round under torch.profiler: {wall:.3f} ms wall; the profiler saw no device "
+            f"activity, so the device's busy share is not measured")
+    else:
+        res["busy_share"] = (kernel_us + copy_us) / 1e3 / wall
+        log(f"rollup round under torch.profiler: {wall:.3f} ms wall (profiled), device kernels "
+            f"{res['kernel_ms']:.3f} ms, copies {res['copy_ms']:.3f} ms: the device is busy "
+            f"{100 * res['busy_share']:.1f}% of the round (kernels "
+            f"{100 * res['kernel_ms'] / wall:.2f}%)")
+    return res
+
+
+def slot_kernel_times(pool, batch, rows):
+    """A1a (and its grouping glue) and A1b at the rollup's shapes: 1M
+    samples into 1M of 8M slots, and a flush of those 1M slots."""
+    state = pool._state
+    n = batch[0].numel()
+    a = elems.ElemState(*(x.clone() for x in state))
+    b = elems.ElemState(*(x.clone() for x in state))
+    dk = elems.scatter_update(a, *batch)
+    dp = elems.scatter_update_plain(b, *batch)
+    check(int(dk) == int(dp), "full-size scatter_update stale counts")
+    for name, x, y in zip(elems.ElemState._fields, a, b):
+        _record("scatter_update", same_bits(x, y, f"full-size scatter_update.{name}"))
+    order, slots, offsets = elems.group_by_slot(batch[0])
+    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    glue_ms = time_ms(lambda: elems.group_by_slot(batch[0]), reps=7)
+    ms = time_ms(lambda: elems._scatter_kernel(a, order, slots, offsets, *batch[1:], dropped),
+                 reps=7)
+    plain_ms = time_ms(lambda: elems.scatter_update_plain(b, *batch), reps=3)
+    S = slots.numel()
+    # the function's batch is 32 B a sample (the kernel reads the order in
+    # flat's place); the touched slots' eight fields are read and written once
+    row("scatter_update", rows, ms, plain_ms, n * 32 + S * 8 * 8 * 2,
+        n * 20 / FP64_OPS_PER_S * 1e3)
+    log(f"time scatter_update grouping glue (stable torch.sort + unique_consecutive + cumsum, "
+        f"{n} samples): {glue_ms:.3f} ms")
+
+    flats = slots
+    # the timing runs above added into a and b unequally: flush equal copies
+    b = elems.ElemState(*(x.clone() for x in a))
+    ok = elems.gather_reset(a, flats)
+    op = elems.gather_reset_plain(b, flats)
+    for name, x, y in zip(elems.ElemState._fields, ok, op):
+        _record("gather_reset", same_bits(x, y, f"full-size gather_reset.{name}"))
+    for name, x, y in zip(elems.ElemState._fields, a, b):
+        _record("gather_reset", same_bits(x, y, f"full-size reset state.{name}"))
+    F = flats.numel()
+    row("gather_reset", rows, time_ms(lambda: elems.gather_reset(a, flats), reps=7),
+        time_ms(lambda: elems.gather_reset_plain(b, flats), reps=3), F * 8 + F * 8 * 8 * 3, 0.0)
+    del a, b, ok, op
+    torch.cuda.empty_cache()
+
+
+# --- phase 9: timer quantiles through the pool ------------------------------
+
+
+def _sort_ops_ms(F: int, K: int, n_q: int) -> float:
+    """A1c's operations: the bitonic network's compare-exchanges (about
+    6 INT32 operations each on a 64-bit key and a column) and the walk's
+    FP64 adds and compares."""
+    P = 1 << (K - 1).bit_length()
+    lg = P.bit_length() - 1
+    exchanges = F * (P // 2) * lg * (lg + 1) // 2
+    return (exchanges * 6 / INT32_OPS_PER_S + F * K * (2 + n_q) / FP64_OPS_PER_S) * 1e3
+
+
+def timer_main(rows):
+    """ElemPool.timer_quantiles on 100,000 windows x 10 samples and on 64
+    hot windows of 4,096 points; A1c's row of the table at the first."""
+    results = {}
+    for tag, (n_win, per) in (("timer", (TIMER_WINDOWS, TIMER_PER_WINDOW)), ("hot", TIMER_HOT)):
+        lanes, times, values = corpus.timer_windows(n_win, per)
+        pool = ElemPool(10 * SEC, capacity=n_win, windows=8, device=DEVICE)
+        for _ in range(n_win):
+            pool.alloc_lane()
+        pool.update(lanes, times, values, timer_mask=np.ones(lanes.size, dtype=bool))
+        fw = pool.flush_before(corpus.START + 10 * SEC)
+        saved = list(pool._timer_chunks), pool._timer_rows, pool._compact_at
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        q = pool.timer_quantiles(fw, TIMER_QS)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        check(launches.get("padded_quantiles", 0) > 0, f"{tag}: padded_quantiles not launched")
+        pool._timer_chunks, pool._timer_rows, pool._compact_at = saved
+        v, w = pool.timer_padded(fw)
+        check(v.shape == (n_win, per), f"{tag}: padded shape {v.shape}")
+        tv, tw = torch.from_numpy(v).to(DEVICE), torch.from_numpy(w).to(DEVICE)
+        k = elems.padded_quantiles(tv, tw, TIMER_QS)
+        _record("padded_quantiles", same_bits(k, elems.padded_quantiles_plain(tv, tw, TIMER_QS),
+                                              f"{tag} padded_quantiles"))
+        same_bits(torch.from_numpy(q), k.cpu(), f"{tag}: timer_quantiles vs the kernel")
+        # unit weights: the nearest rank ceil(q*n) of each window, from numpy
+        srt = np.sort(values.reshape(n_win, per), axis=1)
+        for j, qq in enumerate(TIMER_QS):
+            r = min(max(int(np.ceil(qq * per)), 1), per) - 1
+            check(np.array_equal(q[:, j], srt[:, r]), f"{tag}: q={qq} vs the sorted windows")
+        results[tag] = {"launches": launches, "wall_ms": wall}
+        log(f"timer {tag}: {n_win} windows x {per} samples; launches {launches}; "
+            f"timer_quantiles {wall:.3f} ms (host clock, padding included); nearest ranks "
+            f"match the sorted windows")
+        if tag == "timer":
+            library_ms = time_ms(lambda: (lambda o: (torch.gather(tv, 1, o), torch.cumsum(
+                torch.gather(tw, 1, o), dim=1)))(torch.sort(tv, dim=1, stable=True).indices),
+                reps=7)
+            row("padded_quantiles", rows, time_ms(lambda: elems.padded_quantiles(tv, tw, TIMER_QS),
+                                                  reps=7),
+                time_ms(lambda: elems.padded_quantiles_plain(tv, tw, TIMER_QS), reps=5),
+                n_win * per * 16 + n_win * len(TIMER_QS) * 8,
+                _sort_ops_ms(n_win, per, len(TIMER_QS)), library_ms,
+                "torch.sort(stable) + cumsum + gather")
+        else:
+            ms = time_ms(lambda: elems.padded_quantiles(tv, tw, TIMER_QS), reps=7)
+            log(f"time padded_quantiles[{n_win}x{per}]: kernel {ms:.3f} ms, bound by operations "
+                f"{_sort_ops_ms(n_win, per, len(TIMER_QS)):.3f} ms")
+        del pool, tv, tw, k
+    return results
+
+
+# --- phase 10: the aggregator through its entry point (BASELINE config 2) ---
+
+
+def _config2_metas():
+    def staged(t):
+        return (metrics.StagedMetadata(0, (metrics.PipelineMetadata(
+            aggregation_id=metrics.AggregationID((t,)),
+            storage_policies=(metrics.StoragePolicy.parse("1m:40d"),)),)),)
+    return {1: staged(ds.AggregationType.SUM), 3: staged(ds.AggregationType.MEAN)}
+
+
+def aggregator_main():
+    """100,000 series (50,000 counters: SUM, 50,000 gauges: MEAN) at
+    1m:40d, six 10s batches per window, flush_before each minute, 5
+    windows; the first 5,000 series also through the plain versions on
+    the CPU, bit for bit; every window's values against numpy."""
+    n, metas = CONFIG2_SERIES, _config2_metas()
+    agg = Aggregator(device=DEVICE)
+    cpu = Aggregator(device="cpu")
+    _build.reset_launches()
+    add_ms, flush_ms = [], []
+    for w in range(CONFIG2_WINDOWS):
+        acc = np.zeros(n)
+        for b in range(CONFIG2_BATCHES):
+            kinds, ids, values, t = corpus.config2_batch(n, w, b)
+            entries = [(k, i, v, t, metas[k]) for k, i, v in zip(kinds.tolist(), ids,
+                                                                   values.tolist())]
+            acc = acc + values
+            t0 = time.perf_counter()
+            agg.add_untimed_batch(entries)
+            torch.cuda.synchronize()
+            add_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu.add_untimed_batch(entries[:CONFIG2_CPU_SERIES])
+        cutoff = corpus.CONFIG2_START + (w + 1) * 60 * SEC
+        t0 = time.perf_counter()
+        out = agg.flush_before(cutoff)
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        cout = cpu.flush_before(cutoff)
+        check(len(out) == n, f"config 2 window {w}: {len(out)} metrics, {n} expected")
+        check(len(cout) == CONFIG2_CPU_SERIES, f"config 2 window {w}: CPU run size")
+        for j, (m, c) in enumerate(zip(out, cout)):
+            check((m.id, m.time_nanos, m.agg_type) == (c.id, c.time_nanos, c.agg_type)
+                  and np.float64(m.value).view(np.int64) == np.float64(c.value).view(np.int64),
+                  f"config 2 window {w} metric {j}: card {m} != CPU {c}")
+        got = np.asarray([m.value for m in out])
+        want = np.where(kinds == 1, acc, acc / CONFIG2_BATCHES)
+        check(np.array_equal(got.view(np.int64), want.view(np.int64)),
+              f"config 2 window {w}: SUM/MEAN vs numpy")
+        check(all(m.time_nanos == cutoff for m in out), f"config 2 window {w}: timestamps")
+    launches = dict(_build.LAUNCHES)
+    for kernel in ("scatter_update", "gather_reset"):
+        check(launches.get(kernel, 0) > 0, f"config 2: {kernel} not launched")
+    res = {"launches": launches, "add_ms_p50": float(np.median(add_ms)),
+           "flush_ms_p50": float(np.median(flush_ms)), "flush_ms_max": float(max(flush_ms))}
+    log(f"aggregator config 2: {n} series x {CONFIG2_WINDOWS} windows x {CONFIG2_BATCHES} batches; "
+        f"launches {launches}; add_untimed_batch {res['add_ms_p50']:.3f} ms per 10s batch "
+        f"(median), flush_before {res['flush_ms_p50']:.3f} ms (median; max "
+        f"{res['flush_ms_max']:.3f}) (host clock); the first {CONFIG2_CPU_SERIES} series equal "
+        f"the CPU run bit for bit, every value equals numpy's")
+    return res
+
+
+# --- phase 11: the seal's batched encode at full size ------------------------
+
+
+def encode_main(rows):
+    """bench.py:323 bench_encode on the card: 250,000 series x 360 points
+    at 10s (2,000 seed-42 walks tiled), encode_batched (native value
+    grammar + E1) and E1 alone; checks: tiled lanes, the unique streams
+    against the scalar encoder, a round trip of every lane through K3."""
+    t0 = time.time()
+    ts_u, vs_u = corpus.gen_grids(N_UNIQUE, N_DP)
+    reps = ENC_SERIES // N_UNIQUE
+    ts, vs = np.tile(ts_u, (reps, 1)), np.tile(vs_u, (reps, 1))
+    start = np.full(ENC_SERIES, corpus.START, dtype=np.int64)
+    n_valid = np.full(ENC_SERIES, N_DP, dtype=np.int32)
+    log(f"encode data: {ENC_SERIES} series x {N_DP} dp ({N_UNIQUE} walks tiled) in "
+        f"{time.time() - t0:.1f} s")
+    _build.reset_launches()
+    words, nbits = enc.encode_batched(ts, vs, start, n_valid, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches.get("pack_encode", 0) > 0, "encode main: pack_encode not launched")
+    L, W = words.shape
+    check(W == enc.n_words_for(N_DP), f"encode main: {W} words per lane")
+    wb = _words_bits(words)
+    same_bits(wb.view(reps, N_UNIQUE, W), wb[:N_UNIQUE].expand(reps, N_UNIQUE, W).contiguous(),
+              "encode main: tiled lanes")
+    same_bits(nbits.view(reps, N_UNIQUE), nbits[:N_UNIQUE].expand(reps, N_UNIQUE).contiguous(),
+              "encode main: tiled bit lengths")
+    host_w, host_n = words[:N_UNIQUE].cpu().numpy(), nbits[:N_UNIQUE].cpu().numpy()
+    for u in range(N_UNIQUE):
+        want = m3tsz_scalar.encode_series(ts_u[u].tolist(), vs_u[u].tolist(), corpus.START)
+        check(unpack_stream(host_w[u], ((int(host_n[u]) + 7) // 8) * 8) == want,
+              f"encode main: unique lane {u} differs from the scalar encoder")
+    dts, dvs, valid, count, err = dec.decode_batched(words, nbits, N_DP)
+    check(bool(valid.all()) and bool((count == N_DP).all()) and not bool(err.any()),
+          "encode main: round trip valid/count/error")
+    check(torch.equal(dts, torch.from_numpy(ts).to(DEVICE)), "encode main: round-trip times")
+    check(torch.equal(dvs.view(torch.int64), torch.from_numpy(vs).to(DEVICE).view(torch.int64)),
+          "encode main: round-trip values")
+    del dts, dvs, valid, count, err
+    ms_e2e = time_ms(lambda: enc.encode_batched(ts, vs, start, n_valid, device=DEVICE), reps=7)
+    args = _encode_args(ts, vs, start, n_valid)
+    k = enc.pack_encode(*args)
+    same_bits(_words_bits(k[0]), wb, "encode main: E1 on the staged fields")
+    chunk = 25_000
+
+    def plain_all(compare: bool):
+        for lo in range(0, L, chunk):
+            part = tuple(x[lo:lo + chunk] for x in args)
+            pw, pn = enc.pack_encode_plain(*part)
+            if compare:
+                _record("pack_encode", same_bits(_words_bits(pw), wb[lo:lo + chunk],
+                                                 f"encode main words [{lo}:]"))
+                same_bits(pn, nbits[lo:lo + chunk], f"encode main nbits [{lo}:]")
+            del pw, pn
+
+    plain_all(True)
+    ms = time_ms(lambda: enc.pack_encode(*args), reps=7)
+    plain_ms = time_ms(lambda: plain_all(False), reps=1, warmup=0)
+    row("pack_encode", rows, ms, plain_ms, L * N_DP * 32 + L * 12 + L * W * 4 + L * 4,
+        L * N_DP * ENC_INT32_OPS_PER_STEP / INT32_OPS_PER_S * 1e3)
+    res = {"launches": launches, "ms_e2e": ms_e2e, "ms_kernel": ms,
+           "series_per_s": L / (ms_e2e / 1e3), "series_per_s_kernel": L / (ms / 1e3)}
+    log(f"encode main: {L} series; launches {launches}; encode_batched {ms_e2e:.3f} ms median of "
+        f"7 (CUDA events; native value grammar, transfers, E1) = {res['series_per_s']:.0f} "
+        f"series/s; E1 alone {ms:.3f} ms = {res['series_per_s_kernel']:.0f} series/s; tiled "
+        f"lanes, {N_UNIQUE} streams byte for byte with the scalar encoder, a K3 round trip of "
+        f"every lane: checks passed")
+    del words, nbits, wb, args, k
+    torch.cuda.empty_cache()
+
+    lanes, times, values = corpus.ragged_block(SEAL_LANES, N_DP)
+    t0 = time.time()
+    want = shard.encode_block_scalar(corpus.START, lanes, times, values, SEAL_LANES)
+    t_scalar = time.time() - t0
+    _build.reset_launches()
+    t0 = time.time()
+    got = shard.encode_block_device(corpus.START, lanes, times, values, SEAL_LANES, device=DEVICE)
+    t_dev = time.time() - t0
+    seal = dict(_build.LAUNCHES)
+    check(seal.get("pack_encode", 0) > 0, "block seal: pack_encode not launched")
+    check(got == want, "block seal: encode_block_device differs from encode_block_scalar")
+    res["seal_launches"] = seal
+    log(f"block seal: {SEAL_LANES} lanes x 1-{N_DP} points ({len(times)} points); launches "
+        f"{seal}; encode_block_device {t_dev * 1e3:.1f} ms, the scalar encoder {t_scalar:.1f} s "
+        f"(host clock); byte for byte equal")
+    return res
 
 
 def main() -> int:
@@ -695,6 +1221,15 @@ def main() -> int:
     compare_query(corpus.query_probe_corpus(tiered=True), "two-tier")
     compare_query(corpus.query_probe_corpus(n_real=61, n_lanes=67, seed=5), "67 lanes")
     compare_long_lanes()
+    enc_probes = corpus.encode_probe_series()
+    ts_w, vs_w = corpus.gen_grids(64, N_DP)
+    walks_w = [(ts_w[i].tolist(), vs_w[i].tolist(), corpus.START) for i in range(64)]
+    compare_encode(enc_probes, "probes")
+    for lanes in (1, 7, 33, 129):
+        compare_encode((enc_probes + walks_w)[:lanes], f"{lanes} lanes")
+    compare_elems(corpus.elem_probe_batches(), "probes")
+    compare_elems(corpus.elem_probe_batches(n=4096, n_batches=3, seed=6), "dense")
+    compare_padded_quantiles()
     log(f"parity phases done at {time.time() - t_start:.1f} s")
 
     words, nbits, results = main_path(walks)
@@ -715,6 +1250,23 @@ def main() -> int:
     e2e_q = {name: {k: r[k] for k in ("ms", "wall_ms", "series_per_s", "series_per_s_wall")}
              for name, r in q_results.items()}
     log(json.dumps({"query_end_to_end": e2e_q, "card": name_power}))
+
+    rows_w = {}
+    pool, batch, r_rollup = rollup_main()
+    slot_kernel_times(pool, batch, rows_w)
+    del pool, batch
+    torch.cuda.empty_cache()
+    r_timer = timer_main(rows_w)
+    r_agg = aggregator_main()
+    r_enc = encode_main(rows_w)
+    log(f"write phases done at {time.time() - t_start:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    log(json.dumps({"write_end_to_end": {
+        "rollup": {k: v for k, v in r_rollup.items() if k != "launches"},
+        "config2": {k: v for k, v in r_agg.items() if k != "launches"},
+        "timer_quantiles_wall_ms": {k: v["wall_ms"] for k, v in r_timer.items()},
+        "encode": {k: v for k, v in r_enc.items() if "launches" not in k}},
+        "card": name_power}))
 
     k2 = results["MEAN"]["launches"].get("decode_downsample_fused", 0)
     k2f = results["STDEV"]["launches"].get("decode_downsample_fused", 0)
@@ -759,6 +1311,25 @@ def main() -> int:
         dict(name="query_grouped", source=src + "query_grouped.cu", replaces=qsrc + "915",
              launches=q_launch.get("query_grouped", 0), max_abs_err=ERRORS["query_grouped"],
              **rows_q["query_grouped"]),
+        dict(name="pack_encode", source=src + "m3tsz_encode.cu",
+             replaces="m3_tpu/ops/m3tsz_encode.py:443",
+             launches=r_enc["launches"].get("pack_encode", 0)
+             + r_enc["seal_launches"].get("pack_encode", 0),
+             max_abs_err=ERRORS["pack_encode"], **rows_w["pack_encode"]),
+        dict(name="scatter_update", source=src + "aggregator_elems.cu",
+             replaces="m3_tpu/aggregator/elems.py:79",
+             launches=r_rollup["launches"].get("scatter_update", 0)
+             + r_agg["launches"].get("scatter_update", 0),
+             max_abs_err=ERRORS["scatter_update"], **rows_w["scatter_update"]),
+        dict(name="gather_reset", source=src + "aggregator_elems.cu",
+             replaces="m3_tpu/aggregator/elems.py:112",
+             launches=r_rollup["launches"].get("gather_reset", 0)
+             + r_agg["launches"].get("gather_reset", 0),
+             max_abs_err=ERRORS["gather_reset"], **rows_w["gather_reset"]),
+        dict(name="padded_quantiles", source=src + "aggregator_elems.cu",
+             replaces="m3_tpu/aggregator/elems.py:131",
+             launches=sum(r["launches"].get("padded_quantiles", 0) for r in r_timer.values()),
+             max_abs_err=ERRORS["padded_quantiles"], **rows_w["padded_quantiles"]),
     ]
     for k in kernels:
         k["route"] = "cuda"

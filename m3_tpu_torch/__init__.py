@@ -16,10 +16,15 @@ Rules this package keeps:
   sits beside it.
 
 Layout mirrors the reference so each module's counterpart is easy to find:
-    ops/        kernels' wrappers + plain versions, host oracles
+    ops/        kernels' wrappers + plain versions, host oracles, the
+                batched encoder
     models/     end-to-end pipelines (read path: decode + downsample;
                 query path: decode -> merge -> rate/reduce -> group-by)
-    utils/      time units, bit IO
+    aggregator/ the write side's rollups: ElemPool (device slot state)
+                and Aggregator
+    storage/    the block seal's batched encode
+    metrics/    host-only metrics model (policies, pipelines, rules)
+    utils/      time units, bit IO, hashing, the native (g++) loader
     csrc/       CUDA C++ sources, built by ops/_build.py at first use
 """
 

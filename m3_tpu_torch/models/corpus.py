@@ -21,6 +21,21 @@
 - ``long_lanes``: merged lanes of tens of thousands of samples, the
   length of a raw query over days, one lane per probe kind.
 
+The write side:
+- ``encode_probe_series`` / ``encode_batch``: one lane per case of the
+  reference's batched-encoder tests (every delta-of-delta bucket and its
+  edges, float mode and XOR, int<->float flips, decimal multipliers,
+  sig-bit hysteresis, repeats, negative and huge values, NaN, +-Inf,
+  ragged and empty lanes, the fuzz mix) plus the golden fixture's points.
+- ``elem_probe_batches``: ingest batches for the aggregator's slot
+  kernels (many samples per slot, ties at the greatest time, samples at a
+  slot's resident time, epoch overwrites, stale samples, +-0.0, NaN,
+  +-Inf, all-NaN windows); ``quantile_probes``: padded weighted
+  quantile matrices (NaN, real +inf against the padding, ties, weights
+  1-64, rows of total 0, K = 1).
+- ``rollup_rounds``, ``timer_windows`` and ``config2_batches``: the
+  write-side chip phases' inputs (BASELINE configs 2-3).
+
 Everything is built from a seed with the scalar encoder, so the same
 bytes feed the JAX package and the port.
 """
@@ -348,3 +363,221 @@ def long_lanes(n_cap: int = 32768, seed: int = 13):
         values[lane, :len(v)] = v
     steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
     return times, values, steps
+
+
+# --- the write side -------------------------------------------------------
+
+
+def _reg(n: int, step: int = 10 * SEC, start: int = START) -> list[int]:
+    return [start + (i + 1) * step for i in range(n)]
+
+
+def _from_dods(dods, start: int = START) -> list[int]:
+    """Timestamps (seconds) whose delta-of-delta sequence is ``dods``."""
+    ts, t, delta = [], start, 0
+    for d in dods:
+        delta += d
+        t += delta * SEC
+        ts.append(t)
+    return ts
+
+
+def encode_probe_series() -> list[tuple[list[int], list[float], int]]:
+    """(timestamps, values, stream start) per lane: the cases of the
+    reference's tests/test_m3tsz_encode_batched.py, each delta-of-delta
+    bucket edge, and the points of the golden no-annotation fixture
+    (encoder_test.go:204, its backward timestamps included)."""
+    out = []
+    out.append((_reg(50), [float(x) for x in [5, 5, 6, 7, 7, 100, 3, 0, 1] * 5 + [2.0] * 5]))
+    ts, t = [], START
+    for d in [10, 10, 12, 80, 80, 400, 400, 3000, 3000, 90000, 10, 10]:
+        t += d * SEC
+        ts.append(t)
+    out.append((ts, [1.0] * len(ts)))
+    # every bucket edge: 0, +-(7-bit), +-(9-bit), +-(12-bit) and the default
+    edges = [10, 0, 63, -63, 64, -64, -64, 64, -65, 65, 255, -255, 256, -256, -256, 256, -257,
+             257, 2047, -2047, 2048, -2048, -2048, 2048, -2049, 2049, 1 << 20, -(1 << 20),
+             (1 << 31) - 1, -((1 << 31) - 1)]
+    out.append((_from_dods(edges), [float(i % 7) for i in range(len(edges))]))
+    rng = random.Random(7)
+    out.append((_reg(40), [rng.uniform(0, 1) for _ in range(40)]))
+    out.append((_reg(12), [1.0, 2.0, 0.5, 0.5, 3.0, 3.25, 4.0, 4.0, 1e-8, 7.0, 7.0, 0.1]))
+    out.append((_reg(10), [1.5, 2.5, 3.25, 10.125, 0.5, 0.05, 0.005, 1.0, 2.0, 0.123]))
+    vs, v = [], 0.0
+    for i in range(30):
+        v += 1000.0 if i < 5 else (1.0 if i < 20 else 5000.0)
+        vs.append(v)
+    out.append((_reg(30), vs))
+    out.append((_reg(20), [42.0] * 20))
+    out.append((_reg(12), [-5.0, -5.0, -100.0, 1e12, 1e12 + 1, -1e12, 0.0, 2.0**52, -(2.0**52),
+                           1.0, -1.0, 0.0]))
+    out.append((_reg(6), [1.0, math.nan, 2.0, math.nan, math.nan, 3.0]))
+    inf = math.inf
+    for vs in ([-inf, 1.0, inf, 2.0], [inf, -inf, inf, inf], [1.0, 2.0, -inf, 3.0]):
+        out.append((_reg(len(vs)), vs))
+    out.append((_reg(8), [1e14, 1e14 + 2, 5e15, 1e30, 1e14, 2.0, 2.0, 3.0]))
+    out.append((_reg(7), [-0.0, 0.0, -0.0, 1.0, -0.0, 0.5, -0.0]))
+    rng = random.Random(3)
+    for n in [1, 2, 5, 17, 40]:
+        out.append((_reg(n), [float(rng.randint(-50, 50)) for _ in range(n)]))
+    out.append(([], []))
+    for seed in range(3):
+        rng = random.Random(seed)
+        for _ in range(16):
+            n = rng.randint(1, 60)
+            t, ts = START, []
+            for _ in range(n):
+                t += rng.choice([1, 10, 10, 10, 60, 3600, 100000]) * SEC
+                ts.append(t)
+            kind = rng.random()
+            if kind < 0.4:
+                v, vs = float(rng.randint(0, 100)), []
+                for _ in range(n):
+                    v += rng.choice([-3, -1, 0, 0, 1, 3, 1000])
+                    vs.append(float(v))
+            elif kind < 0.7:
+                vs = [round(rng.uniform(-10, 10), rng.randint(0, 6)) for _ in range(n)]
+            else:
+                vs = [rng.choice([rng.uniform(-1e9, 1e9), math.pi * rng.random(), 0.0, 1e-12])
+                      for _ in range(n)]
+            out.append((ts, vs))
+    golden_start, t0 = 1427162400 * SEC, 1427162462 * SEC
+    out = [(ts, vs, START) for ts, vs in out]
+    out.append(([t0 + d * SEC for d in (0, 60, 120, -76, -16, 2092, 4200)],
+                [12.0, 12.0, 24.0, 24.0, 24.0, 15.0, 12.0], golden_start))
+    return out
+
+
+def encode_batch(series):
+    """Left-aligned [L, T] batch of (timestamps, values, start) lanes, as
+    the reference's tests pad it (with the lane's last timestamp):
+    (ts i64[L, T], vs f64[L, T], start i64[L], n_valid i32[L])."""
+    L = len(series)
+    T = max(1, max(len(s[0]) for s in series))
+    ts = np.zeros((L, T), dtype=np.int64)
+    vs = np.zeros((L, T), dtype=np.float64)
+    start = np.zeros(L, dtype=np.int64)
+    n_valid = np.zeros(L, dtype=np.int32)
+    for i, (t, v, st) in enumerate(series):
+        ts[i, :len(t)] = t
+        vs[i, :len(v)] = v
+        ts[i, len(t):] = t[-1] if t else st
+        start[i], n_valid[i] = st, len(t)
+    return ts, vs, start, n_valid
+
+
+def ragged_block(n_lanes: int, max_count: int, seed: int = 11):
+    """A sealed block's columnar points, lanes sorted: lane l holds 1 to
+    ``max_count`` points at 10s or 30s steps (integer values 70% of the
+    time, decimals otherwise).  Returns (lanes i64, times i64, values f64)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, max_count + 1, n_lanes)
+    lanes = np.repeat(np.arange(n_lanes, dtype=np.int64), counts)
+    steps = rng.choice(np.asarray([10, 10, 30], dtype=np.int64), len(lanes)) * SEC
+    first = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    csum = np.cumsum(steps)
+    times = START + csum - np.repeat(csum[first] - steps[first], counts)
+    values = np.where(rng.random(len(lanes)) < 0.7, rng.integers(-20, 21, len(lanes)),
+                      np.round(rng.random(len(lanes)) * 5, 3)).astype(np.float64)
+    return lanes, times, values
+
+
+_ELEM_SPECIALS = np.asarray([np.nan, np.inf, -np.inf, 0.0, -0.0])
+
+
+def elem_probe_batches(n_slots: int = 64, n: int = 256, n_batches: int = 6, seed: int = 5,
+                       resolution: int = 10 * SEC):
+    """Ingest batches for the slot kernels over ``n_slots`` slots:
+    [(flat i64[n], start i64[n], times i64[n], values f64[n])].  Batch k
+    writes windows k-1, k and k+1 (stale samples and epoch overwrites),
+    times at one of three seconds of the window (ties at the greatest
+    time, and samples at the time a slot already holds), small integers
+    with NaN/+-Inf/+-0.0 mixed in, and the last four slots all NaN."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n_batches):
+        flat = rng.integers(0, n_slots, n)
+        window = k + rng.choice(np.asarray([-1, 0, 0, 0, 1]), n)
+        start = START + window * resolution
+        times = start + rng.integers(0, 3, n) * SEC
+        values = np.round(rng.standard_normal(n) * 4)
+        pick = rng.random(n) < 0.3
+        values[pick] = rng.choice(_ELEM_SPECIALS, int(pick.sum()))
+        values[flat >= n_slots - 4] = np.nan
+        out.append((flat.astype(np.int64), start.astype(np.int64), times.astype(np.int64),
+                    values))
+    return out
+
+
+def quantile_probes(seed: int = 9) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Padded (values, weights) matrices for ``padded_quantiles``: rows of
+    1 to K real points padded with +inf (weight 0), NaN and real +inf
+    (weight > 0) samples, ties, +-0.0, power-of-two weights 1 to 64, rows
+    of total 0; [24, 12] and [5, 1] (K = 1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for F, K in ((24, 12), (5, 1)):
+        v = np.round(rng.standard_normal((F, K)) * 3)
+        pick = rng.random((F, K))
+        v[pick < 0.1] = np.nan
+        v[(pick >= 0.1) & (pick < 0.15)] = np.inf
+        v[(pick >= 0.15) & (pick < 0.2)] = -np.inf
+        v[(pick >= 0.2) & (pick < 0.35)] = -0.0
+        w = 2.0 ** rng.integers(0, 7, (F, K))
+        n_real = rng.integers(1, K + 1, F)
+        for r in range(F):
+            v[r, n_real[r]:] = np.inf
+            w[r, n_real[r]:] = 0.0
+        w[0] = 0.0  # total 0
+        if F > 1:
+            w[1, 1:] = 0.0  # one weighted point and zero-weight real ones
+        out.append((v, w))
+    return out
+
+
+def long_quantile_rows(rows: int, k: int, seed: int = 10):
+    """``rows`` fully populated rows of ``k`` weighted points (weights 1 to
+    64, ties from rounding, a NaN and a +inf per row): the hot timer
+    slots of a compacted reservoir."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.lognormal(3, 1, (rows, k)), 1)
+    v[:, 0] = np.nan
+    v[:, 1] = np.inf
+    return v, 2.0 ** rng.integers(0, 7, (rows, k))
+
+
+def rollup_rounds(n_lanes: int, n_rounds: int, seed: int = 42):
+    """The values of the reference's ``bench.py:bench_rollup_flush``: one
+    ``rng.random(n_lanes) * 100`` per round, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [rng.random(n_lanes) * 100 for _ in range(n_rounds)]
+
+
+def timer_windows(n_windows: int, per_window: int, seed: int = 21):
+    """Timer samples: ``per_window`` samples evenly spaced in the 10s
+    window at START (1s apart for 10) of each of ``n_windows`` lanes,
+    lognormal latencies in ms.  Returns (lanes i64, times i64, values
+    f64), window-major."""
+    rng = np.random.default_rng(seed)
+    lanes = np.repeat(np.arange(n_windows, dtype=np.int64), per_window)
+    step = 10 * SEC // per_window
+    times = START + np.tile(np.arange(per_window, dtype=np.int64), n_windows) * step
+    return lanes, times, np.round(rng.lognormal(3, 1, n_windows * per_window), 3)
+
+
+CONFIG2_START = START - START % xtime.MINUTE  # the minute START falls in
+
+
+def config2_batch(n_series: int, window: int, batch: int, seed: int = 2):
+    """One 10s ingest batch of BASELINE config 2 ("m3aggregator 100k
+    counter+gauge series, 10s -> 1m mean/sum rollup flush"): series
+    2i are counters (``counter.<i>``, integer increments), series 2i+1
+    gauges (``gauge.<i>``, decimals), one sample each at
+    CONFIG2_START + window*60s + batch*10s + 5s.  Returns (kinds i64
+    1=counter, 3=gauge; ids list[bytes]; values f64; time)."""
+    rng = np.random.default_rng((seed, window, batch))
+    kinds = np.where(np.arange(n_series) % 2 == 0, 1, 3)
+    ids = [(b"counter.%d" if i % 2 == 0 else b"gauge.%d") % (i // 2) for i in range(n_series)]
+    values = np.where(kinds == 1, rng.integers(0, 100, n_series),
+                      np.round(rng.random(n_series) * 100, 2)).astype(np.float64)
+    return kinds, ids, values, CONFIG2_START + window * 60 * SEC + batch * 10 * SEC + 5 * SEC
