@@ -1,4 +1,4 @@
-"""Chip smoke test: the PyTorch/CUDA port's read and query paths on one NVIDIA GPU.
+"""Chip smoke test: the PyTorch/CUDA port's read, query and write paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
@@ -42,7 +42,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    median of 7, and wall time with the result's ``.cpu()``), then each
    query kernel beside its plain version, its bound and, where one exists,
    a PyTorch call (``torch.searchsorted``, ``index_add_``);
-7. report — one JSON line listing the kernels, then the result line.
+7. expr parity (run with the parity phases, before phase 5) — the
+   expression interpreter's kernels (min/max over time
+   QK5, grouped quantile QK6, topk/bottomk QK7, histogram_quantile QK8)
+   against their plain versions on the card, bit for bit, twice, on the
+   CPU tests' probes (NaN, +-Inf, +-0.0 windows inside and across 32-sample
+   blocks, ties, groups below k, padding on the trash group, total-0 and
+   non-monotone histograms, phi 0, 1, -0.5, 1.5, NaN) and on groups of up to
+   15,000 lanes (the global-scratch sort);
+8. expr main — BASELINE config 4's width through ``device_expr_pipeline``:
+   the grouped-rate ratio of ``bench.py:1768`` (25,000 + 25,000 series,
+   32 jobs), histogram_quantile(0.99, sum by (job, le)(rate(..))) over
+   4,166 histograms x 12 DefBuckets, topk(10, rate(..)) and quantile by
+   (job)(0.9, rate(..)) over 50,000 lanes, max by (job)(max_over_time(..))
+   and min_over_time(..), (rate(..) > 0.5) * 60, and the 16-query megabatch
+   of ``bench.py:3325`` through ``device_expr_pipeline_batched``.  Launch
+   counts are reset just before each query and read just after; each
+   result is checked at full size against something independent of its new
+   kernel (per-node pipelines, numpy, the host tier, the solo calls), then
+   timed (CUDA events, median of 7, and wall time with the root's
+   ``.cpu()``); then QK5-QK8 are timed beside their plain versions, their
+   bounds and ``torch.sort`` along the lanes (QK6, QK7);
+9. the write side (rollup flush, timer quantiles, BASELINE config 2, the
+   encode and a block seal), as its phases' docstrings say;
+10. report — one JSON line listing the kernels, then the result line.
 
 The script imports nothing of JAX.  It exits non-zero without a result
 when no CUDA device is present.
@@ -65,7 +88,8 @@ from m3_tpu_torch.aggregator import Aggregator, ElemPool, elems
 from m3_tpu_torch.models import corpus
 from m3_tpu_torch.models import query_pipeline as qp
 from m3_tpu_torch.models.read_pipeline import _SIMPLE_AGGS, decode_downsample, inputs_from_numpy
-from m3_tpu_torch.ops import _build, m3tsz_scalar, query_grouped, query_merge, query_temporal
+from m3_tpu_torch.ops import _build, histo_quantile, lane_topk, m3tsz_scalar, query_grouped
+from m3_tpu_torch.ops import query_merge, query_temporal
 from m3_tpu_torch.ops import consolidate as cons
 from m3_tpu_torch.ops import downsample as ds
 from m3_tpu_torch.ops import m3tsz_decode as dec
@@ -573,7 +597,7 @@ def query_main(n_series: int):
                   "sum by (g) vs the per-lane rates summed on the host", atol=1e-9)
         del res, out, err
     torch.cuda.synchronize()
-    return b, (words, nbits, slots, steps), results
+    return fc, (words, nbits, slots, steps), results
 
 
 def query_kernel_times(b: corpus.QueryBatch, inputs):
@@ -643,8 +667,8 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
 
     G = b.n_groups
     groups = torch.from_numpy(b.groups).to(dev)
-    csr = query_grouped.group_csr(b.groups, G)
-    fn = lambda: query_grouped.grouped_reduce(rate, groups, G, "sum", csr)  # noqa: E731
+    index = query_grouped.group_index(b.groups, G, dev)
+    fn = lambda: query_grouped.grouped_reduce(rate, groups, G, "sum", index)  # noqa: E731
     _record("query_grouped", close(fn(), query_grouped.grouped_reduce_plain(
         rate, groups, G, "sum"), 1e-12, "main sum by (g)"))
     vz = torch.nan_to_num(rate, nan=0.0)
@@ -657,6 +681,456 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
     log(f"time fleet sum (QK4, one group of {L} lanes): {fleet_ms:.3f} ms")
     del rate, vz
     torch.cuda.empty_cache()
+    return rows
+
+
+# --- phase 8: the expression interpreter's kernels vs their plain versions --
+
+EXPR_RANGES = (93 * SEC, 600 * SEC)
+SELECT_PHIS = (0.0, 0.25, 0.5, 0.9, 1.0)
+TOPK_CASES = ((1, False), (3, False), (3, True), (10, True), (30, False))
+HQ_PHIS = (0.0, 0.5, 0.9, 0.99, 1.0, -0.5, 1.5, float("nan"))
+
+
+def _compare_select(x: torch.Tensor, groups: np.ndarray, n_groups: int, tag: str):
+    gt = torch.from_numpy(groups).to(DEVICE)
+    for phi in SELECT_PHIS:
+        out = twice(lambda: query_grouped.grouped_quantile(x, groups, n_groups, phi),
+                    f"{tag} quantile {phi}")
+        _record("query_quantile", same_bits(out, query_grouped.grouped_quantile_plain(
+            x, gt, n_groups, phi), f"{tag} quantile {phi}"))
+    for k, bottom in TOPK_CASES:
+        got = twice(lambda: lane_topk.masked_topk(x, groups, n_groups, k, bottom),
+                    f"{tag} topk {k} {bottom}")
+        want = lane_topk.masked_topk_plain(x, gt, n_groups, k, bottom)
+        for field, kt, pt in zip(("out", "present", "rank"), got, want):
+            _record("query_topk", same_bits(kt, pt, f"{tag} topk {k} {bottom} {field}"))
+
+
+def compare_expr_kernels():
+    """QK5-QK8 against their plain versions on the card, on the CPU tests'
+    probes (and groups past the shared-memory size), bit for bit, twice."""
+    t, v, st = (torch.from_numpy(x).to(DEVICE) for x in corpus.minmax_probe_lanes())
+    for r in EXPR_RANGES:
+        for is_max in (False, True):
+            out = twice(lambda: query_temporal.minmax_window(t, v, st, r, is_max),
+                        f"minmax {r} {is_max}")
+            _record("query_minmax", same_bits(out, query_temporal.minmax_plain(
+                t, v, st, r, is_max), f"min/max_over_time {r // SEC}s"))
+    tl, vl, sl = (torch.from_numpy(x).to(DEVICE) for x in corpus.long_lanes())
+    for is_max in (False, True):
+        out = twice(lambda: query_temporal.minmax_window(tl, vl, sl, 300 * SEC, is_max),
+                    "minmax long")
+        _record("query_minmax", same_bits(out, query_temporal.minmax_plain(
+            tl, vl, sl, 300 * SEC, is_max), "min/max_over_time long lanes"))
+    torch.cuda.synchronize()
+    log("expr parity min/max_over_time (QK5): probe lanes (NaN, +-Inf, +-0.0 inside and "
+        "across 32-sample blocks, empty windows) at 93s and 10m, 6 lanes x 32,768 at 5m: "
+        "bit for bit, twice")
+    sv, groups, n_groups = corpus.select_probes()
+    _compare_select(torch.from_numpy(sv).to(DEVICE), groups, n_groups, "probes")
+    rng = np.random.default_rng(31)
+    big = rng.integers(-50, 50, (20_000, 6)).astype(np.float64)
+    big[rng.random(big.shape) < 0.1] = np.nan
+    big[big == 0] = -0.0
+    gb = np.zeros(len(big), dtype=np.int64)
+    gb[:3], gb[3:5000] = 2, 1  # groups of 15,000 (global scratch), 4,997 and 3 lanes
+    _compare_select(torch.from_numpy(big).to(DEVICE), gb, 3, "large groups")
+    torch.cuda.synchronize()
+    log("expr parity quantile/topk/bottomk (QK6/QK7): probe groups of 1-25 lanes (ties, "
+        "+-0.0, NaN, +-Inf, padding on the trash group) and groups of 3, 4,997 and 15,000 "
+        "lanes (shared memory and global scratch), phi 0-1, k 1-30: bit for bit, twice")
+    cv, ri, ubs, caps = corpus.histogram_probes()
+    cvd = torch.from_numpy(cv).to(DEVICE)
+    rid, ubd, capd = (torch.from_numpy(x).to(DEVICE) for x in (ri, ubs, caps))
+    for phi in HQ_PHIS:
+        out = twice(lambda: histo_quantile.bucket_quantile(cvd, rid, ubd, capd, phi),
+                    f"hq {phi}")
+        _record("histo_quantile", same_bits(out, histo_quantile.bucket_quantile_plain(
+            cvd, rid, ubd, capd, phi), f"histogram_quantile {phi}"))
+    torch.cuda.synchronize()
+    log("expr parity histogram_quantile (QK8): cumulative, +Inf below a finite bucket, "
+        "negative bounds, total 0, NaN/+-Inf counts, padding; phi 0, 0.5, 0.9, 0.99, 1, "
+        "-0.5, 1.5, NaN: bit for bit, twice")
+
+
+# --- phase 9: the expression interpreter at full size -----------------------
+
+N_JOBS_RATIO = 32  # bench.py:1730-1741
+N_JOBS = 100
+N_HIST = 4166  # x 12 DefBuckets = 49,992 series
+HIST_UNIQUE = 167  # unique histograms encoded, tiled to N_HIST
+
+
+def np_bucket_quantile(cv: np.ndarray, rows_idx, ubs, caps, phi: float) -> np.ndarray:
+    """numpy histogram_quantile over gathered bucket rows (upstream
+    bucketQuantile, as ops/histo_quantile.py states it), for phi in [0, 1]."""
+    c = np.maximum.accumulate(np.nan_to_num(cv[rows_idx]), axis=1)  # [G, B, S]
+    total = c[:, -1, :]
+    rank = phi * total
+    idx = np.minimum((c < rank[:, None, :]).sum(axis=1), c.shape[1] - 1)
+    hi_ub = np.take_along_axis(ubs, idx, axis=1)
+    lo_ub = np.where(idx > 0, np.take_along_axis(ubs, np.maximum(idx - 1, 0), axis=1), 0.0)
+    hi_c = np.take_along_axis(c, idx[:, None, :], axis=1)[:, 0]
+    lo_c = np.where(idx > 0, np.take_along_axis(c, np.maximum(idx - 1, 0)[:, None, :],
+                                                axis=1)[:, 0], 0.0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        frac = np.clip((rank - lo_c) / np.maximum(hi_c - lo_c, 1e-12), 0.0, 1.0)
+        val = lo_ub + (hi_ub - lo_ub) * frac
+    val = np.where((idx == 0) & (hi_ub <= 0), hi_ub, val)
+    val = np.where(np.isposinf(hi_ub), caps[:, None], val)
+    return np.where(total > 0, val, np.nan)
+
+
+def np_quantile(rows: np.ndarray, phi: float) -> np.ndarray:
+    """numpy quantile of each column's present cells (linear interpolation
+    at phi * (n - 1)); NaN where a column has none."""
+    out = np.full(rows.shape[1], np.nan)
+    for s in range(rows.shape[1]):
+        x = np.sort(rows[~np.isnan(rows[:, s]), s])
+        if len(x):
+            h = phi * (len(x) - 1)
+            lo, hi = x[int(np.floor(h))], x[int(np.ceil(h))]
+            out[s] = lo + (hi - lo) * (h - np.floor(h))
+    return out
+
+
+def np_topk(values: np.ndarray, groups: np.ndarray, k: int):
+    """numpy topk per (group, step): a stable argsort of -value (NaN last)
+    within each group; returns (out, present, rank) as masked_topk does."""
+    key = -np.where(np.isnan(values), -np.inf, values)
+    pos = np.empty(values.shape, dtype=np.int64)
+    for g in np.unique(groups):
+        lanes = np.flatnonzero(groups == g)
+        order = np.argsort(key[lanes], axis=0, kind="stable")
+        inv = np.empty_like(order)
+        np.put_along_axis(inv, order, np.broadcast_to(np.arange(len(lanes))[:, None],
+                                                      order.shape), axis=0)
+        pos[lanes] = inv
+    kept = pos < k
+    return (np.where(kept, values, np.nan), kept.any(axis=1),
+            np.where(kept[:, -1], pos[:, -1], lane_topk._NO_RANK))
+
+
+def _words_slice(b: corpus.QueryBatch, lo: int, hi: int):
+    """The streams of lanes [lo, hi) of a fan-out batch, lanes renumbered."""
+    rows = (b.slots >= lo) & (b.slots < hi)
+    return b.words[rows], b.nbits[rows], b.slots[rows] - lo
+
+
+def _expr_query(name: str, eb: corpus.ExprPlanBuilder, root, want: list[str]):
+    inputs = corpus.expr_inputs_from_numpy(*eb.inputs(), DEVICE)
+    return name, root.plan, inputs, want
+
+
+def _drive(plan, inputs, want, name: str, batched: bool = False):
+    run = qp.device_expr_pipeline_batched if batched else qp.device_expr_pipeline
+    _build.reset_launches()
+    res = run(plan, *inputs)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for kernel in want:
+        check(launches.get(kernel, 0) > 0, f"expr {name}: {kernel} not launched")
+    for err in res[2]:
+        check(not bool(err.any()), f"expr {name}: error flags")
+    return res, launches
+
+
+def _time_expr(name: str, plan, inputs, launches, rows: int, checked: str, results: dict,
+               batched: bool = False):
+    run = qp.device_expr_pipeline_batched if batched else qp.device_expr_pipeline
+    fn = lambda: run(plan, *inputs)  # noqa: E731
+    ms = time_ms(fn, reps=7)
+    wall = wall_ms(fn)
+    results[name] = {"launches": launches, "ms": ms, "wall_ms": wall, "rows": rows}
+    log(f"expr {name}: launches {launches}; {ms:.3f} ms device (median of 7); {wall:.3f} ms "
+        f"with the root's .cpu(); {checked}")
+
+
+def expr_main(fc: corpus.FanoutCorpus):
+    """BASELINE config 4's width through device_expr_pipeline(_batched):
+    seven queries, each driven once with the launch counts reset just
+    before and read just after, checked at full size against something
+    independent of its new kernel, then timed."""
+    b = fc.batch
+    n = b.n_lanes
+    S = len(b.steps)
+    r = b.range_nanos
+    results = {}
+    front = ["decode_batched", "query_merge"]
+    kw = dict(n_cap=b.n_cap, range_nanos=r, n_dp=b.n_dp, device=DEVICE)
+
+    # 1. the grouped-rate ratio of bench.py:1768, 25,000 + 25,000 series, 32 jobs
+    eb = corpus.ExprPlanBuilder(b.steps)
+    half = n // 2
+    leaves = []
+    for lo in (0, half):
+        w, nb, sl = _words_slice(b, lo, lo + half)
+        labels = [{"job": "j%02d" % (i % N_JOBS_RATIO), "host": "h%06d" % i} for i in range(half)]
+        leaves.append((eb.words_leaf(w, nb, sl, labels, b.n_dp, b.n_cap, r), w, nb, sl))
+    aggs = [eb.agg("sum", eb.leaf(lf, "rate"), ("job",)) for lf, *_ in leaves]
+    root = eb.vv("/", *aggs, on=("job",))
+    name, plan, inputs, want = _expr_query(
+        "sum by (job)(rate(http_requests[5m])) / on(job) sum by (job)(rate(http_limit[5m]))",
+        eb, root, front + ["query_rate", "query_grouped"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    steps_p = inputs[2]
+    per = []
+    for (lf, w, nb, sl), agg in zip(leaves, aggs):
+        groups = eb.params[agg.plan[3]][0]
+        g, _ = qp.device_grouped_pipeline(w, nb, sl, steps_p, groups, n_lanes=len(groups),
+                                          n_groups=agg.rows_pad, **kw)
+        per.append(g.cpu().numpy())
+    with np.errstate(invalid="ignore", divide="ignore"):
+        want_np = per[0][:N_JOBS_RATIO] / per[1][:N_JOBS_RATIO]
+    got = out.cpu()
+    check(tuple(got.shape) == (N_JOBS_RATIO, 512), f"expr ratio: shape {tuple(got.shape)}")
+    err = close(got[:N_JOBS_RATIO], torch.from_numpy(want_np), 1e-12,
+                "ratio vs two device_grouped_pipeline calls divided on the host")
+    check(bool(torch.isfinite(got[:N_JOBS_RATIO, :S]).all()), "expr ratio: non-finite")
+    _time_expr("ratio", plan, inputs, launches, N_JOBS_RATIO,
+               f"vs two device_grouped_pipeline calls divided on the host: max abs err {err} "
+               f"(rtol 1e-12)", results)
+    del out, inputs, per
+
+    # 2. histogram_quantile(0.99, sum by (job, le)(rate(..._bucket[5m])))
+    t0 = time.time()
+    hf = corpus.histogram_fleet(N_HIST, N_JOBS, HIST_UNIQUE, fc=fc)
+    log(f"expr data: {N_HIST} histograms x {len(corpus.DEF_BUCKETS)} buckets = {len(hf.labels)} "
+        f"series, {len(hf.nbits)} streams, words u32{hf.words.shape}; encoded in "
+        f"{time.time() - t0:.1f} s")
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(hf.words, hf.nbits, hf.slots, hf.labels, hf.n_dp, hf.n_cap, r)
+    agg = eb.agg("sum", eb.leaf(lf, "rate"), ("job", "le"))
+    root = eb.hq(0.99, agg)
+    log(f"expr hq plan: agg g_pad {agg.rows_pad}, hq g_pad {root.rows_pad}, b_pad "
+        f"{root.plan[2]}, lanes_pad {eb.leaves[lf]['valid'].shape[0]}")
+    name, plan, inputs, want = _expr_query(
+        "histogram_quantile(0.99, sum by (job, le)(rate(http_request_duration_seconds_bucket"
+        "[5m])))", eb, root, front + ["query_rate", "query_grouped", "histo_quantile"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    groups = eb.params[agg.plan[3]][0]
+    cv, _ = qp.device_grouped_pipeline(hf.words, hf.nbits, hf.slots, inputs[2], groups,
+                                       n_lanes=len(groups), n_groups=agg.rows_pad, **kw)
+    rows_idx, ubs, caps, _, _ = eb.params[root.plan[3]]
+    want_np = np_bucket_quantile(cv.cpu().numpy(), rows_idx[:N_JOBS], ubs[:N_JOBS],
+                                 caps[:N_JOBS], 0.99)
+    got = out.cpu()
+    err = close(got[:N_JOBS], torch.from_numpy(want_np), 1e-12,
+                "histogram_quantile vs numpy on the grouped bucket rates")
+    check(bool(torch.isnan(got[N_JOBS:]).all()) and bool(torch.isfinite(got[:N_JOBS]).any()),
+          "expr hq: padding rows / no finite quantile")
+    _time_expr("histogram_quantile", plan, inputs, launches, N_JOBS,
+               f"vs numpy on device_grouped_pipeline's bucket rates: max abs err {err} "
+               f"(rtol 1e-12)", results)
+    shapes = {"hq": (cv, rows_idx, ubs, caps)}
+    del out, inputs, hf
+
+    # 3-6 read the whole fan-out batch: one leaf of 50,000 lanes (65,536 padded)
+    words, nbits, slots = b.words, b.nbits, b.slots
+    job_labels = [{"job": "j%03d" % (i % N_JOBS), "instance": "i%06d" % i} for i in range(n)]
+    rate, _, _ = qp.device_rate_pipeline(words, nbits, slots, corpus.ExprPlanBuilder(
+        b.steps).steps, n_lanes=corpus.bucket_pow2(n, 64), **kw)
+    rate_np = rate.cpu().numpy()
+    shapes["rate"] = rate
+    lanes_pad = rate.shape[0]
+
+    # 3. topk(10, rate(http_requests[5m]))
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(words, nbits, slots, job_labels, b.n_dp, b.n_cap, r)
+    root = eb.topk("topk", 10, eb.leaf(lf, "rate"))
+    name, plan, inputs, want = _expr_query("topk(10, rate(http_requests[5m]))", eb, root,
+                                           front + ["query_rate", "query_topk"])
+    (out, aux, _), launches = _drive(plan, inputs, want, name)
+    tgroups = eb.params[root.plan[4]][0]
+    w_out, w_present, w_rank = np_topk(rate_np, tgroups, 10)
+    same_bits(out.cpu(), torch.from_numpy(w_out), "topk vs numpy (stable argsort)")
+    same_bits(aux[0].cpu(), torch.from_numpy(w_present), "topk present vs numpy")
+    same_bits(aux[1].cpu(), torch.from_numpy(w_rank), "topk rank vs numpy")
+    check(int(aux[0][:n].sum()) >= 10, "topk: fewer than k lanes kept")
+    _time_expr("topk", plan, inputs, launches, lanes_pad,
+               "out, present and rank vs numpy's stable argsort of device_rate_pipeline's "
+               "rates: bit for bit", results)
+    shapes["topk_groups"] = (tgroups, root.plan[3])
+    del out, aux, inputs
+
+    # 4. quantile by (job)(0.9, rate(http_requests[5m]))
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(words, nbits, slots, job_labels, b.n_dp, b.n_cap, r)
+    agg = eb.agg("quantile", eb.leaf(lf, "rate"), ("job",), phi=0.9)
+    name, plan, inputs, want = _expr_query("quantile by (job)(0.9, rate(http_requests[5m]))",
+                                           eb, agg, front + ["query_rate", "query_quantile"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    qgroups = eb.params[agg.plan[3]][0]
+    got = out.cpu().numpy()
+    sample = (0, 1, 37, 99)
+    err = 0.0
+    for j in sample:
+        w_q = np_quantile(rate_np[:n][qgroups[:n] == j], 0.9)
+        err = max(err, close(torch.from_numpy(got[j]), torch.from_numpy(w_q), 1e-12,
+                             f"quantile job {j} vs numpy"))
+    check(bool(np.isnan(got[N_JOBS:]).all()), "expr quantile: padding rows")
+    _time_expr("quantile", plan, inputs, launches, N_JOBS,
+               f"jobs {sample} vs numpy (sort, interpolation): max abs err {err} (rtol 1e-12)",
+               results)
+    shapes["quantile_groups"] = (qgroups, agg.rows_pad)
+    del out, inputs
+
+    # 5. max by (job)(max_over_time(mem_use[5m])) and min_over_time(mem_use[5m])
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(words, nbits, slots, job_labels, b.n_dp, b.n_cap, r)
+    root = eb.agg("max", eb.leaf(lf, "max_over_time"), ("job",))
+    name, plan, inputs, want = _expr_query("max by (job)(max_over_time(mem_use[5m]))", eb, root,
+                                           front + ["query_minmax", "query_grouped"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    got = out.cpu().numpy()
+    jobs = (0, 57)
+    uniq = [u for u in range(fc.n_unique) if u % N_JOBS in jobs]
+    t_h, v_h = host_lanes(fc, uniq)
+    host_max = cons.window_reduce(t_h, v_h, b.steps, r, "max_over_time")
+    for j in jobs:
+        want_j = np.fmax.reduce(host_max[[i for i, u in enumerate(uniq) if u % N_JOBS == j]],
+                                axis=0)
+        same_bits(torch.from_numpy(got[j, :S]), torch.from_numpy(want_j),
+                  f"max by (job) job {j} vs the host tier's window_reduce")
+    _time_expr("max_by_max_over_time", plan, inputs, launches, N_JOBS,
+               f"jobs {jobs} vs the host tier's window_reduce over their "
+               f"{len(uniq)} unique lanes: bit for bit", results)
+    del out, inputs
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(words, nbits, slots, job_labels, b.n_dp, b.n_cap, r)
+    root = eb.leaf(lf, "min_over_time")
+    name, plan, inputs, want = _expr_query("min_over_time(mem_use[5m])", eb, root,
+                                           front + ["query_minmax"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    reps = n // fc.n_unique
+    same_bits(out[:n].view(reps, fc.n_unique, -1),
+              out[:fc.n_unique].expand(reps, fc.n_unique, out.shape[1]).contiguous(),
+              "min_over_time: tiled lanes")
+    oracle = [0, 1, fc.n_unique - 1]
+    t_h, v_h = host_lanes(fc, oracle)
+    same_bits(out[oracle, :S].cpu(), torch.from_numpy(
+        cons.window_reduce(t_h, v_h, b.steps, r, "min_over_time")),
+        "min_over_time vs the host tier's window_reduce")
+    check(bool(torch.isnan(out[n:]).all()), "min_over_time: padding rows")
+    _time_expr("min_over_time", plan, inputs, launches, lanes_pad,
+               f"tiled lanes equal, lanes {oracle} vs the host tier's window_reduce: bit for "
+               "bit", results)
+    shapes["lanes"] = inputs
+    del out
+
+    # 6. (rate(http_requests[5m]) > 0.5) * 60
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(words, nbits, slots, job_labels, b.n_dp, b.n_cap, r)
+    root = eb.vs("*", eb.vs(">", eb.leaf(lf, "rate"), 0.5), 60.0)
+    name, plan, inputs, want = _expr_query("(rate(http_requests[5m]) > 0.5) * 60", eb, root,
+                                           front + ["query_rate"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    with np.errstate(invalid="ignore"):
+        want_np = np.where(rate_np > 0.5, rate_np * 60.0, np.nan)
+    same_bits(out.cpu(), torch.from_numpy(want_np), "(rate > 0.5) * 60 vs numpy on the rates")
+    kept = int((~torch.isnan(out)).sum())
+    check(0 < kept < n * out.shape[1], f"(rate > 0.5) * 60: {kept} cells kept")
+    _time_expr("rate_filter", plan, inputs, launches, lanes_pad,
+               f"vs numpy on device_rate_pipeline's rates: bit for bit ({kept} cells kept)",
+               results)
+    del out, inputs
+
+    # 7. the megabatch: 16 dashboard queries through device_expr_pipeline_batched
+    queries = [corpus.megabatch_query(seed) for seed in range(16)]
+    plan = queries[0][0]
+    check(all(q[0] == plan for q in queries), "megabatch: plans differ")
+    inputs = corpus.expr_inputs_from_numpy(*corpus.stack_queries([q[1] for q in queries]),
+                                           DEVICE)
+    name = ("16 x sum by (job)(sum_over_time(mem_use[5m])) / "
+            "sum by (job)(count_over_time(mem_use[5m]))")
+    (out, _, _), launches = _drive(plan, inputs, ["query_reduce", "query_grouped"], name,
+                                   batched=True)
+    solo_launches = None
+    for q, (_, qin) in enumerate(queries):
+        _build.reset_launches()
+        solo = qp.device_expr_pipeline(plan, *corpus.expr_inputs_from_numpy(*qin, DEVICE))[0]
+        solo_launches = dict(_build.LAUNCHES)
+        same_bits(out[q], solo, f"megabatch slice {q} vs its solo call")
+    check(bool(torch.isfinite(out[:, :8, :corpus.MEGABATCH_STEPS]).all()), "megabatch: values")
+    _time_expr("megabatch", plan, inputs, launches, 16 * 8,
+               f"each of the 16 slices vs its solo call: bit for bit (a solo call launches "
+               f"{solo_launches})", results, batched=True)
+    del out, inputs
+    torch.cuda.synchronize()
+    return shapes, results
+
+
+def expr_kernel_times(b: corpus.QueryBatch, shapes: dict):
+    """QK5-QK8 at the expression queries' shapes: each kernel's time, its
+    plain version's (held against it), its bound, and a PyTorch call where
+    one computes the same function (torch.sort along the lanes for QK6 and
+    QK7; none for QK5 and QK8)."""
+    rows = {}
+    leaves, _, steps = shapes["lanes"]
+    lf = leaves[0]
+    L = lf["valid"].shape[0]
+    times, values, _ = qp._decode_merge(lf["words"], lf["nbits"], lf["slots"], L, b.n_cap,
+                                        b.n_dp, SEC)
+    r = b.range_nanos
+    N, S = times.shape[1], steps.shape[0]
+    fn = lambda: query_temporal.minmax_window(times, values, steps, r, True)  # noqa: E731
+    _record("query_minmax", same_bits(fn(), query_temporal.minmax_plain(
+        times, values, steps, r, True), "main max_over_time"))
+    _, left, right = query_temporal.window_bounds_plain(times, steps, r)
+    samples = int((right - left).sum())
+    levels = query_temporal.search_levels(N)
+    # two bisections of `levels` 64-bit compare/selects per (lane, step) and
+    # an isnan test + IEEE max (3 FP64 operations) per windowed sample
+    ops_ms = (L * S * 2 * levels * 4 / INT32_OPS_PER_S + samples * 3 / FP64_OPS_PER_S) * 1e3
+    row("query_minmax", rows, time_ms(fn, reps=7),
+        time_ms(lambda: query_temporal.minmax_plain(times, values, steps, r, True), reps=3),
+        L * N * 16 + S * 8 + L * S * 8, ops_ms)
+    del times, values, left, right
+    torch.cuda.empty_cache()
+
+    rate = shapes["rate"]
+    L, S = rate.shape
+    for kernel, (groups, n_groups), mode in (
+            ("query_quantile", shapes["quantile_groups"], query_grouped.SELECT_QUANTILE),
+            ("query_topk", shapes["topk_groups"], query_grouped.SELECT_TOPK)):
+        index = query_grouped.group_index(groups, n_groups, DEVICE)
+        gt = torch.from_numpy(groups).to(DEVICE)
+        sizes = index.sizes
+        if mode == query_grouped.SELECT_QUANTILE:
+            fn = lambda: query_grouped.launch_select(rate, index, mode, phi=0.9)  # noqa: E731
+            plain = lambda: query_grouped.grouped_quantile_plain(rate, gt, n_groups, 0.9)  # noqa
+            _record(kernel, same_bits(fn(), plain(), "main quantile by (job)"))
+            out_bytes = n_groups * S * 8
+        else:
+            fn = lambda: query_grouped.launch_select(rate, index, mode, k=10)  # noqa: E731
+            plain = lambda: lane_topk.masked_topk_plain(rate, gt, n_groups, 10, False)  # noqa
+            for kt, pt in zip(fn(), plain()):
+                _record(kernel, same_bits(kt, pt, "main topk"))
+            out_bytes = L * S * 8 + L * 9
+        # what the function needs, not the kernel's sort network: a linear
+        # selection per (group, step), one 64-bit compare (two INT32
+        # operations) per lane for each order statistic sought (quantile's
+        # floor(h) and ceil(h); topk's k-th key)
+        ops_ms = int(sizes.sum()) * S * 2 * (2 if mode == query_grouped.SELECT_QUANTILE
+                                             else 1) / INT32_OPS_PER_S * 1e3
+        row(kernel, rows, time_ms(fn, reps=5), time_ms(plain, reps=3),
+            L * S * 8 + L * 8 + out_bytes, ops_ms,
+            time_ms(lambda: torch.sort(rate, dim=0, stable=True), reps=5),
+            "torch.sort along the lanes")
+
+    cv, rows_idx, ubs, caps = shapes["hq"]
+    G, B = rows_idx.shape
+    rid, ubd, capd = (torch.from_numpy(x).to(DEVICE) for x in (rows_idx, ubs, caps))
+    fn = lambda: histo_quantile.bucket_quantile(cv, rid, ubd, capd, 0.99)  # noqa: E731
+    _record("histo_quantile", same_bits(fn(), histo_quantile.bucket_quantile_plain(
+        cv, rid, ubd, capd, 0.99), "main histogram_quantile"))
+    # the gathered cells read once, the index/bound arrays, one f64 out per cell;
+    # ~20 FP64 operations per bucket per (group, step) over three walks
+    row("histo_quantile", rows, time_ms(fn, reps=7),
+        time_ms(lambda: histo_quantile.bucket_quantile_plain(cv, rid, ubd, capd, 0.99), reps=3),
+        G * B * S * 8 + G * B * 16 + G * 8 + G * S * 8, G * B * S * 20 / FP64_OPS_PER_S * 1e3)
+    torch.cuda.synchronize()
     return rows
 
 
@@ -973,14 +1447,12 @@ def slot_kernel_times(pool, batch, rows):
 # --- phase 9: timer quantiles through the pool ------------------------------
 
 
-def _sort_ops_ms(F: int, K: int, n_q: int) -> float:
-    """A1c's operations: the bitonic network's compare-exchanges (about
-    6 INT32 operations each on a 64-bit key and a column) and the walk's
-    FP64 adds and compares."""
-    P = 1 << (K - 1).bit_length()
-    lg = P.bit_length() - 1
-    exchanges = F * (P // 2) * lg * (lg + 1) // 2
-    return (exchanges * 6 / INT32_OPS_PER_S + F * K * (2 + n_q) / FP64_OPS_PER_S) * 1e3
+def _select_ops_ms(F: int, K: int, n_q: int) -> float:
+    """A1c's operations as the function needs them, not the kernel's sort
+    network: a linear weighted selection per quantile, one 64-bit compare
+    (two INT32 operations) per sample and quantile, and the weights'
+    running sum and the target compares in FP64."""
+    return (F * K * 2 * n_q / INT32_OPS_PER_S + F * K * (1 + n_q) / FP64_OPS_PER_S) * 1e3
 
 
 def timer_main(rows):
@@ -1026,12 +1498,15 @@ def timer_main(rows):
                                                   reps=7),
                 time_ms(lambda: elems.padded_quantiles_plain(tv, tw, TIMER_QS), reps=5),
                 n_win * per * 16 + n_win * len(TIMER_QS) * 8,
-                _sort_ops_ms(n_win, per, len(TIMER_QS)), library_ms,
+                _select_ops_ms(n_win, per, len(TIMER_QS)), library_ms,
                 "torch.sort(stable) + cumsum + gather")
         else:
             ms = time_ms(lambda: elems.padded_quantiles(tv, tw, TIMER_QS), reps=7)
-            log(f"time padded_quantiles[{n_win}x{per}]: kernel {ms:.3f} ms, bound by operations "
-                f"{_sort_ops_ms(n_win, per, len(TIMER_QS)):.3f} ms")
+            bytes_ms = (n_win * per * 16 + n_win * len(TIMER_QS) * 8) / HBM_BYTES_PER_S * 1e3
+            ops_ms = _select_ops_ms(n_win, per, len(TIMER_QS))
+            log(f"time padded_quantiles[{n_win}x{per}]: kernel {ms:.3f} ms, bound "
+                f"{max(bytes_ms, ops_ms):.3f} ms (bytes {bytes_ms:.3f} ms, operations "
+                f"{ops_ms:.3f} ms)")
         del pool, tv, tw, k
     return results
 
@@ -1221,6 +1696,7 @@ def main() -> int:
     compare_query(corpus.query_probe_corpus(tiered=True), "two-tier")
     compare_query(corpus.query_probe_corpus(n_real=61, n_lanes=67, seed=5), "67 lanes")
     compare_long_lanes()
+    compare_expr_kernels()
     enc_probes = corpus.encode_probe_series()
     ts_w, vs_w = corpus.gen_grids(64, N_DP)
     walks_w = [(ts_w[i].tolist(), vs_w[i].tolist(), corpus.START) for i in range(64)]
@@ -1238,11 +1714,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"read main phase done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
-    qb, q_inputs, q_results = query_main(Q_SERIES)
-    rows_q = query_kernel_times(qb, q_inputs)
+    fc, q_inputs, q_results = query_main(Q_SERIES)
+    rows_q = query_kernel_times(fc.batch, q_inputs)
     del q_inputs
+    torch.cuda.empty_cache()
     log(f"query main phase done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
+    shapes, x_results = expr_main(fc)
+    rows_q.update(expr_kernel_times(fc.batch, shapes))
+    del shapes, fc
+    torch.cuda.empty_cache()
+    log(f"expr main phase done at {time.time() - t_start:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    x_launch = {}
+    for r in x_results.values():
+        for kernel, n in r["launches"].items():
+            x_launch[kernel] = x_launch.get(kernel, 0) + n
+    log(json.dumps({"expr_end_to_end": {name: {k: r[k] for k in ("ms", "wall_ms", "rows")}
+                                        for name, r in x_results.items()},
+                    "card": name_power}))
     q_launch = {}
     for r in q_results.values():
         for kernel, n in r["launches"].items():
@@ -1311,6 +1801,19 @@ def main() -> int:
         dict(name="query_grouped", source=src + "query_grouped.cu", replaces=qsrc + "915",
              launches=q_launch.get("query_grouped", 0), max_abs_err=ERRORS["query_grouped"],
              **rows_q["query_grouped"]),
+        dict(name="query_minmax", source=src + "query_temporal.cu", replaces=qsrc + "205",
+             launches=x_launch.get("query_minmax", 0), max_abs_err=ERRORS["query_minmax"],
+             **rows_q["query_minmax"]),
+        dict(name="query_quantile", source=src + "query_select.cu", replaces=qsrc + "871",
+             launches=x_launch.get("query_quantile", 0), max_abs_err=ERRORS["query_quantile"],
+             **rows_q["query_quantile"]),
+        dict(name="query_topk", source=src + "query_select.cu",
+             replaces="m3_tpu/ops/lane_topk.py:33", launches=x_launch.get("query_topk", 0),
+             max_abs_err=ERRORS["query_topk"], **rows_q["query_topk"]),
+        dict(name="histo_quantile", source=src + "histo_quantile.cu",
+             replaces="m3_tpu/ops/histo_quantile.py:30",
+             launches=x_launch.get("histo_quantile", 0), max_abs_err=ERRORS["histo_quantile"],
+             **rows_q["histo_quantile"]),
         dict(name="pack_encode", source=src + "m3tsz_encode.cu",
              replaces="m3_tpu/ops/m3tsz_encode.py:443",
              launches=r_enc["launches"].get("pack_encode", 0)

@@ -260,7 +260,7 @@ def gather_reset(state: ElemState, flats: torch.Tensor, reset: bool = True) -> E
 # ---------------------------------------------------------------------------
 
 MAX_QUANTILES = 32  # kMaxQ of csrc/aggregator_elems.cu
-SMEM_MAX_P = 4096  # kSmemMaxP: padded rows longer than this sort in global scratch
+SMEM_MAX_P = 4096  # 12 B a pair: 48 KB; padded rows longer than this sort in global scratch
 SCRATCH_BYTES = 256 << 20  # cap on the global scratch of long rows
 
 

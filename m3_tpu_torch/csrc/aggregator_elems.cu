@@ -28,8 +28,9 @@
 // (jnp.argsort's order); then one thread walks the sorted weights: the
 // target of q is q * total, the index the count of running weights below
 // it, clipped to [0, K - 1].  The pairs sit in shared memory when the
-// padded row fits (P <= kSmemMaxP) and in a per-block slice of a global
-// scratch buffer when it does not, so K has no ceiling.  Bound: the sort's
+// padded row fits (the caller's limit, aggregator/elems.py:SMEM_MAX_P) and
+// in a per-block slice of a global scratch buffer when it does not, so K
+// has no ceiling.  Bound: the sort's
 // compares for long rows, the bytes for short ones.
 
 #include <cuda_runtime.h>
@@ -41,7 +42,6 @@ namespace {
 constexpr long long kEmpty = -(1ll << 62);
 constexpr int kThreads = 128;
 constexpr int kMaxQ = 32;
-constexpr int kSmemMaxP = 4096;  // 12 B a pair: 48 KB, the default dynamic limit
 
 __device__ __forceinline__ double min_ieee(double a, double b) {
   return a < b ? a : (b < a ? b : (signbit(a) ? a : b));
@@ -262,23 +262,24 @@ int m3_gather_reset(void* const* state, const long long* flats, long long n, int
 }
 
 // values/weights f64[F, K] -> out f64[F, n_q].  P is K rounded up to a power
-// of two; with P > kSmemMaxP the caller passes scratch keys u64[grid, P] and
-// cols i32[grid, P] (else null).  Returns cudaGetLastError().
+// of two.  The pairs sort in the scratch keys u64[grid, P] and cols
+// i32[grid, P] when the caller passes them, else in shared memory (12 B a
+// pair, at most the 48 KB default dynamic limit).  Returns
+// cudaGetLastError().
 int m3_padded_quantiles(const double* values, const double* weights, long long F, int K, int P,
                         const double* quantiles_host, int n_q, int grid, int threads,
                         unsigned long long* scratch_keys, int* scratch_cols, double* out,
                         void* stream) {
   if (n_q < 0 || n_q > kMaxQ || K < 1 || P < K || (P & (P - 1)) != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
-  if (P > kSmemMaxP && (scratch_keys == nullptr || scratch_cols == nullptr))
-    return (int)cudaErrorInvalidValue;
+  const bool scratch = scratch_keys != nullptr;
+  if (scratch != (scratch_cols != nullptr)) return (int)cudaErrorInvalidValue;
   if (F <= 0 || n_q == 0) return 0;
   Quantiles qs;
   for (int i = 0; i < n_q; ++i) qs.q[i] = quantiles_host[i];
-  const size_t smem = P > kSmemMaxP ? 0 : (size_t)P * (sizeof(unsigned long long) + sizeof(int));
+  const size_t smem = scratch ? 0 : (size_t)P * (sizeof(unsigned long long) + sizeof(int));
   padded_quantiles_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      values, weights, F, K, P, qs, n_q, P > kSmemMaxP ? scratch_keys : nullptr, scratch_cols,
-      out);
+      values, weights, F, K, P, qs, n_q, scratch_keys, scratch_cols, out);
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,8 @@
 //   QK3  the prefix-sum half of _reduce_device (:474): sum_over_time,
 //        avg_over_time, count_over_time, present_over_time, last_over_time.
 // Both are one launch of temporal_kernel, with an op code.
+//   QK5  _minmax_device (:205): min_over_time / max_over_time, one launch
+//        of minmax_kernel (below).
 //
 // Each block takes lanes in turn (lane = blockIdx.x, += gridDim.x).  For
 // each lane it first builds the lane's prefix sums in its own slice of a
@@ -234,6 +236,53 @@ __global__ void __launch_bounds__(kThreads) temporal_kernel(
   }
 }
 
+// max as XLA computes it on non-NaN operands: -0.0 orders below +0.0, so
+// the result does not depend on the order the window is scanned in.
+__device__ __forceinline__ double max_ieee(double a, double b) {
+  if (a > b) return a;
+  if (b > a) return b;
+  return signbit(a) ? b : a;
+}
+
+// QK5.  The reference answers a window from a two-level range-max
+// structure (32-sample block prefix/suffix cummax and a doubling table over
+// the block maxima), because a TPU program cannot loop over a window of
+// its own length.  Here each thread owns one (lane, step): the same two
+// bisections as temporal_kernel, then a direct scan of [left, right).  The
+// max of a set is the same whatever structure computes it, with the one
+// exception of signed zeros, and max_ieee makes those order-free too.
+// min runs, as in the reference, as -max(-v): NaN samples are absent, a
+// window with no present sample is NaN, +-Inf are values.  Lanes are taken
+// by blocks in turn, so the window loads of neighbouring steps share L1.
+//
+// What bounds it on an H100: bytes (each lane's times and values read
+// once, one f64 written per (lane, step)); a window of w samples costs w
+// loads from L1.
+__global__ void __launch_bounds__(kThreads) minmax_kernel(
+    const long long* __restrict__ times, const double* __restrict__ values,
+    const long long* __restrict__ steps, long long L, long long N, int S, int levels,
+    long long range_nanos, int is_max, double* __restrict__ out) {
+  const double nan = nan_value();
+  for (long long lane = blockIdx.x; lane < L; lane += gridDim.x) {
+    const long long* t = times + lane * N;
+    const double* v = values + lane * N;
+    for (int s = threadIdx.x; s < S; s += kThreads) {
+      const long long step = steps[s];
+      const long long left = search_right(t, N, levels, wsub(wsub(step, range_nanos), 1));
+      const long long right = search_right(t, N, levels, step);
+      double acc = -INFINITY;
+      long long n = 0;
+      for (long long j = left; j < right; ++j) {
+        const double x = v[j];
+        if (isnan(x)) continue;
+        acc = max_ieee(acc, is_max ? x : -x);
+        ++n;
+      }
+      out[lane * S + s] = n > 0 ? (is_max ? acc : -acc) : nan;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -253,6 +302,19 @@ int m3_query_temporal(const long long* times, const double* values, const long l
   temporal_kernel<<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
       times, values, steps, L, N, S, levels, range_nanos, op, is_counter, is_rate, out, left_out,
       right_out, prefix, prefix_counts);
+  return (int)cudaGetLastError();
+}
+
+// QK5: times i64[L, N], values f64[L, N], steps i64[S] -> out f64[L, S],
+// max_over_time when is_max, else min_over_time, on a grid of n_blocks
+// blocks.  Launches on `stream` and returns cudaGetLastError().
+int m3_query_minmax(const long long* times, const double* values, const long long* steps,
+                    long long L, long long N, int S, int levels, long long range_nanos,
+                    int is_max, double* out, int n_blocks, void* stream) {
+  if (N < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || S <= 0) return (int)cudaSuccess;
+  minmax_kernel<<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      times, values, steps, L, N, S, levels, range_nanos, is_max, out);
   return (int)cudaGetLastError();
 }
 

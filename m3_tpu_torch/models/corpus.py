@@ -21,6 +21,21 @@
 - ``long_lanes``: merged lanes of tens of thousands of samples, the
   length of a raw query over days, one lane per probe kind.
 
+The fused expression interpreter:
+- ``ExprPlanBuilder``: hand-built plans in the grammar of the reference's
+  ``device_expr_pipeline`` with the padding contracts of
+  ``m3_tpu/query/plan.py`` (power-of-two buckets, padding lanes NaN,
+  topk's trash group, histogram buckets padded by repeating the top row,
+  steps padded by repeating the last one), with their numpy leaves and
+  params; ``stack_queries`` stacks Q of them for the batched pipeline;
+- ``expr_inputs_from_numpy`` (re-exported from ``query_pipeline``): those
+  numpy inputs as the port's tensors;
+- ``select_probes``, ``minmax_probe_lanes``, ``histogram_probes``: the
+  corners of the four kernels of the interpreter's slice;
+- ``expr_fleet``: BASELINE config 4's width for the expression plans
+  (http_requests / http_limit counters, histogram buckets, gauges);
+  ``megabatch_queries``: the reference's 16-query dashboard fleet.
+
 The write side:
 - ``encode_probe_series`` / ``encode_batch``: one lane per case of the
   reference's batched-encoder tests (every delta-of-delta bucket and its
@@ -47,7 +62,9 @@ import random
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
+from m3_tpu_torch.models.query_pipeline import expr_inputs_from_numpy  # noqa: F401
 from m3_tpu_torch.ops import m3tsz_scalar as tsz
 from m3_tpu_torch.ops.bitstream import pack_streams
 from m3_tpu_torch.utils import xtime
@@ -581,3 +598,408 @@ def config2_batch(n_series: int, window: int, batch: int, seed: int = 2):
     values = np.where(kinds == 1, rng.integers(0, 100, n_series),
                       np.round(rng.random(n_series) * 100, 2)).astype(np.float64)
     return kinds, ids, values, CONFIG2_START + window * 60 * SEC + batch * 10 * SEC + 5 * SEC
+
+
+# --- the fused expression interpreter ---------------------------------------
+
+INT64_MAX = np.iinfo(np.int64).max
+
+
+def bucket_pow2(n: int, floor: int) -> int:
+    """The planner's power-of-two shape quantizer (``m3_tpu/query/plan.py:
+    _bucket_pow2``): the smallest power of two >= max(n, floor)."""
+    n = max(int(n), int(floor))
+    return 1 << (n - 1).bit_length()
+
+
+class PlanNode(NamedTuple):
+    plan: tuple  # the node in the reference's plan grammar
+    labels: list  # one label dict per real row
+    rows_pad: int  # rows of the node's matrix, padding included
+
+
+def _key(labels: dict, by) -> tuple:
+    return tuple((k, labels.get(k)) for k in by)
+
+
+class ExprPlanBuilder:
+    """Builds one query's plan with its numpy ``leaves`` and ``params``,
+    as ``m3_tpu/query/plan.py:run_sym`` lays them out, but by hand: the
+    caller names the nodes and their label matching.  ``steps`` is the
+    real step grid; it is padded to ``bucket_pow2(S, 64)`` steps with the
+    last one repeated.  Leaves carry no offset, so each leaf's steps are
+    the outer ones.  ``inputs()`` returns (leaves, params, steps)."""
+
+    def __init__(self, steps):
+        steps = np.asarray(steps, dtype=np.int64)
+        self.s_pad = bucket_pow2(len(steps), 64)
+        self.steps = np.full(self.s_pad, steps[-1], dtype=np.int64)
+        self.steps[:len(steps)] = steps
+        self.leaves: list[dict] = []
+        self.params: list[tuple] = []
+        self._statics: list[tuple] = []
+        self._labels: list[list] = []
+
+    def _param(self, p: tuple) -> int:
+        self.params.append(p)
+        return len(self.params) - 1
+
+    def words_leaf(self, words, nbits, slots, labels, n_dp: int, n_cap: int, rng: int,
+                   m_pad: int | None = None) -> int:
+        """A compressed leaf: streams (rows of ``words``/``nbits``) grouped
+        by output lane ``slots``, one label dict per lane, lanes padded to
+        the planner's ``bucket_pow2(n_lanes, 64)``; ``m_pad`` streams
+        (default: as many as there are) with the padding streams (nbits 0)
+        parked on the last lane, given a spare lane if needed."""
+        n_lanes, M = len(labels), len(nbits)
+        lanes_pad = bucket_pow2(n_lanes, 64)
+        m_pad = M if m_pad is None else m_pad
+        if m_pad > M and lanes_pad == n_lanes:
+            lanes_pad = bucket_pow2(n_lanes + 1, 64)
+        words_p = np.zeros((m_pad, words.shape[1]), dtype=np.uint32)
+        words_p[:M] = words
+        nbits_p = np.zeros(m_pad, dtype=np.int32)
+        nbits_p[:M] = nbits
+        slots_p = np.full(m_pad, lanes_pad - 1, dtype=np.int64)
+        slots_p[:M] = slots
+        self.leaves.append({
+            "words": words_p, "nbits": nbits_p, "slots": slots_p,
+            "tiers": np.zeros(m_pad, dtype=np.int64), "steps": self.steps.copy(),
+            "rng": np.int64(rng), "valid": np.arange(lanes_pad) < n_lanes})
+        self._statics.append(("words", (lanes_pad, n_cap, n_dp, 1, m_pad, words.shape[1],
+                                        self.s_pad)))
+        self._labels.append(list(labels))
+        return len(self.leaves) - 1
+
+    def words_leaf_from_series(self, series, labels, rng: int,
+                               block: int = 30 * xtime.MINUTE) -> int:
+        """``words_leaf`` of (times, values) per lane, encoded in blocks of
+        ``block`` (one stream per non-empty block); n_dp, n_cap and the
+        stream count are the planner's buckets (powers of two, at least
+        128, 128 and 64)."""
+        streams, slots, counts = [], [], []
+        per_lane = np.zeros(len(series), dtype=np.int64)
+        for lane, (t, v) in enumerate(series):
+            t, v = np.asarray(t, dtype=np.int64), np.asarray(v, dtype=np.float64)
+            starts = t - t % block
+            for bs in np.unique(starts):
+                m = starts == bs
+                streams.append(tsz.encode_series(t[m].tolist(), v[m].tolist(), int(bs)))
+                slots.append(lane)
+                counts.append(int(m.sum()))
+            per_lane[lane] = len(t)
+        words, nbits = pack_streams(streams)
+        return self.words_leaf(words, nbits, np.asarray(slots, dtype=np.int64), labels,
+                               bucket_pow2(max(counts), 128), bucket_pow2(per_lane.max(), 128),
+                               rng, m_pad=bucket_pow2(len(streams), 64))
+
+    def arrays_leaf(self, times, values, labels, rng: int) -> int:
+        """A decoded leaf (the decoded-block cache's bridge): merged lanes
+        ``times i64[n, n_cap]`` (INT64_MAX-padded) and ``values``, padded
+        to ``bucket_pow2(n, 64)`` lanes."""
+        n_lanes, n_cap = times.shape
+        lanes_pad = bucket_pow2(n_lanes, 64)
+        t = np.full((lanes_pad, n_cap), INT64_MAX, dtype=np.int64)
+        v = np.full((lanes_pad, n_cap), np.nan)
+        t[:n_lanes], v[:n_lanes] = times, values
+        self.leaves.append({"times": t, "values": v, "steps": self.steps.copy(),
+                            "rng": np.int64(rng), "valid": np.arange(lanes_pad) < n_lanes})
+        self._statics.append(("arrays", (lanes_pad, n_cap, 0, 1, 0, 0, self.s_pad)))
+        self._labels.append(list(labels))
+        return len(self.leaves) - 1
+
+    def leaf(self, idx: int, fn: str, horizon: float = 0.0, phi: float = 0.5,
+             hw_sf: float = 0.5, hw_tf: float = 0.5) -> PlanNode:
+        kind, statics = self._statics[idx]
+        pidx = self._param((np.float64(horizon), np.float64(phi)))
+        plan = ("leaf", idx, pidx, kind, fn) + statics + (hw_sf, hw_tf)
+        return PlanNode(plan, self._labels[idx], statics[0])
+
+    def agg(self, op: str, child: PlanNode, by=(), phi: float = 0.5) -> PlanNode:
+        """``op by (by) (child)``: groups sorted by key, g_pad =
+        bucket_pow2(groups, 8), padding rows parked on group 0."""
+        keys = [_key(ls, by) for ls in child.labels]
+        uniq = sorted(set(keys))
+        group_of = {k: i for i, k in enumerate(uniq)}
+        g_pad = bucket_pow2(max(len(uniq), 1), 8)
+        groups = np.zeros(child.rows_pad, dtype=np.int64)
+        groups[:len(keys)] = [group_of[k] for k in keys]
+        pidx = self._param((groups, np.arange(g_pad) < len(uniq), np.float64(phi)))
+        return PlanNode(("agg", op, g_pad, pidx, child.plan), [dict(k) for k in uniq], g_pad)
+
+    def call(self, fn: str, child: PlanNode, extras=()) -> PlanNode:
+        pidx = self._param(tuple(np.float64(e) for e in extras))
+        return PlanNode(("call", fn, pidx, child.plan), child.labels, child.rows_pad)
+
+    def vs(self, op: str, child: PlanNode, scalar: float, bool_mod: bool = False,
+           mat_on_left: bool = True) -> PlanNode:
+        pidx = self._param((np.float64(scalar),))
+        return PlanNode(("vs", op, bool_mod, mat_on_left, pidx, child.plan), child.labels,
+                        child.rows_pad)
+
+    def vv(self, op: str, lhs: PlanNode, rhs: PlanNode, on=None, group_left: bool = False,
+           bool_mod: bool = False) -> PlanNode:
+        """``lhs op on(on) rhs`` (``on`` None: all labels), one-to-one, or
+        many-to-one with ``group_left``; output rows in lhs order."""
+        def key(ls):
+            return tuple(sorted(ls.items())) if on is None else _key(ls, on)
+        right = {}
+        for j, ls in enumerate(rhs.labels):
+            right.setdefault(key(ls), j)
+        pairs = [(i, right[key(ls)]) for i, ls in enumerate(lhs.labels) if key(ls) in right]
+        if not group_left:
+            seen = [key(lhs.labels[i]) for i, _ in pairs]
+            if len(set(seen)) != len(seen):
+                raise ValueError("many-to-one match needs group_left")
+        n_out = len(pairs)
+        out_pad = bucket_pow2(max(n_out, 1), 8)
+        lidx = np.zeros(out_pad, dtype=np.int64)
+        ridx = np.zeros(out_pad, dtype=np.int64)
+        lidx[:n_out] = [i for i, _ in pairs]
+        ridx[:n_out] = [j for _, j in pairs]
+        pidx = self._param((lidx, ridx, np.arange(out_pad) < n_out))
+        labels = [lhs.labels[i] for i, _ in pairs]
+        return PlanNode(("vv", op, bool_mod, out_pad, pidx, lhs.plan, rhs.plan), labels,
+                        out_pad)
+
+    def topk(self, op: str, k: int, child: PlanNode, by=()) -> PlanNode:
+        """topk/bottomk: padding rows on a trash group of their own, the
+        last of g_pad = bucket_pow2(groups + 1, 8)."""
+        keys = [_key(ls, by) for ls in child.labels]
+        uniq = sorted(set(keys))
+        group_of = {k: i for i, k in enumerate(uniq)}
+        g_pad = bucket_pow2(len(uniq) + 1, 8)
+        groups = np.full(child.rows_pad, g_pad - 1, dtype=np.int64)
+        groups[:len(keys)] = [group_of[kk] for kk in keys]
+        pidx = self._param((groups,))
+        return PlanNode(("topk", op, k, g_pad, pidx, child.plan), child.labels, child.rows_pad)
+
+    def hq(self, phi: float, child: PlanNode) -> PlanNode:
+        """histogram_quantile(phi, child): rows grouped on their labels
+        other than ``le``, buckets sorted by (upper bound, row); groups of
+        fewer than 2 buckets or without a +Inf top are skipped; the bucket
+        axis is padded by repeating the top row; caps = the highest finite
+        bound."""
+        groups: dict = {}
+        for i, ls in enumerate(child.labels):
+            if "le" in ls:
+                gkey = tuple(sorted((k, v) for k, v in ls.items() if k != "le"))
+                groups.setdefault(gkey, []).append((float(ls["le"]), i))
+        out_labels, rows_g, ubs_g = [], [], []
+        for gkey, buckets in sorted(groups.items()):
+            buckets.sort()
+            ubs = [b[0] for b in buckets]
+            if len(ubs) < 2 or not math.isinf(ubs[-1]):
+                continue
+            out_labels.append(dict(gkey))
+            rows_g.append([b[1] for b in buckets])
+            ubs_g.append(ubs)
+        g_pad = bucket_pow2(len(out_labels), 8)
+        b_pad = bucket_pow2(max(len(r) for r in rows_g), 8)
+        rows_idx = np.zeros((g_pad, b_pad), dtype=np.int64)
+        ubs_p = np.full((g_pad, b_pad), np.inf)
+        caps = np.zeros(g_pad)
+        for g, (rows, ubs) in enumerate(zip(rows_g, ubs_g)):
+            rows_idx[g, :len(rows)] = rows
+            rows_idx[g, len(rows):] = rows[-1]
+            ubs_p[g, :len(ubs)] = ubs
+            caps[g] = ubs[-2]
+        pidx = self._param((rows_idx, ubs_p, caps, np.arange(g_pad) < len(out_labels),
+                            np.float64(phi)))
+        return PlanNode(("hq", g_pad, b_pad, pidx, child.plan), out_labels, g_pad)
+
+    def absent(self, child: PlanNode) -> PlanNode:
+        avalid = np.zeros(8, dtype=bool)
+        avalid[0] = True
+        return PlanNode(("absent", self._param((avalid,)), child.plan), [{}], 8)
+
+    def inputs(self):
+        return self.leaves, tuple(self.params), self.steps
+
+
+def stack_queries(queries):
+    """Q queries' (leaves, params, steps) of one plan, stacked on a
+    leading [Q] axis as the reference's megabatch scheduler stacks them."""
+    leaves = [{k: np.stack([q[0][i][k] for q in queries]) for k in queries[0][0][i]}
+              for i in range(len(queries[0][0]))]
+    params = tuple(tuple(np.stack([q[1][p][j] for q in queries])
+                         for j in range(len(queries[0][1][p])))
+                   for p in range(len(queries[0][1])))
+    return leaves, params, np.stack([q[2] for q in queries])
+
+
+def minmax_probe_lanes(n_cap: int = 192, seed: int = 17):
+    """Merged lanes for min/max_over_time: ``(times i64[8, n_cap], values,
+    steps i64[S])`` at 10s.  Lanes: a walk; the walk with NaN holes and
+    +-Inf samples; random +-0.0 with NaN holes (windows holding both
+    zeros, inside one 32-sample block at a 93s range and across blocks at
+    10m); only -0.0; negatives with -0.0; an all-NaN lane; a sparse lane
+    (empty and one-sample windows); a short lane (INT64_MAX / NaN tail).
+    Steps every 60s from before the first sample to after the last."""
+    rng = np.random.default_rng(seed)
+    n_lanes = 8
+    times = np.full((n_lanes, n_cap), INT64_MAX, dtype=np.int64)
+    values = np.full((n_lanes, n_cap), np.nan)
+    walk = np.round(np.cumsum(rng.standard_normal(n_cap)) * 3, 1)
+    holes = walk.copy()
+    pick = rng.random(n_cap)
+    holes[pick < 0.15] = np.nan
+    holes[(pick >= 0.15) & (pick < 0.2)] = np.inf
+    holes[(pick >= 0.2) & (pick < 0.25)] = -np.inf
+    zeros = np.where(rng.random(n_cap) < 0.5, -0.0, 0.0)
+    zeros[rng.random(n_cap) < 0.1] = np.nan
+    negs = -rng.integers(0, 3, n_cap).astype(np.float64)
+    negs[negs == 0] = -0.0
+    rows = (walk, holes, zeros, np.full(n_cap, -0.0), negs, np.full(n_cap, np.nan))
+    for lane, v in enumerate(rows):
+        times[lane] = START + (np.arange(n_cap, dtype=np.int64) + 1) * 10 * SEC
+        values[lane] = v
+    keep = np.sort(rng.choice(n_cap, n_cap // 12, replace=False))
+    times[6, :len(keep)] = START + (keep + 1) * 10 * SEC
+    values[6, :len(keep)] = walk[keep]
+    half = n_cap // 2
+    times[7, :half] = START + (np.arange(half, dtype=np.int64) + 1) * 10 * SEC
+    values[7, :half] = zeros[:half]
+    steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
+    return times, values, steps
+
+
+def select_probes(n_steps: int = 64, seed: int = 23):
+    """A served [64, S] matrix for the grouped quantile and topk/bottomk:
+    ``(values f64[64, S], groups i64[64], n_groups)``.  Rows 0-47 are real
+    lanes in five groups of 1, 2, 5, 15 and 25 lanes (sizes below and
+    above k, interleaved lane order), rows 48-63 all-NaN padding on the
+    last group (the planner's topk trash group; an empty group for the
+    quantile).  Cells: small integers (ties), +-0.0, NaN (~20%), +-Inf,
+    a step where one group is all NaN and a step where every cell is
+    NaN."""
+    rng = np.random.default_rng(seed)
+    L, n_real, n_groups = 64, 48, 6
+    v = rng.integers(-3, 4, (L, n_steps)).astype(np.float64)
+    zero = v == 0
+    v[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    pick = rng.random((L, n_steps))
+    v[pick < 0.2] = np.nan
+    v[(pick >= 0.2) & (pick < 0.24)] = np.inf
+    v[(pick >= 0.24) & (pick < 0.28)] = -np.inf
+    sizes = (1, 2, 5, 15, 25)
+    groups = np.full(L, n_groups - 1, dtype=np.int64)
+    groups[:n_real] = rng.permutation(np.repeat(np.arange(5), sizes))
+    v[groups == 3, 5] = np.nan
+    v[:, 9] = np.nan
+    v[n_real:] = np.nan
+    return v, groups, n_groups
+
+
+def histogram_probes(n_steps: int = 64, seed: int = 29):
+    """Bucket rows for histogram_quantile: ``(cv f64[R, S], rows_idx
+    i64[8, 8], ubs f64[8, 8], caps f64[8])`` in the planner's layout.
+    Groups: cumulative counters (DefBuckets-like bounds); one whose +Inf
+    count falls below a finite bucket's at some steps (the cummax fix-up);
+    negative and zero upper bounds (the first-bucket rule); all-zero
+    counts (total 0); NaN and +-Inf counts; two buckets only; and two
+    padding groups (all rows 0, bounds +Inf).  Padding buckets repeat the
+    top row."""
+    rng = np.random.default_rng(seed)
+    bounds = [
+        [0.005, 0.05, 0.25, 1.0, 5.0, np.inf],
+        [0.1, 0.5, 1.0, np.inf],
+        [-2.0, -1.0, 0.0, 1.0, np.inf],
+        [0.5, 1.0, np.inf],
+        [1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, np.inf],
+        [1.0, np.inf],
+    ]
+    rows, rows_idx, ubs, caps = [], np.zeros((8, 8), dtype=np.int64), np.full((8, 8), np.inf), \
+        np.zeros(8)
+    for g, ub in enumerate(bounds):
+        inc = rng.integers(0, 20, (len(ub), n_steps)).astype(np.float64)
+        c = np.cumsum(np.cumsum(inc, axis=1), axis=0)  # cumulative in le, counters in time
+        if g == 1:
+            c[-1, ::3] = c[1, ::3] - 5  # +Inf below a finite bucket
+        if g == 3:
+            c[:] = 0.0
+            c[:, ::2] = np.cumsum(inc[:, ::2], axis=0)
+        if g == 4:
+            pick = rng.random(c.shape)
+            c[pick < 0.1] = np.nan
+            c[(pick >= 0.1) & (pick < 0.13)] = np.inf
+            c[(pick >= 0.13) & (pick < 0.15)] = -np.inf
+        base = len(rows)
+        rows.extend(c)
+        rows_idx[g, :len(ub)] = base + np.arange(len(ub))
+        rows_idx[g, len(ub):] = base + len(ub) - 1
+        ubs[g, :len(ub)] = ub
+        caps[g] = ub[-2]
+    return np.asarray(rows), rows_idx, ubs, caps
+
+
+# client_golang's DefBuckets: 11 finite upper bounds and +Inf
+DEF_BUCKETS = ("0.005", "0.01", "0.025", "0.05", "0.1", "0.25", "0.5", "1", "2.5", "5", "10",
+               "+Inf")
+
+
+class HistogramFleet(NamedTuple):
+    words: np.ndarray  # u32[M, W]
+    nbits: np.ndarray  # i32[M]
+    slots: np.ndarray  # i64[M]
+    labels: list  # per lane: {"job", "hist", "le"}
+    n_dp: int
+    n_cap: int
+
+
+def histogram_fleet(n_hist: int, n_jobs: int = 100, n_unique: int = 167,
+                    fc: FanoutCorpus | None = None) -> HistogramFleet:
+    """``http_request_duration_seconds_bucket`` at BASELINE config 4's
+    shape: ``n_hist`` histograms x the 12 DefBuckets, each bucket a
+    series of 6h at 10s in 2h blocks.  Bucket b of unique histogram u is
+    ``round(walk_u * (b + 1) / 12)`` of the fan-out corpus's seed-42 walks
+    (cumulative in ``le``; +Inf is the walk itself); histogram h reads
+    unique ``h % n_unique`` and belongs to job ``h % n_jobs``.  Lane
+    ``12 h + b``; one stream per (lane, block)."""
+    fc = fc if fc is not None else fanout_corpus(2000)
+    n_b = len(DEF_BUCKETS)
+    block_starts = [START + b * 2 * xtime.HOUR for b in range(len(fc.grids))]
+    streams = []
+    for (ts_u, vs_u), bs in zip(fc.grids, block_starts):
+        for u in range(n_unique):
+            for b in range(n_b):
+                v = np.round(vs_u[u] * (b + 1) / n_b)
+                enc = tsz.Encoder(bs)
+                for t, x in zip(ts_u[u].tolist(), v.tolist()):
+                    enc.encode(t, x)
+                streams.append(enc.finalize())
+    uniq_words, uniq_nbits = pack_streams(streams)  # [n_blocks * n_unique * n_b, W]
+    n_blocks = len(fc.grids)
+    lanes = np.arange(n_hist * n_b, dtype=np.int64)
+    uniq_lane = (lanes // n_b % n_unique) * n_b + lanes % n_b
+    flat = (np.repeat(uniq_lane, n_blocks)
+            + np.tile(np.arange(n_blocks, dtype=np.int64) * n_unique * n_b, len(lanes)))
+    labels = [{"job": "j%03d" % (h % n_jobs), "hist": "h%05d" % h, "le": le}
+              for h in range(n_hist) for le in DEF_BUCKETS]
+    return HistogramFleet(uniq_words[flat], uniq_nbits[flat], np.repeat(lanes, n_blocks),
+                          labels, fc.batch.n_dp, fc.batch.n_cap)
+
+
+MEGABATCH_STEPS = 41  # 40 minutes at 60s (bench.py:3291-3320)
+
+
+def megabatch_query(seed: int, n_jobs: int = 8, n_inst: int = 64):
+    """One query of the reference's dashboard megabatch
+    (``bench.py:3325 bench_query_batching``):
+    ``sum by (job)(sum_over_time(mem_use[5m])) / sum by
+    (job)(count_over_time(mem_use[5m]))`` on arrays-kind leaves (the
+    decoded-block cache's bridge) over ``n_jobs x n_inst`` gauges, uniform
+    in [-50, 50) every 20s for an hour, 40 minutes at 60s steps.  Each
+    seed is a tenant of its own (its data and its window); every query
+    has the same plan.  Returns (plan, (leaves, params, steps))."""
+    rng = np.random.default_rng(seed)
+    t0 = START - START % (2 * xtime.HOUR) + seed * xtime.HOUR
+    ts = np.arange(t0 + SEC, t0 + 3600 * SEC, 20 * SEC, dtype=np.int64)
+    labels = [{"job": f"job{j}", "inst": f"i{i}"} for j in range(n_jobs) for i in range(n_inst)]
+    times = np.tile(ts, (len(labels), 1))
+    values = rng.uniform(-50, 50, times.shape)
+    b = ExprPlanBuilder(t0 + 10 * xtime.MINUTE + np.arange(MEGABATCH_STEPS) * xtime.MINUTE)
+    lf = b.arrays_leaf(times, values, labels, 5 * xtime.MINUTE)
+    root = b.vv("/", b.agg("sum", b.leaf(lf, "sum_over_time"), ("job",)),
+                b.agg("sum", b.leaf(lf, "count_over_time"), ("job",)))
+    return root.plan, b.inputs()

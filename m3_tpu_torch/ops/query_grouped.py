@@ -1,11 +1,13 @@
-"""Group-by over a served ``[L, S]`` matrix: the CUDA kernel QK4 and its
-plain PyTorch version.
+"""Group-by over a served ``[L, S]`` matrix: the CUDA kernels QK4 and QK6
+and their plain PyTorch versions.
 
 Port of ``m3_tpu/models/query_pipeline.py:_grouped_reduce`` (sum, avg,
 count, min, max, group, stddev, stdvar; NaN cells are absent and a
-group-step with no present cell is NaN) and of the fleet sum
+group-step with no present cell is NaN), of the fleet sum
 ``jnp.nansum(rate, axis=0)`` of ``device_rate_pipeline`` (the one-group
-case, 0.0 where nothing is present).
+case, 0.0 where nothing is present) and of ``_grouped_quantile`` (QK6,
+``grouped_quantile``: the phi-quantile of each group's present cells, in
+``csrc/query_select.cu``, which QK7 ``ops/lane_topk.py`` shares).
 
 - On a CUDA tensor ``grouped_reduce`` and ``fleet_nansum`` launch
   ``csrc/query_grouped.cu`` or raise.  The kernel takes a stable CSR of
@@ -16,21 +18,29 @@ case, 0.0 where nothing is present).
   ``index_add_``, as the reference's ``segment_sum``).
 
 Lanes whose row is all NaN (padding lanes) contribute nothing to any
-group, so callers may park them on any group id.
+group, so callers may park them on any group id.  For the quantile they
+count in their group's size but never in its present cells, as in the
+reference.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from m3_tpu_torch.ops import _build
+from m3_tpu_torch.ops import _build, ieee
 
 I64 = torch.int64
 F64 = torch.float64
 
 AGGS = ("sum", "avg", "count", "min", "max", "group", "stddev", "stdvar")  # enum Agg order
 MAX_GROUPS = 65535  # the kernel's grid.y
+# Largest padded group (pairs) that csrc/query_select.cu sorts in shared
+# memory (48 KB); larger groups sort in a global scratch buffer.
+SELECT_SMEM_MAX_P = 4096
+SELECT_QUANTILE, SELECT_TOPK, SELECT_BOTTOMK = 0, 1, 2  # enum Mode of the kernel
 
 
 def _check_agg(agg: str) -> None:
@@ -94,11 +104,60 @@ def fleet_nansum_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.nansum(x, dim=0)
 
 
+def check_phi(phi: float) -> float:
+    """The grouped quantile's contract, as the reference's callers keep
+    it: 0 <= phi <= 1 (the engine answers other values on the host)."""
+    phi = float(phi)
+    if not 0.0 <= phi <= 1.0:
+        raise ValueError(f"quantile's phi must lie in [0, 1], got {phi}")
+    return phi
+
+
+def host_ids(groups) -> np.ndarray:
+    return (groups.cpu().numpy() if isinstance(groups, torch.Tensor)
+            else np.asarray(groups)).astype(np.int64, copy=False)
+
+
+def grouped_quantile_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int, phi):
+    """Plain version of ``grouped_quantile``, the reference's formulation:
+    per step, lanes sorted by (group, value with NaN as +inf), stable by
+    lane; each group's run starts at the sum of the sizes before it, and
+    the quantile interpolates between the run's floor(h)-th and ceil(h)-th
+    sorted keys (a NaN lane tied with a real +inf reads as +inf)."""
+    phi = check_phi(phi)
+    L = out.shape[0]
+    groups = groups.to(out.device, I64)
+    if bool((groups < 0).any()):
+        raise ValueError("group ids must not be negative")
+    m = ~torch.isnan(out)
+    key = torch.where(m, out, torch.inf)
+    by_key = torch.sort(key, dim=0, stable=True).indices
+    by_group = torch.sort(groups[by_key], dim=0, stable=True).indices
+    sv = torch.gather(key, 0, torch.gather(by_key, 0, by_group))  # sorted keys: NaN -> inf
+    inside = groups < n_groups
+    npres = _segment_sum(m[inside].to(F64), groups[inside], n_groups)
+    sizes = torch.bincount(groups[inside], minlength=n_groups)
+    base = (torch.cumsum(sizes, 0) - sizes)[:, None]
+    h = phi * ieee.maximum(npres - 1.0, 0.0)
+    lo = torch.floor(h)
+    frac = h - lo
+    i_lo = (base + lo.to(I64)).clamp(0, L - 1)
+    i_hi = (base + torch.ceil(h).to(I64)).clamp(0, L - 1)
+    v_lo, v_hi = torch.gather(sv, 0, i_lo), torch.gather(sv, 0, i_hi)
+    q = v_lo + (v_hi - v_lo) * frac
+    return torch.where(npres > 0, q, torch.nan)
+
+
 # --- wrappers: CUDA tensor -> kernel, CPU tensor -> plain version --------
 
 _SIGNATURES = {
     "m3_query_grouped": [_build.P, _build.LL, _build.P, _build.P, _build.I, _build.I,
                          _build.D, _build.P, _build.P],
+}
+_SELECT_SIGNATURES = {
+    "m3_query_select": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I, _build.D,
+                        _build.LL, _build.I, _build.LL, _build.P, _build.P, _build.I, _build.I,
+                        _build.P, _build.P, _build.P, _build.P],
 }
 
 
@@ -106,8 +165,7 @@ def group_csr(groups, n_groups: int):
     """Host-built stable CSR of the lanes of each group: (members i64[K],
     lane ids ascending within each group; offsets i64[n_groups + 1]).
     Lanes whose id lies outside [0, n_groups) are left out."""
-    g = (groups.cpu().numpy() if isinstance(groups, torch.Tensor)
-         else np.asarray(groups)).astype(np.int64, copy=False)
+    g = host_ids(groups)
     lanes = np.flatnonzero((g >= 0) & (g < n_groups))
     members = lanes[np.argsort(g[lanes], kind="stable")]
     offsets = np.zeros(n_groups + 1, dtype=np.int64)
@@ -115,23 +173,43 @@ def group_csr(groups, n_groups: int):
     return members, offsets
 
 
-def _launch(x: torch.Tensor, members, offsets: np.ndarray, agg: str, empty_value: float):
+class GroupIndex(NamedTuple):
+    """The kernels' view of a grouping: ``group_csr`` on the device, and
+    the group sizes on the host (the select kernel sizes its sorts from
+    them).  ``members`` None means lanes 0..offsets[-1]-1 in order."""
+
+    members: torch.Tensor | None  # i64[K] on the device
+    offsets: torch.Tensor  # i64[G + 1] on the device
+    sizes: np.ndarray  # i64[G] on the host
+
+
+def group_index(groups, n_groups: int, device) -> GroupIndex:
+    """``group_csr`` moved to ``device`` (non-blocking copies: host glue
+    that never waits on the card)."""
+    members, offsets = group_csr(groups, n_groups)
+    return GroupIndex(torch.from_numpy(members).to(device, non_blocking=True),
+                      torch.from_numpy(offsets).to(device, non_blocking=True), np.diff(offsets))
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None or not t.numel() else t.data_ptr()
+
+
+def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float):
     if x.dim() != 2:
         raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
-    n_groups = len(offsets) - 1
+    n_groups = len(index.sizes)
     if n_groups > MAX_GROUPS:
         raise ValueError(f"at most {MAX_GROUPS} groups")
     dev = x.device
     S = x.shape[1]
     xc = x.to(F64).contiguous()
-    off = torch.from_numpy(offsets).to(dev)
-    mem = None if members is None else torch.from_numpy(members).to(dev)
     out = torch.empty((n_groups, S), dtype=F64, device=dev)
     if n_groups and S:
         lib = _build.library("query_grouped", _SIGNATURES)
         rc = lib.m3_query_grouped(
-            xc.data_ptr(), S, None if mem is None or not mem.numel() else mem.data_ptr(),
-            off.data_ptr(), n_groups, AGGS.index(agg), empty_value, out.data_ptr(),
+            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), n_groups,
+            AGGS.index(agg), empty_value, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, "query_grouped")
         _build.count_launch("query_grouped")
@@ -139,10 +217,10 @@ def _launch(x: torch.Tensor, members, offsets: np.ndarray, agg: str, empty_value
 
 
 def grouped_reduce(out: torch.Tensor, groups, n_groups: int, agg: str,
-                   csr: tuple[np.ndarray, np.ndarray] | None = None) -> torch.Tensor:
+                   index: GroupIndex | None = None) -> torch.Tensor:
     """``agg`` of each group's lanes per step: [L, S] -> f64[n_groups, S].
-    ``groups`` gives each lane's group id (tensor or numpy); ``csr`` may
-    pass ``group_csr(groups, n_groups)`` built ahead."""
+    ``groups`` gives each lane's group id (tensor or numpy); ``index`` may
+    pass ``group_index(groups, n_groups, out.device)`` built ahead."""
     _check_agg(agg)
     if out.device.type == "cpu":
         groups = groups if isinstance(groups, torch.Tensor) else torch.from_numpy(
@@ -150,8 +228,8 @@ def grouped_reduce(out: torch.Tensor, groups, n_groups: int, agg: str,
         return grouped_reduce_plain(out, groups, n_groups, agg)
     if not out.is_cuda:
         raise ValueError(f"unsupported device {out.device}")
-    members, offsets = csr if csr is not None else group_csr(groups, n_groups)
-    return _launch(out, members, offsets, agg, float("nan"))
+    index = index if index is not None else group_index(groups, n_groups, out.device)
+    return _launch(out, index, agg, float("nan"))
 
 
 def fleet_nansum(x: torch.Tensor) -> torch.Tensor:
@@ -160,5 +238,65 @@ def fleet_nansum(x: torch.Tensor) -> torch.Tensor:
         return fleet_nansum_plain(x)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    offsets = np.asarray([0, x.shape[0]], dtype=np.int64)
-    return _launch(x, None, offsets, "sum", 0.0)[0]
+    offsets = torch.tensor([0, x.shape[0]], dtype=I64).to(x.device, non_blocking=True)
+    return _launch(x, GroupIndex(None, offsets, np.asarray([x.shape[0]])), "sum", 0.0)[0]
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def launch_select(x: torch.Tensor, index: GroupIndex, mode: int, phi: float = 0.0, k: int = 0):
+    """One launch of ``csrc/query_select.cu`` over the groups of ``index``
+    on the CUDA matrix ``x`` [L, S]: quantile (-> f64[G, S]) or
+    topk/bottomk (-> (f64[L, S], bool[L], i64[L]))."""
+    if x.dim() != 2:
+        raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
+    dev = x.device
+    L, S = x.shape
+    G = len(index.sizes)
+    xc = x.to(F64).contiguous()
+    padded = [_pow2(n) for n in index.sizes if n > 0]
+    p_smem = max((p for p in padded if p <= SELECT_SMEM_MAX_P), default=0)
+    p_scratch = max((p for p in padded if p > SELECT_SMEM_MAX_P), default=0)
+    threads = min(512, max(64, max(padded, default=1) // 2))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(G * S, sms * (2 if p_scratch else 8)))
+    keys = torch.empty((grid, p_scratch) if p_scratch else (0,), dtype=I64, device=dev)
+    pos = torch.empty((grid, p_scratch) if p_scratch else (0,), dtype=torch.int32, device=dev)
+    quantile = mode == SELECT_QUANTILE
+    out = torch.empty((G, S) if quantile else (L, S), dtype=F64, device=dev)
+    present = torch.zeros((0,) if quantile else (L,), dtype=torch.int32, device=dev)
+    rank = torch.empty((0,) if quantile else (L,), dtype=I64, device=dev)
+    if G and S and L:
+        lib = _build.library("query_select", _SELECT_SIGNATURES)
+        rc = lib.m3_query_select(
+            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), G, mode,
+            float(phi), int(k), p_smem, p_scratch, _ptr(keys), _ptr(pos), grid, threads,
+            out.data_ptr(), _ptr(present), _ptr(rank),
+            torch.cuda.current_stream(dev).cuda_stream)
+        kernel = "query_quantile" if quantile else "query_topk"
+        _build.check(lib, rc, kernel)
+        _build.count_launch(kernel)
+    return out if quantile else (out, present.bool(), rank)
+
+
+def grouped_quantile(out: torch.Tensor, groups, n_groups: int, phi,
+                     index: GroupIndex | None = None) -> torch.Tensor:
+    """``quantile by (g) (phi, x)``: [L, S] -> f64[n_groups, S].  ``groups``
+    gives each lane's group id (tensor or numpy; ids >= n_groups belong to
+    no group, negative ids are refused); ``phi`` is a runtime argument in
+    [0, 1]; ``index`` may pass ``group_index(groups, n_groups, out.device)``
+    built ahead."""
+    phi = check_phi(phi)
+    if out.device.type == "cpu":
+        groups = groups if isinstance(groups, torch.Tensor) else torch.from_numpy(
+            np.asarray(groups, dtype=np.int64))
+        return grouped_quantile_plain(out, groups, n_groups, phi)
+    if not out.is_cuda:
+        raise ValueError(f"unsupported device {out.device}")
+    ids = host_ids(groups)
+    if (ids < 0).any():
+        raise ValueError("group ids must not be negative")
+    index = index if index is not None else group_index(ids, n_groups, out.device)
+    return launch_select(out, index, SELECT_QUANTILE, phi=phi)

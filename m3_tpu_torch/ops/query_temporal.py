@@ -1,15 +1,18 @@
 """Windowed PromQL temporal functions over merged lanes: the CUDA kernels
-QK2 (rate family) and QK3 (prefix-sum reducers) and their plain PyTorch
-versions.
+QK2 (rate family), QK3 (prefix-sum reducers) and QK5 (min/max over time)
+and their plain PyTorch versions.
 
 Port of ``m3_tpu/models/query_pipeline.py``: ``_window_bounds_device``,
-``_rate_device``, ``_instant_device`` (QK2) and the prefix-sum half of
-``_reduce_device`` (QK3: sum, avg, count, present and last over time).
+``_rate_device``, ``_instant_device`` (QK2), the prefix-sum half of
+``_reduce_device`` (QK3: sum, avg, count, present and last over time) and
+``_minmax_device`` (QK5).
 
-- On a CUDA tensor ``rate``, ``instant`` and ``reduce_window`` launch
+- On a CUDA tensor ``rate``, ``instant``, ``reduce_window`` and
+  ``minmax_window`` launch
   ``csrc/query_temporal.cu`` (a few blocks per SM, each taking lanes in
   turn; a lane's prefix sums in the block's slice of a global scratch
-  buffer, so lanes have no length limit; one thread per step) or raise.
+  buffer, so lanes have no length limit; one thread per step; QK5 scans
+  each window directly) or raise.
 - On a CPU tensor they run the plain versions below, which follow the
   reference line for line: the same bisection (a fixed number of levels,
   as ``jnp.searchsorted`` runs it, so unsorted lanes get the reference's
@@ -26,7 +29,7 @@ import math
 
 import torch
 
-from m3_tpu_torch.ops import _build
+from m3_tpu_torch.ops import _build, ieee
 
 I64 = torch.int64
 F64 = torch.float64
@@ -35,6 +38,7 @@ RATE_FNS = ("rate", "increase", "delta")
 INSTANT_FNS = ("irate", "idelta")
 REDUCERS = ("sum_over_time", "avg_over_time", "count_over_time", "present_over_time",
             "last_over_time")
+MINMAX_FNS = ("min_over_time", "max_over_time")
 _OP_RATE, _OP_INSTANT = 0, 1
 _OP_OF_REDUCER = {name: 2 + i for i, name in enumerate(REDUCERS)}  # enum Op of the kernel
 # The reference divides nanoseconds by 1e9; XLA compiles a division by a
@@ -79,12 +83,6 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
-def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """jnp.minimum: NaN propagates, -0.0 orders below +0.0."""
-    m = torch.where(a < b, a, torch.where(b < a, b, torch.where(torch.signbit(a), a, b)))
-    return torch.where(torch.isnan(a) | torch.isnan(b), torch.nan, m)
-
-
 def rate_plain(times, values, steps, range_nanos: int, is_counter: bool, is_rate: bool):
     """Plain version of ``rate``: upstream extrapolatedRate (>= 2 samples,
     counter-reset prefix sums, 1.1x average-spacing extrapolation caps,
@@ -116,7 +114,7 @@ def rate_plain(times, values, steps, range_nanos: int, is_counter: bool, is_rate
         dur_to_zero = torch.where((result > 0) & (v_first >= 0),
                                   sampled * v_first / torch.where(result > 0, result, 1.0),
                                   torch.inf)
-        dur_start = _minimum(dur_start, dur_to_zero)
+        dur_start = ieee.minimum(dur_start, dur_to_zero)
     extrap_start = torch.where(dur_start < threshold, dur_start, avg_dur / 2)
     extrap_end = torch.where(dur_end < threshold, dur_end, avg_dur / 2)
     interval = sampled + extrap_start + extrap_end
@@ -172,6 +170,28 @@ def reduce_plain(times, values, steps, range_nanos: int, reducer: str):
     return torch.where(empty, torch.nan, out)
 
 
+def minmax_plain(times, values, steps, range_nanos: int, is_max: bool):
+    """Plain version of ``minmax_window``: the windows' bounds, then one
+    pass per window offset (as many as the longest window), keeping the
+    IEEE max of the present samples (min as -max(-v), as the reference
+    computes it); a window with no present sample is NaN.  The longest
+    window is read back to the host: this version is a yardstick, not a
+    serving path."""
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    N = values.shape[1]
+    vm = values if is_max else -values
+    acc = torch.full(left.shape, -torch.inf, dtype=F64, device=values.device)
+    n = torch.zeros(left.shape, dtype=I64, device=values.device)
+    width = int((right - left).max()) if left.numel() else 0
+    for o in range(width):
+        idx = left + o
+        x = _take(vm, idx.clamp(0, N - 1))
+        take = (idx < right) & ~torch.isnan(x)
+        acc = torch.where(take, ieee.maximum(acc, x), acc)
+        n = n + take.to(I64)
+    return torch.where(n > 0, acc if is_max else -acc, torch.nan)
+
+
 def _check_reducer(reducer: str) -> None:
     if reducer not in REDUCERS:
         raise ValueError(f"no prefix-sum form for {reducer}")
@@ -183,24 +203,32 @@ _SIGNATURES = {
     "m3_query_temporal": [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.I, _build.I,
                           _build.LL, _build.I, _build.I, _build.I, _build.P, _build.P, _build.P,
                           _build.P, _build.P, _build.I, _build.P],
+    "m3_query_minmax": [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.I, _build.I,
+                        _build.LL, _build.I, _build.P, _build.I, _build.P],
 }
 BLOCKS_PER_SM = 8  # 128-thread blocks per SM; each block's prefix scratch is [N + 1]
 
 
-def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, is_rate: bool,
-            kernel: str, with_bounds: bool):
+def _check_lanes(times, values, steps):
     if times.dim() != 2 or values.shape != times.shape:
         raise ValueError("times and values must be [L, N] of one shape")
     if steps.dim() != 1 or steps.device != times.device or values.device != times.device:
         raise ValueError("steps must be [S] on the device of times")
-    L, N = times.shape
-    S = steps.shape[0]
-    if N < 1:
+    if times.shape[1] < 1:
         raise ValueError("lanes need at least one sample slot (n_cap >= 1)")
-    dev = times.device
-    t = times.to(I64).contiguous()
-    v = values.to(F64).contiguous()
-    st = steps.to(I64).contiguous()
+    return times.to(I64).contiguous(), values.to(F64).contiguous(), steps.to(I64).contiguous()
+
+
+def _n_blocks(L: int, dev) -> int:
+    return min(L, torch.cuda.get_device_properties(dev).multi_processor_count * BLOCKS_PER_SM)
+
+
+def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, is_rate: bool,
+            kernel: str, with_bounds: bool):
+    t, v, st = _check_lanes(times, values, steps)
+    L, N = t.shape
+    S = st.shape[0]
+    dev = t.device
     out = torch.empty((L, S), dtype=F64, device=dev)
     left = right = None
     if with_bounds:
@@ -208,8 +236,7 @@ def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, i
         right = torch.empty((L, S), dtype=I64, device=dev)
     if L and S:
         lib = _build.library("query_temporal", _SIGNATURES)
-        n_blocks = min(L, torch.cuda.get_device_properties(dev).multi_processor_count
-                       * BLOCKS_PER_SM)
+        n_blocks = _n_blocks(L, dev)
         prefix = torch.empty((n_blocks, N + 1), dtype=F64, device=dev)
         prefix_counts = torch.empty((n_blocks, N + 1), dtype=torch.int32, device=dev)
         rc = lib.m3_query_temporal(
@@ -268,3 +295,26 @@ def reduce_window(times, values, steps, range_nanos: int, reducer: str,
         return _plain_bounds(out, times, steps, range_nanos, with_bounds)
     return _launch(times, values, steps, range_nanos, _OP_OF_REDUCER[reducer], False, False,
                    "query_reduce", with_bounds)
+
+
+def minmax_window(times, values, steps, range_nanos: int, is_max: bool) -> torch.Tensor:
+    """max_over_time (``is_max``) or min_over_time per (lane, step) -> f64[L, S]."""
+    if _device_of(times) == "cpu":
+        return minmax_plain(times, values, steps, range_nanos, is_max)
+    return _launch_minmax(times, values, steps, range_nanos, is_max)
+
+
+def _launch_minmax(times, values, steps, range_nanos: int, is_max: bool) -> torch.Tensor:
+    t, v, st = _check_lanes(times, values, steps)
+    L, N = t.shape
+    S = st.shape[0]
+    out = torch.empty((L, S), dtype=F64, device=t.device)
+    if L and S:
+        lib = _build.library("query_temporal", _SIGNATURES)
+        rc = lib.m3_query_minmax(
+            t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
+            int(range_nanos), int(is_max), out.data_ptr(), _n_blocks(L, t.device),
+            torch.cuda.current_stream(t.device).cuda_stream)
+        _build.check(lib, rc, "query_minmax")
+        _build.count_launch("query_minmax")
+    return out

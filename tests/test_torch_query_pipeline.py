@@ -310,17 +310,13 @@ def test_grouped_pipeline_matches_jax():
 # --- guards -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fn", sorted(tq.UNPORTED_TEMPORAL) + ["quantile"])
+@pytest.mark.parametrize("fn", sorted(tq.UNPORTED_TEMPORAL))
 def test_unported_functions_raise(fn):
     b = _batch(False)
     kw = dict(n_lanes=b.n_lanes, n_cap=b.n_cap, range_nanos=b.range_nanos, n_dp=b.n_dp,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel row Q[345]"):
-        if fn == "quantile":
-            tq.device_grouped_pipeline(*_args(b), b.groups, n_groups=b.n_groups, fn="rate",
-                                       agg=fn, **kw)
-        else:
-            tq.device_reduce_pipeline(*_args(b), reducer=fn, **kw)
+    with pytest.raises(NotImplementedError, match="kernel row Q[34]"):
+        tq.device_reduce_pipeline(*_args(b), reducer=fn, **kw)
 
 
 def test_query_pipelines_never_fall_back_to_cpu(monkeypatch):
