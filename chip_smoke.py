@@ -49,7 +49,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU tests' probes (NaN, +-Inf, +-0.0 windows inside and across 32-sample
    blocks, ties, groups below k, padding on the trash group, total-0 and
    non-monotone histograms, phi 0, 1, -0.5, 1.5, NaN) and on groups of up to
-   15,000 lanes (the global-scratch sort);
+   15,000 lanes (the global-scratch sort); then the rest of the range
+   functions (QK3's changes/resets and deriv/predict_linear op codes, QK9
+   stddev/stdvar, QK10 holt_winters, QK11 quantile_over_time) on the CPU
+   tests' probe lanes and on lanes of 32,768 samples at 5m and 1h, and the
+   subquery pack (QK12) against a stable sort; bit for bit but the fit's
+   sums (rtol 1e-9 and ``linreg_atol``), twice;
 8. expr main — BASELINE config 4's width through ``device_expr_pipeline``:
    the grouped-rate ratio of ``bench.py:1768`` (25,000 + 25,000 series,
    32 jobs), histogram_quantile(0.99, sum by (job, le)(rate(..))) over
@@ -62,7 +67,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel (per-node pipelines, numpy, the host tier, the solo calls), then
    timed (CUDA events, median of 7, and wall time with the root's
    ``.cpu()``); then QK5-QK8 are timed beside their plain versions, their
-   bounds and ``torch.sort`` along the lanes (QK6, QK7);
+   bounds and ``torch.sort`` along the lanes (QK6, QK7); then the same data
+   through one plan per further range function (stddev/stdvar_over_time
+   5m, changes/resets 15m, deriv 15m, predict_linear 1h 4h ahead,
+   holt_winters 1h (0.3, 0.1), quantile_over_time 0.99 5m), the subquery
+   max_over_time(rate(m[5m])[30m:1m]) (384 inner steps) and
+   quantile_over_time through ``device_reduce_pipeline``, each checked
+   (tiled rows bit for bit, unique rows against the host tier or, for the
+   subquery, numpy over the per-node rate on the inner grid) and timed;
+   then QK3's new ops and QK9-QK12 beside their plain versions, bounds and
+   ``torch.sort`` (along the window grid for QK11, of the packing key for
+   QK12);
 9. the write side (rollup flush, timer quantiles, BASELINE config 2, the
    encode and a block seal), as its phases' docstrings say;
 10. report — one JSON line listing the kernels, then the result line.
@@ -390,9 +405,10 @@ BIT_EXACT_REDUCERS = ("count_over_time", "present_over_time", "last_over_time")
 BIT_EXACT_AGGS = ("count", "min", "max", "group")
 
 
-def close(a: torch.Tensor, b: torch.Tensor, rtol: float, what: str, atol: float = 1e-12) -> float:
+def close(a: torch.Tensor, b: torch.Tensor, rtol: float, what: str, atol=1e-12) -> float:
     """Raise unless a and b have the same NaN pattern, the same infinities
-    and |a - b| <= atol + rtol * |b| elsewhere.  Returns max |a - b|."""
+    and |a - b| <= atol + rtol * |b| elsewhere (``atol`` a number or a
+    tensor of b's shape).  Returns max |a - b|."""
     check(a.shape == b.shape and a.dtype == b.dtype,
           f"{what}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
     an, bn = torch.isnan(a), torch.isnan(b)
@@ -402,8 +418,10 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, what: str, atol: float 
     check(torch.equal(a[inf], b[inf]), f"{what}: infinities differ")
     err = (a[fin] - b[fin]).abs()
     e = float(err.max()) if err.numel() else 0.0
-    check(bool((err <= atol + rtol * b[fin].abs()).all()),
-          f"{what}: the two differ beyond rtol {rtol}, atol {atol} (max abs err {e})")
+    per_cell = isinstance(atol, torch.Tensor)
+    check(bool((err <= (atol[fin] if per_cell else atol) + rtol * b[fin].abs()).all()),
+          f"{what}: the two differ beyond rtol {rtol}, atol {'per cell' if per_cell else atol} "
+          f"(max abs err {e})")
     return e
 
 
@@ -752,6 +770,115 @@ def compare_expr_kernels():
     log("expr parity histogram_quantile (QK8): cumulative, +Inf below a finite bucket, "
         "negative bounds, total 0, NaN/+-Inf counts, padding; phi 0, 0.5, 0.9, 0.99, 1, "
         "-0.5, 1.5, NaN: bit for bit, twice")
+
+
+# --- phase 7b: the rest of the temporal family and the subquery pack -------
+
+FAMILY_PHIS = (0.0, 0.25, 0.5, 0.9, 0.99, 1.0)
+FAMILY_HW = ((0.5, 0.5), (0.3, 0.1), (0.8, 0.6))
+FAMILY_HORIZONS = (0.0, 600.0, 14400.0)
+
+
+def linreg_atol(times, values, steps, r: int, horizon=None) -> torch.Tensor:
+    """deriv/predict_linear's per-cell atol: 1e-9, and on lanes that reach
+    1e8 (the 1e9-offset ones) 16 times the conditioning of the prefix form
+    (``query_temporal.linreg_conditioning``; for predict_linear scaled by 1
+    + |horizon| + range): two summation orders of the prefix sums differ on
+    that scale there (ROADMAP queue 3)."""
+    S = steps.shape[0]
+    atol = torch.full((times.shape[0], S), 1e-9, dtype=torch.float64, device=times.device)
+    big = (torch.nan_to_num(values).abs() >= 1e8).any(dim=1)
+    if bool(big.any()):
+        scale = 1.0 if horizon is None else 1.0 + abs(horizon) + r * 1e-9
+        kappa = query_temporal.linreg_conditioning(times, values, steps, r)
+        atol = torch.where(big[:, None], torch.maximum(atol, 16 * kappa * scale), atol)
+    return atol
+
+
+def compare_family(t, v, st, ranges, tag: str, phis=FAMILY_PHIS, hw=FAMILY_HW):
+    """QK3's further ops and QK9-QK11 against their plain versions on one
+    set of lanes, twice each: bit for bit but deriv/predict_linear (rtol
+    1e-9 and ``linreg_atol``: the plain version's prefix sums are
+    torch.cumsum's, the kernel's its own tiles')."""
+    qt = query_temporal
+    for r in ranges:
+        for resets in (False, True):
+            out = twice(lambda: qt.changes_window(t, v, st, r, resets), f"{tag} changes")
+            _record("query_changes", same_bits(out, qt.changes_plain(t, v, st, r, resets),
+                                               f"{tag} {'resets' if resets else 'changes'}"))
+        slope, intercept = qt.linreg_plain(t, v, st, r)
+        out = twice(lambda: qt.linreg_window(t, v, st, r, False), f"{tag} deriv")
+        _record("query_linreg", close(out, slope, 1e-9, f"{tag} deriv {r // SEC}s",
+                                      linreg_atol(t, v, st, r)))
+        for h in FAMILY_HORIZONS:
+            out = twice(lambda: qt.linreg_window(t, v, st, r, True, h), f"{tag} predict")
+            _record("query_linreg", close(out, intercept + slope * h, 1e-9,
+                                          f"{tag} predict_linear {h} {r // SEC}s",
+                                          linreg_atol(t, v, st, r, h)))
+        for sd in (False, True):
+            out = twice(lambda: qt.stdvar_window(t, v, st, r, sd), f"{tag} stdvar")
+            _record("query_stdvar", same_bits(out, qt.stdvar_plain(t, v, st, r, sd),
+                                              f"{tag} stdvar {sd} {r // SEC}s"))
+        for sf, tf in hw:
+            out = twice(lambda: qt.holt_winters_window(t, v, st, r, sf, tf), f"{tag} hw")
+            _record("query_holt_winters", same_bits(out, qt.holt_winters_plain(
+                t, v, st, r, sf, tf), f"{tag} holt_winters {sf} {tf} {r // SEC}s"))
+        for phi in phis:
+            out = twice(lambda: qt.quantile_window(t, v, st, r, phi), f"{tag} qot")
+            _record("query_quantile_window", same_bits(out, qt.quantile_window_plain(
+                t, v, st, r, phi), f"{tag} quantile_over_time {phi} {r // SEC}s"))
+
+
+def _subq_cells(rows: int, S: int, n_valid: int, seed: int):
+    """A child matrix for QK12 (NaN, +-Inf, -0.0 cells, a row with no
+    survivor) and its inner grid: (cv on the card, sub_times and sub_valid
+    on the host)."""
+    rng = np.random.default_rng(seed)
+    cv = np.round(rng.standard_normal((rows, S)) * 5, 1)
+    pick = rng.random(cv.shape)
+    cv[pick < 0.3] = np.nan
+    cv[(pick >= 0.3) & (pick < 0.33)] = np.inf
+    cv[(pick >= 0.33) & (pick < 0.36)] = -np.inf
+    cv[(pick >= 0.36) & (pick < 0.4)] = -0.0
+    cv[min(1, rows - 1)] = np.nan
+    sub = np.full(S, corpus.START + (n_valid - 1) * 60 * SEC, dtype=np.int64)
+    sub[:n_valid] = corpus.START + np.arange(n_valid, dtype=np.int64) * 60 * SEC
+    return (torch.from_numpy(cv).to(DEVICE), torch.from_numpy(sub),
+            torch.from_numpy(np.arange(S) < n_valid))
+
+
+def compare_family_kernels():
+    """QK3's further ops (changes/resets, deriv/predict_linear), QK9
+    (stddev/stdvar), QK10 (holt_winters), QK11 (quantile_over_time) and
+    QK12 (the subquery pack) against their plain versions on the card,
+    twice, on the CPU tests' probe lanes and on lanes of 32,768 samples
+    (QK11's global-scratch sort at a 1h range)."""
+    lanes = [("probes", corpus.temporal_probe_lanes()), ("minmax probes",
+                                                        corpus.minmax_probe_lanes())]
+    for tag, arrays in lanes:
+        t, v, st = (torch.from_numpy(x).to(DEVICE) for x in arrays)
+        compare_family(t, v, st, EXPR_RANGES, tag)
+    t, v, st = (torch.from_numpy(x).to(DEVICE) for x in corpus.long_lanes())
+    compare_family(t, v, st, (300 * SEC,), "long lanes", phis=(0.5, 0.99), hw=((0.3, 0.1),))
+    compare_family(t, v, st[::8].contiguous(), (3600 * SEC,), "long lanes 1h", phis=(0.0, 0.99),
+                   hw=((0.3, 0.1),))
+    torch.cuda.synchronize()
+    log("expr parity changes/resets, deriv/predict_linear (QK3), stddev/stdvar (QK9), "
+        "holt_winters (QK10), quantile_over_time (QK11): probe lanes (NaN holes, all-NaN, "
+        "sparse, the 1.5e9 canary, +-Inf, +-0.0 ties, counter resets, short lanes) at 93s and "
+        "10m, 6 lanes x 32,768 at 5m and 1h (QK11's global scratch), horizons 0-14400, "
+        "(sf, tf) 3 pairs, phi 0-1: bit for bit but the fit's sums (rtol 1e-9, linreg_atol), "
+        "twice")
+    for rows, S, n_valid in ((6, 64, 41), (3, 64, 1), (5000, 512, 385)):
+        cv, sub, valid = _subq_cells(rows, S, n_valid, rows)
+        got = twice(lambda: query_merge.subq_pack(cv, sub, valid), "subq_pack")
+        want = query_merge.subq_pack_plain(cv, sub, valid)
+        for field, g, w in zip(("times", "values"), got, want):
+            _record("subq_pack", same_bits(g, w, f"subq_pack {rows}x{S} {field}"))
+    torch.cuda.synchronize()
+    log("expr parity subquery pack (QK12): 6x64, 3x64 (one valid step), 5,000x512 (385 "
+        "valid) with NaN, +-Inf, -0.0 cells and an empty row vs the stable sort: bit for bit, "
+        "twice")
 
 
 # --- phase 9: the expression interpreter at full size -----------------------
@@ -1130,6 +1257,248 @@ def expr_kernel_times(b: corpus.QueryBatch, shapes: dict):
     row("histo_quantile", rows, time_ms(fn, reps=7),
         time_ms(lambda: histo_quantile.bucket_quantile_plain(cv, rid, ubd, capd, 0.99), reps=3),
         G * B * S * 8 + G * B * 16 + G * 8 + G * S * 8, G * B * S * 20 / FP64_OPS_PER_S * 1e3)
+    torch.cuda.synchronize()
+    return rows
+
+
+# --- phase 9b: the rest of the range functions and the subquery at full width
+
+MIN = 60 * SEC
+FAMILY_ORACLE_ROWS = 16  # unique rows held against the host tier in each plan
+
+
+def _tiled_rows(out: torch.Tensor, n: int, n_unique: int, what: str):
+    """Every real row equals its unique row bit for bit (lane l reads unique
+    l % n_unique), every padding row is NaN."""
+    reps = n // n_unique
+    same_bits(out[:n].view(reps, n_unique, -1),
+              out[:n_unique].expand(reps, n_unique, out.shape[1]).contiguous(),
+              f"{what}: tiled lanes")
+    check(bool(torch.isnan(out[n:]).all()), f"{what}: padding rows")
+
+
+def _host_family(fn: str, t, v, steps, r: int, kw: dict) -> np.ndarray:
+    """The host tier (ops/consolidate.py) of one function on merged lanes."""
+    with np.errstate(all="ignore"):
+        if fn in query_temporal.CHANGES_FNS:
+            return cons.window_changes(t, v, steps, r, fn == "resets")
+        if fn in query_temporal.LINREG_FNS:
+            slope, intercept, _ = cons.window_linreg(t, v, steps, r)
+            return slope if fn == "deriv" else intercept + slope * kw["horizon"]
+        if fn == "holt_winters":
+            return cons.window_holt_winters(t, v, steps, r, kw["hw_sf"], kw["hw_tf"])
+        if fn == "quantile_over_time":
+            return cons.window_quantile(t, v, steps, r, kw["phi"])
+        return cons.window_reduce(t, v, steps, r, fn)
+
+
+FAMILY_PLANS = (  # (query, fn, range, parameters, its kernel)
+    ("stddev_over_time(m[5m])", "stddev_over_time", 5 * MIN, {}, "query_stdvar"),
+    ("stdvar_over_time(m[5m])", "stdvar_over_time", 5 * MIN, {}, "query_stdvar"),
+    ("changes(m[15m])", "changes", 15 * MIN, {}, "query_changes"),
+    ("resets(m[15m])", "resets", 15 * MIN, {}, "query_changes"),
+    ("deriv(m[15m])", "deriv", 15 * MIN, {}, "query_linreg"),
+    ("predict_linear(m[1h], 14400)", "predict_linear", 60 * MIN, {"horizon": 14400.0},
+     "query_linreg"),
+    ("holt_winters(m[1h], 0.3, 0.1)", "holt_winters", 60 * MIN, {"hw_sf": 0.3, "hw_tf": 0.1},
+     "query_holt_winters"),
+    ("quantile_over_time(0.99, m[5m])", "quantile_over_time", 5 * MIN, {"phi": 0.99},
+     "query_quantile_window"),
+)
+
+
+def family_main(fc: corpus.FanoutCorpus):
+    """BASELINE config 4's data (50,000 series, 65,536 lanes padded, n_cap
+    2,160, 355 steps padded to 512) through device_expr_pipeline: one plan
+    per new range function, the subquery max_over_time(rate(m[5m])[30m:1m])
+    and quantile_over_time through device_reduce_pipeline.  Each is driven
+    once with the launch counts reset just before and read just after;
+    every real row must equal its unique row bit for bit and padding rows
+    be NaN; then some unique rows are held against the host tier
+    (ops/consolidate.py; the subquery against the per-node rate pipeline on
+    the inner grid and a numpy max), and the query is timed."""
+    b = fc.batch
+    n, S = b.n_lanes, len(b.steps)
+    words, nbits, slots = b.words, b.nbits, b.slots
+    job_labels = [{"job": "j%03d" % (i % N_JOBS), "instance": "i%06d" % i} for i in range(n)]
+    front = ["decode_batched", "query_merge"]
+    results = {}
+    oracle = list(range(0, fc.n_unique, fc.n_unique // FAMILY_ORACLE_ROWS))[:FAMILY_ORACLE_ROWS]
+    t_h, v_h = host_lanes(fc, oracle)
+    lanes_pad = corpus.bucket_pow2(n, 64)
+    for name, fn, r, kw, kernel in FAMILY_PLANS:
+        eb = corpus.ExprPlanBuilder(b.steps)
+        lf = eb.words_leaf(words, nbits, slots, job_labels, b.n_dp, b.n_cap, r)
+        root = eb.leaf(lf, fn, **kw)
+        name, plan, inputs, want = _expr_query(name, eb, root, front + [kernel])
+        (out, _, _), launches = _drive(plan, inputs, want, name)
+        _tiled_rows(out, n, fc.n_unique, name)
+        t0 = time.time()
+        host = torch.from_numpy(_host_family(fn, t_h, v_h, b.steps, r, kw))
+        got = out[oracle, :S].cpu()
+        if fn in query_temporal.CHANGES_FNS:
+            err = same_bits(got, host, f"{name} vs the host tier")
+            tol = "bit for bit"
+        else:
+            err = close(got, host, 1e-9, f"{name} vs the host tier", 1e-9)
+            tol = f"max abs err {err} (rtol 1e-9, atol 1e-9)"
+        check(bool(torch.isfinite(got).any()), f"{name}: no finite cell")
+        _time_expr(fn, plan, inputs, launches, lanes_pad,
+                   f"tiled lanes equal, padding NaN; unique rows {oracle[:3]}... "
+                   f"({len(oracle)}) vs the host tier ({time.time() - t0:.1f} s): {tol}", results)
+        del out, inputs
+
+    # the subquery: max_over_time(rate(m[5m])[30m:1m]), 385 inner steps -> 512
+    eb = corpus.ExprPlanBuilder(b.steps)
+    root = eb.subq("max_over_time", lambda bb: bb.leaf(bb.words_leaf(
+        words, nbits, slots, job_labels, b.n_dp, b.n_cap, 5 * MIN), "rate"), MIN, 30 * MIN)
+    sub_p, sub_valid, steps_out, _, _ = eb.params[root.plan[5]]
+    name, plan, inputs, want = _expr_query(
+        "max_over_time(rate(m[5m])[30m:1m])", eb, root,
+        front + ["query_rate", "subq_pack", "query_minmax"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    _tiled_rows(out, n, fc.n_unique, "subquery")
+    inner, _, _ = qp.device_rate_pipeline(words, nbits, slots, sub_p, n_lanes=lanes_pad,
+                                          n_cap=b.n_cap, range_nanos=5 * MIN, n_dp=b.n_dp,
+                                          device=DEVICE)
+    ir = inner[:fc.n_unique].cpu().numpy()
+    n_in = int(sub_valid.sum())
+    want_np = np.full((fc.n_unique, S), np.nan)
+    for j in range(S):
+        m = (sub_p[:n_in] >= steps_out[j] - 30 * MIN) & (sub_p[:n_in] <= steps_out[j])
+        cells = ir[:, :n_in][:, m]
+        has = (~np.isnan(cells)).any(axis=1)
+        want_np[has, j] = np.nanmax(cells[has], axis=1)
+    err = close(out[:fc.n_unique, :S].cpu(), torch.from_numpy(want_np), 0.0,
+                "subquery vs numpy over device_rate_pipeline on the inner grid", 0.0)
+    check(bool(np.isfinite(want_np).any()), "subquery: no finite cell")
+    _time_expr("subquery", plan, inputs, launches, lanes_pad,
+               f"tiled lanes equal, padding NaN; the 2,000 unique rows vs numpy's max over "
+               f"device_rate_pipeline on the {n_in} inner steps: equal (max abs err {err})",
+               results)
+    shapes = {"subq": (inner, torch.from_numpy(sub_p), torch.from_numpy(sub_valid))}
+    del out, inputs
+
+    # quantile_over_time through the per-node entry point
+    dwords, dnbits, dslots, dsteps, _ = qp._inputs(words, nbits, slots, b.steps, None, DEVICE)
+    fn = lambda: qp.device_reduce_pipeline(  # noqa: E731
+        dwords, dnbits, dslots, dsteps, n_lanes=n, n_cap=b.n_cap, range_nanos=5 * MIN,
+        reducer="quantile_over_time", n_dp=b.n_dp, phi=0.9)
+    _build.reset_launches()
+    out, err_flags = fn()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for kernel in front + ["query_quantile_window"]:
+        check(launches.get(kernel, 0) > 0, f"reduce pipeline: {kernel} not launched")
+    check(not bool(err_flags.any()), "reduce pipeline: error flags")
+    _tiled_rows(out, n, fc.n_unique, "reduce pipeline")
+    err = close(out[oracle].cpu(), torch.from_numpy(_host_family(
+        "quantile_over_time", t_h, v_h, b.steps, 5 * MIN, {"phi": 0.9})), 1e-9,
+        "device_reduce_pipeline quantile_over_time vs the host tier", 1e-9)
+    ms, wall = time_ms(fn, reps=7), wall_ms(fn)
+    results["reduce_pipeline_quantile_over_time"] = {"launches": launches, "ms": ms,
+                                                     "wall_ms": wall, "rows": n}
+    log(f"expr reduce_pipeline_quantile_over_time: launches {launches}; {ms:.3f} ms device "
+        f"(median of 7); {wall:.3f} ms with the result's .cpu(); tiled lanes equal, unique "
+        f"rows vs the host tier: max abs err {err} (rtol 1e-9, atol 1e-9)")
+    del out, dwords
+    torch.cuda.synchronize()
+    return shapes, results
+
+
+def family_kernel_times(fc: corpus.FanoutCorpus, shapes: dict):
+    """QK3's further ops, QK9-QK12 at the full-width plans' shapes: each
+    kernel's time, its plain version's (held against it), its bound, and
+    torch.sort (along the window for QK11, of the packing key for QK12)
+    where no single call computes the function (none for the others)."""
+    b = fc.batch
+    rows = {}
+    L = corpus.bucket_pow2(b.n_lanes, 64)
+    steps = torch.from_numpy(corpus.ExprPlanBuilder(b.steps).steps).to(DEVICE)
+    w, nb, sl, _, _ = qp._inputs(b.words, b.nbits, b.slots, b.steps, None, DEVICE)
+    times, values, _ = qp._decode_merge(w, nb, sl, L, b.n_cap, b.n_dp, SEC)
+    del w, nb, sl
+    torch.cuda.empty_cache()
+    N, S = times.shape[1], steps.shape[0]
+    qt = query_temporal
+    lane_bytes = L * N * 16 + S * 8 + L * S * 8
+    levels = qt.search_levels(N)
+    search_ms = L * S * 2 * levels * 4 / INT32_OPS_PER_S * 1e3
+
+    def windowed(r):  # samples in the (lane, step) windows of range r
+        _, left, right = qt.window_bounds_plain(times, steps, r)
+        return int((right - left).clamp(min=0).sum())
+
+    r = 15 * MIN
+    fn = lambda: qt.changes_window(times, values, steps, r, False)  # noqa: E731
+    _record("query_changes", same_bits(fn(), qt.changes_plain(times, values, steps, r, False),
+                                       "main changes"))
+    # the pair flags (4 operations a sample) and the bisections
+    row("query_changes", rows, time_ms(fn, reps=7),
+        time_ms(lambda: qt.changes_plain(times, values, steps, r, False), reps=3), lane_bytes,
+        search_ms + L * N * 4 / INT32_OPS_PER_S * 1e3)
+
+    fn = lambda: qt.linreg_window(times, values, steps, r, False)  # noqa: E731
+    _record("query_linreg", close(fn(), qt.linreg_plain(times, values, steps, r)[0], 1e-9,
+                                  "main deriv", linreg_atol(times, values, steps, r)))
+    # ~10 FP64 operations a sample for the five sums, ~30 a (lane, step)
+    row("query_linreg", rows, time_ms(fn, reps=7),
+        time_ms(lambda: qt.linreg_plain(times, values, steps, r), reps=3), lane_bytes,
+        search_ms + (L * N * 10 + L * S * 30) / FP64_OPS_PER_S * 1e3)
+
+    r = 5 * MIN
+    fn = lambda: qt.stdvar_window(times, values, steps, r, True)  # noqa: E731
+    _record("query_stdvar", same_bits(fn(), qt.stdvar_plain(times, values, steps, r, True),
+                                      "main stddev_over_time"))
+    # two passes over each window: ~6 FP64 operations a windowed sample
+    row("query_stdvar", rows, time_ms(fn, reps=7),
+        time_ms(lambda: qt.stdvar_plain(times, values, steps, r, True), reps=3), lane_bytes,
+        search_ms + windowed(r) * 6 / FP64_OPS_PER_S * 1e3)
+
+    r = 60 * MIN
+    fn = lambda: qt.holt_winters_window(times, values, steps, r, 0.3, 0.1)  # noqa: E731
+    _record("query_holt_winters", same_bits(fn(), qt.holt_winters_plain(
+        times, values, steps, r, 0.3, 0.1), "main holt_winters"))
+    # the recurrence: ~9 FP64 operations a windowed sample
+    row("query_holt_winters", rows, time_ms(fn, reps=5),
+        time_ms(lambda: qt.holt_winters_plain(times, values, steps, r, 0.3, 0.1), reps=1),
+        lane_bytes, search_ms + windowed(r) * 9 / FP64_OPS_PER_S * 1e3)
+
+    r = 5 * MIN
+    fn = lambda: qt.quantile_window(times, values, steps, r, 0.99)  # noqa: E731
+    _record("query_quantile_window", same_bits(fn(), qt.quantile_window_plain(
+        times, values, steps, r, 0.99), "main quantile_over_time"))
+    _, left, right = qt.window_bounds_plain(times, steps, r)
+    width = int((right - left).max())
+    idx = (left[:, :, None] + torch.arange(width, device=DEVICE)).clamp(max=N - 1)
+    grid = torch.gather(values[:, None, :].expand(L, S, N), 2, idx)
+    grid = torch.where(idx < right[:, :, None], grid, torch.inf)
+    del idx, left, right
+    torch.cuda.empty_cache()
+    # what the function needs: a selection of two order statistics, one
+    # 64-bit compare (two INT32 operations) per windowed sample for each
+    samples = windowed(r)
+    row("query_quantile_window", rows, time_ms(fn, reps=7),
+        time_ms(lambda: qt.quantile_window_plain(times, values, steps, r, 0.99), reps=3),
+        lane_bytes, search_ms + samples * 2 * 2 / INT32_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.sort(grid, dim=2), reps=5),
+        f"torch.sort along the window grid [{L}, {S}, {width}]")
+    del grid, times, values
+    torch.cuda.empty_cache()
+
+    inner, sub_p, sub_valid = shapes["subq"]
+    rows_, Si = inner.shape
+    fn = lambda: query_merge.subq_pack(inner, sub_p, sub_valid)  # noqa: E731
+    for g, want in zip(fn(), query_merge.subq_pack_plain(inner, sub_p, sub_valid)):
+        _record("subq_pack", same_bits(g, want, "main subquery pack"))
+    tkey = torch.where(sub_valid.to(DEVICE)[None, :] & ~torch.isnan(inner),
+                       sub_p.to(DEVICE)[None, :], query_merge.INT64_MAX)
+    row("subq_pack", rows, time_ms(fn, reps=7),
+        time_ms(lambda: query_merge.subq_pack_plain(inner, sub_p, sub_valid), reps=3),
+        rows_ * Si * 8 + Si * 9 + rows_ * Si * 16, 0.0,
+        time_ms(lambda: torch.sort(tkey, dim=1, stable=True), reps=7),
+        "torch.sort(stable=True) of the packing key")
+    del tkey
     torch.cuda.synchronize()
     return rows
 
@@ -1697,6 +2066,7 @@ def main() -> int:
     compare_query(corpus.query_probe_corpus(n_real=61, n_lanes=67, seed=5), "67 lanes")
     compare_long_lanes()
     compare_expr_kernels()
+    compare_family_kernels()
     enc_probes = corpus.encode_probe_series()
     ts_w, vs_w = corpus.gen_grids(64, N_DP)
     walks_w = [(ts_w[i].tolist(), vs_w[i].tolist(), corpus.START) for i in range(64)]
@@ -1722,7 +2092,13 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated()} B")
     shapes, x_results = expr_main(fc)
     rows_q.update(expr_kernel_times(fc.batch, shapes))
-    del shapes, fc
+    del shapes
+    torch.cuda.empty_cache()
+    f_shapes, f_results = family_main(fc)
+    rows_q.update(family_kernel_times(fc, f_shapes))
+    log(f"family phase done at {time.time() - t_start:.1f} s")
+    x_results.update(f_results)
+    del f_shapes, fc
     torch.cuda.empty_cache()
     log(f"expr main phase done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
@@ -1814,6 +2190,25 @@ def main() -> int:
              replaces="m3_tpu/ops/histo_quantile.py:30",
              launches=x_launch.get("histo_quantile", 0), max_abs_err=ERRORS["histo_quantile"],
              **rows_q["histo_quantile"]),
+        # QK3's further op codes: the same temporal_kernel, counted apart
+        dict(name="query_changes", source=src + "query_temporal.cu", replaces=qsrc + "415",
+             launches=x_launch.get("query_changes", 0), max_abs_err=ERRORS["query_changes"],
+             **rows_q["query_changes"]),
+        dict(name="query_linreg", source=src + "query_temporal.cu", replaces=qsrc + "437",
+             launches=x_launch.get("query_linreg", 0), max_abs_err=ERRORS["query_linreg"],
+             **rows_q["query_linreg"]),
+        dict(name="query_stdvar", source=src + "query_temporal.cu", replaces=qsrc + "344",
+             launches=x_launch.get("query_stdvar", 0), max_abs_err=ERRORS["query_stdvar"],
+             **rows_q["query_stdvar"]),
+        dict(name="query_holt_winters", source=src + "query_temporal.cu", replaces=qsrc + "540",
+             launches=x_launch.get("query_holt_winters", 0),
+             max_abs_err=ERRORS["query_holt_winters"], **rows_q["query_holt_winters"]),
+        dict(name="query_quantile_window", source=src + "query_select.cu", replaces=qsrc + "648",
+             launches=x_launch.get("query_quantile_window", 0),
+             max_abs_err=ERRORS["query_quantile_window"], **rows_q["query_quantile_window"]),
+        dict(name="subq_pack", source=src + "query_merge.cu", replaces=qsrc + "1604",
+             launches=x_launch.get("subq_pack", 0), max_abs_err=ERRORS["subq_pack"],
+             **rows_q["subq_pack"]),
         dict(name="pack_encode", source=src + "m3tsz_encode.cu",
              replaces="m3_tpu/ops/m3tsz_encode.py:443",
              launches=r_enc["launches"].get("pack_encode", 0)

@@ -1,4 +1,5 @@
-// Per-lane merge of decoded (series, block) grids on Hopper (QK1).
+// Per-lane merge of decoded (series, block) grids on Hopper (QK1), and the
+// subquery's packing of its inner grid (QK12, subq_pack_kernel below).
 //
 // Replaces, from m3_tpu/models/query_pipeline.py:
 //   _tier_cut (:154)      the cross-namespace stitch: tier rank r keeps only
@@ -28,6 +29,7 @@
 // plain version and the JAX program bit for bit.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -153,6 +155,57 @@ __global__ void __launch_bounds__(kThreads) lane_merge_kernel(
   }
 }
 
+// QK12.  Replaces the row sort of the subquery node,
+// m3_tpu/models/query_pipeline.py:1604-1618: the reference keys each cell
+// of the child's [rows, S] matrix by its inner step time where the step is
+// real (sub_valid) and the cell is not NaN, INT64_MAX otherwise, and sorts
+// each row stably by that key with the values riding along (NaN where
+// dropped).  The planner's inner grid ascends (np.arange of the subquery
+// step, padded with its last time, the padding invalid; the wrapper checks
+// this on the host), so the sort is a stable compaction: the surviving
+// cells left-justified in step order, then (INT64_MAX, NaN).  One warp owns
+// a row at a time and walks it in chunks of 32 cells: a ballot of the
+// survivors, each survivor's slot from the popcount of the lanes below it.
+//
+// What bounds it on an H100: bytes (each cell read once, a time and a value
+// written per cell); copies only, so it equals the sort bit for bit.
+__global__ void __launch_bounds__(kThreads) subq_pack_kernel(
+    const double* __restrict__ cv, const long long* __restrict__ sub_times,
+    const bool* __restrict__ sub_valid, long long rows, int S, long long* __restrict__ t_out,
+    double* __restrict__ v_out) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
+       row += n_warps) {
+    const double* x = cv + row * S;
+    long long* t = t_out + row * S;
+    double* v = v_out + row * S;
+    int kept = 0;
+    for (int base = 0; base < S; base += 32) {
+      const int c = base + lane;
+      double xc = nan;
+      bool keep = false;
+      if (c < S) {
+        xc = x[c];
+        keep = sub_valid[c] && !isnan(xc);
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, keep);
+      if (keep) {
+        const int slot = kept + __popc(mask & below);
+        t[slot] = sub_times[c];
+        v[slot] = xc;
+      }
+      kept += __popc(mask);
+    }
+    for (int c = kept + lane; c < S; c += 32) {
+      t[c] = kInt64Max;
+      v[c] = nan;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -170,6 +223,18 @@ int m3_query_merge(const long long* ts, const double* vs, const bool* valid,
   if (n_lanes <= 0) return (int)cudaSuccess;
   lane_merge_kernel<<<(unsigned)n_lanes, kThreads, 0, (cudaStream_t)stream>>>(
       ts, vs, valid, slots, tiers, M, T, n_cap, n_tiers, out_t, out_v, counts, unsorted);
+  return (int)cudaGetLastError();
+}
+
+// QK12: cv f64[rows, S], sub_times i64[S] (ascending where sub_valid),
+// sub_valid bool[S] -> t_out i64[rows, S], v_out f64[rows, S] on a grid of
+// `grid` blocks.  Launches on `stream` and returns cudaGetLastError().
+int m3_subq_pack(const double* cv, const long long* sub_times, const bool* sub_valid,
+                 long long rows, int S, long long* t_out, double* v_out, int grid, void* stream) {
+  if (S < 0 || grid < 1) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || S == 0) return (int)cudaSuccess;
+  subq_pack_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      cv, sub_times, sub_valid, rows, S, t_out, v_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Order statistics of each group's lanes, per step, on Hopper (QK6, QK7).
+// Order statistics of each group's lanes, per step, on Hopper (QK6, QK7),
+// and of each window of a lane (QK11, quantile_window_kernel below).
 //
 // Replaces:
 //   QK6  m3_tpu/models/query_pipeline.py:871 _grouped_quantile: the
@@ -64,27 +65,43 @@ __device__ __forceinline__ double sort_value(double v, int mode) {
   return isnan(v) ? INFINITY : v;
 }
 
-// Ascending bitonic sort of P (key, pos) pairs, P a power of two; every
-// thread of the block calls it.
+// One stage (k, j) of an ascending bitonic sort of P (key, pos) pairs, P a
+// power of two: the compare-exchanges of pairs i = first, first + stride, ...
+__device__ __forceinline__ void bitonic_stage(unsigned long long* keys, int* pos, int P, int k,
+                                              int j, int first, int stride) {
+  for (int i = first; i < P; i += stride) {
+    const int p = i ^ j;
+    if (p > i) {
+      const unsigned long long ki = keys[i], kp = keys[p];
+      const int ci = pos[i], cp = pos[p];
+      const bool gt = ki > kp || (ki == kp && ci > cp);
+      if (gt == ((i & k) == 0)) {
+        keys[i] = kp;
+        keys[p] = ki;
+        pos[i] = cp;
+        pos[p] = ci;
+      }
+    }
+  }
+}
+
+// The whole sort; every thread of the block calls it.
 __device__ void bitonic_sort(unsigned long long* keys, int* pos, int P) {
-  const int tid = threadIdx.x, nt = blockDim.x;
   for (int k = 2; k <= P; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < P; i += nt) {
-        const int p = i ^ j;
-        if (p > i) {
-          const unsigned long long ki = keys[i], kp = keys[p];
-          const int ci = pos[i], cp = pos[p];
-          const bool gt = ki > kp || (ki == kp && ci > cp);
-          if (gt == ((i & k) == 0)) {
-            keys[i] = kp;
-            keys[p] = ki;
-            pos[i] = cp;
-            pos[p] = ci;
-          }
-        }
-      }
+      bitonic_stage(keys, pos, P, k, j, threadIdx.x, blockDim.x);
       __syncthreads();
+    }
+  }
+}
+
+// The whole sort by one warp; every lane of it calls it (the pairs are the
+// warp's own).
+__device__ void warp_bitonic_sort(unsigned long long* keys, int* pos, int P) {
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      bitonic_stage(keys, pos, P, k, j, threadIdx.x & 31, 32);
+      __syncwarp();
     }
   }
 }
@@ -164,6 +181,105 @@ __global__ void select_kernel(const double* __restrict__ x, long long S,
   }
 }
 
+// jnp.searchsorted(t, q, side="right") as JAX computes it: a fixed number
+// of bisection levels, returning `high` (csrc/query_temporal.cu's).
+__device__ __forceinline__ long long search_right(const long long* t, long long n, int levels,
+                                                  long long q) {
+  long long low = 0, high = n;
+  for (int k = 0; k < levels; ++k) {
+    const long long mid = (long long)(((unsigned long long)low + (unsigned long long)high) >> 1);
+    if (q < t[mid]) high = mid; else low = mid;
+  }
+  return high;
+}
+
+__device__ __forceinline__ long long wsub(long long a, long long b) {
+  return (long long)((unsigned long long)a - (unsigned long long)b);
+}
+
+constexpr int kQWarps = 8;
+
+// QK11.  Replaces m3_tpu/models/query_pipeline.py:648
+// _quantile_window_device: quantile_over_time, the phi-quantile of each
+// (lane, step) window's present samples, interpolated at h = phi * max(n -
+// 1, 0) as v_lo + (v_hi - v_lo) * frac; no present sample: NaN.  The
+// reference gathers every window into an [L, S, N] grid and sorts it (the
+// engine gates the function on that grid's size).  Here a block takes
+// lanes in turn and each of its warps one step of the lane at a time: the
+// two bisections, then the window's samples as (order key, offset) pairs
+// (absent samples keyed past every value), a bitonic sort by the warp
+// (offsets break ties, so the order is lax.sort's stable one), and the
+// interpolation between the floor(h)-th and ceil(h)-th samples.  A window
+// whose padded size is at most p_smem pairs sorts in the warp's slice of
+// shared memory, a longer one in the warp's slice of a global scratch of
+// p_scratch pairs (the padded lane length), so windows have no length
+// limit and the grid never exists.
+//
+// What bounds it on an H100: bytes at short windows (each lane read once,
+// one f64 written per (lane, step)); the sorts' P log2(P)^2 / 4
+// compare-exchanges per window at long ones.
+__global__ void __launch_bounds__(kQWarps * 32) quantile_window_kernel(
+    const long long* __restrict__ times, const double* __restrict__ values,
+    const long long* __restrict__ steps, long long L, long long N, int S, int levels,
+    long long range_nanos, double phi, int p_smem, long long p_scratch,
+    unsigned long long* __restrict__ scratch_keys, int* __restrict__ scratch_pos,
+    double* __restrict__ out) {
+  extern __shared__ unsigned long long qsmem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long gw = (long long)blockIdx.x * kQWarps + warp;
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  for (long long row = blockIdx.x; row < L; row += gridDim.x) {
+    const long long* t = times + row * N;
+    const double* v = values + row * N;
+    for (int s = warp; s < S; s += kQWarps) {
+      const long long step = steps[s];
+      const long long left = search_right(t, N, levels, wsub(wsub(step, range_nanos), 1));
+      const long long right = search_right(t, N, levels, step);
+      const long long w = right - left;
+      int P = 1;
+      while (P < w) P <<= 1;
+      unsigned long long* keys;
+      int* pos;
+      if (P <= p_smem) {
+        keys = qsmem + warp * p_smem;
+        pos = (int*)(qsmem + kQWarps * p_smem) + warp * p_smem;
+      } else {
+        keys = scratch_keys + gw * p_scratch;
+        pos = scratch_pos + gw * p_scratch;
+      }
+      int n = 0;
+      for (int i = lane; i < P; i += 32) {
+        unsigned long long key = ~0ull;
+        if (i < w) {
+          const double x = v[left + i];
+          if (!isnan(x)) {
+            key = order_key(x);
+            ++n;
+          }
+        }
+        keys[i] = key;
+        pos[i] = i;
+      }
+      for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+      __syncwarp();
+      warp_bitonic_sort(keys, pos, P);
+      if (lane == 0) {
+        double q = nan;
+        if (n > 0) {
+          const double h = phi * ((double)n - 1.0 > 0.0 ? (double)n - 1.0 : 0.0);
+          const double lo = floor(h);
+          const double frac = h - lo;
+          const double v_lo = v[left + pos[(long long)lo]];
+          const double v_hi = v[left + pos[(long long)ceil(h)]];
+          q = v_lo + (v_hi - v_lo) * frac;
+        }
+        out[row * S + s] = q;
+      }
+      __syncwarp();  // the pairs are rewritten by the next step
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -195,6 +311,31 @@ int m3_query_select(const double* x, long long S, const long long* members,
   select_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       x, S, members, offsets, n_groups, mode, phi, k, p_smem, p_scratch, scratch_keys, scratch_pos,
       out, present, rank);
+  return (int)cudaGetLastError();
+}
+
+// QK11: times i64[L, N], values f64[L, N], steps i64[S] -> out f64[L, S],
+// quantile_over_time at phi (0 <= phi <= 1), on a grid of `grid` blocks of
+// kQWarps warps.  p_smem: the padded window (pairs) a warp sorts in shared
+// memory; p_scratch: 0, or the padded lane length with scratch keys
+// u64[grid * kQWarps * p_scratch] and positions i32 alike.  Launches on
+// `stream` and returns cudaGetLastError().
+int m3_quantile_window(const long long* times, const double* values, const long long* steps,
+                       long long L, long long N, int S, int levels, long long range_nanos,
+                       double phi, int p_smem, long long p_scratch,
+                       unsigned long long* scratch_keys, int* scratch_pos, double* out, int grid,
+                       void* stream) {
+  if (!(phi >= 0.0 && phi <= 1.0) || N < 1 || p_smem < 1 || grid < 1 ||
+      (p_scratch > 0 && (scratch_keys == nullptr || scratch_pos == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (L <= 0 || S <= 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)kQWarps * p_smem * (sizeof(unsigned long long) + sizeof(int));
+  cudaError_t rc = cudaFuncSetAttribute(quantile_window_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return (int)rc;
+  quantile_window_kernel<<<grid, kQWarps * 32, smem, (cudaStream_t)stream>>>(
+      times, values, steps, L, N, S, levels, range_nanos, phi, p_smem, p_scratch, scratch_keys,
+      scratch_pos, out);
   return (int)cudaGetLastError();
 }
 

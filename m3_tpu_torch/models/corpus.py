@@ -32,6 +32,9 @@ The fused expression interpreter:
   numpy inputs as the port's tensors;
 - ``select_probes``, ``minmax_probe_lanes``, ``histogram_probes``: the
   corners of the four kernels of the interpreter's slice;
+  ``temporal_probe_lanes``: those of the rest of the temporal family
+  (stddev/stdvar, changes/resets, deriv/predict_linear, holt_winters,
+  quantile_over_time);
 - ``expr_fleet``: BASELINE config 4's width for the expression plans
   (http_requests / http_limit counters, histogram buckets, gauges);
   ``megabatch_queries``: the reference's 16-query dashboard fleet.
@@ -628,10 +631,12 @@ class ExprPlanBuilder:
     caller names the nodes and their label matching.  ``steps`` is the
     real step grid; it is padded to ``bucket_pow2(S, 64)`` steps with the
     last one repeated.  Leaves carry no offset, so each leaf's steps are
-    the outer ones.  ``inputs()`` returns (leaves, params, steps)."""
+    the outer ones (inside ``subq``, the subquery's inner grid).
+    ``inputs()`` returns (leaves, params, steps)."""
 
     def __init__(self, steps):
         steps = np.asarray(steps, dtype=np.int64)
+        self.n_steps = len(steps)
         self.s_pad = bucket_pow2(len(steps), 64)
         self.steps = np.full(self.s_pad, steps[-1], dtype=np.int64)
         self.steps[:len(steps)] = steps
@@ -808,6 +813,37 @@ class ExprPlanBuilder:
                             np.float64(phi)))
         return PlanNode(("hq", g_pad, b_pad, pidx, child.plan), out_labels, g_pad)
 
+    def subq(self, fn: str, child, sub_step: int, rng: int, horizon: float = 0.0,
+             hw_sf: float = 0.5, hw_tf: float = 0.5) -> PlanNode:
+        """``fn(<child>[rng:sub_step])`` at the outer steps, the grid laid
+        out as ``m3_tpu/query/plan.py:832-865`` does (no offset): inner
+        steps at the multiples of ``sub_step`` in [first step - rng, last
+        step], padded to ``bucket_pow2(n, 64)`` with the last one (padding
+        invalid).  ``child`` is a callable that builds the inner expression
+        on this builder; the leaves it adds take the inner grid as their
+        steps."""
+        shifted = self.steps[:self.n_steps]
+        lo, hi = int(shifted[0]) - rng, int(shifted[-1])
+        first = lo - lo % sub_step + (sub_step if lo % sub_step else 0)
+        sub_times = np.arange(first, hi + 1, sub_step, dtype=np.int64)
+        if len(sub_times) == 0:
+            sub_times = np.asarray([hi], dtype=np.int64)
+        s_in_pad = bucket_pow2(len(sub_times), 64)
+        sub_p = np.full(s_in_pad, sub_times[-1], dtype=np.int64)
+        sub_p[:len(sub_times)] = sub_times
+        steps_out = np.full(self.s_pad, shifted[-1], dtype=np.int64)
+        steps_out[:len(shifted)] = shifted
+        outer = self.steps, self.s_pad
+        self.steps, self.s_pad = sub_p, s_in_pad
+        try:
+            inner = child(self)
+        finally:
+            self.steps, self.s_pad = outer
+        pidx = self._param((sub_p, np.arange(s_in_pad) < len(sub_times), steps_out,
+                            np.int64(rng), np.float64(horizon)))
+        return PlanNode(("subq", fn, s_in_pad, hw_sf, hw_tf, pidx, inner.plan), inner.labels,
+                        inner.rows_pad)
+
     def absent(self, child: PlanNode) -> PlanNode:
         avalid = np.zeros(8, dtype=bool)
         avalid[0] = True
@@ -860,6 +896,44 @@ def minmax_probe_lanes(n_cap: int = 192, seed: int = 17):
     half = n_cap // 2
     times[7, :half] = START + (np.arange(half, dtype=np.int64) + 1) * 10 * SEC
     values[7, :half] = zeros[:half]
+    steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
+    return times, values, steps
+
+
+def temporal_probe_lanes(n_cap: int = 192, seed: int = 37):
+    """Merged lanes for stddev/stdvar, changes/resets, deriv/predict_linear,
+    holt_winters and quantile_over_time: ``(times i64[8, n_cap], values,
+    steps i64[S])`` at 10s.  Lanes: a walk with 30% NaN holes; an all-NaN
+    lane; a sparse lane (6% of the samples: windows at the 2-sample edge);
+    1.5e9 + N(0, 1) rounded to 1e-3 (the cancellation canary of the
+    reference's ``tests/test_query_pipeline_device.py:325``); the walk with
+    NaN, +Inf and -Inf samples; -1, -0.0, +0.0 and 1 with runs of repeats;
+    a counter with resets; a short lane (INT64_MAX / NaN tail).  Steps
+    every 60s from before the first sample to after the last."""
+    rng = np.random.default_rng(seed)
+    n_lanes = 8
+    times = np.full((n_lanes, n_cap), INT64_MAX, dtype=np.int64)
+    values = np.full((n_lanes, n_cap), np.nan)
+    walk = np.round(np.cumsum(rng.standard_normal(n_cap)) * 3, 2)
+    holes = np.where(rng.random(n_cap) < 0.3, np.nan, walk)
+    sparse = np.where(rng.random(n_cap) < 0.06, walk, np.nan)
+    canary = 1.5e9 + np.round(rng.standard_normal(n_cap), 3)
+    infs = walk.copy()
+    pick = rng.random(n_cap)
+    infs[pick < 0.1] = np.nan
+    infs[(pick >= 0.1) & (pick < 0.13)] = np.inf
+    infs[(pick >= 0.13) & (pick < 0.16)] = -np.inf
+    zeros = np.repeat(rng.choice([-1.0, -0.0, 0.0, 1.0], n_cap), rng.integers(1, 4, n_cap))[:n_cap]
+    counter = np.cumsum(rng.integers(0, 50, n_cap)).astype(np.float64)
+    for r in rng.choice(n_cap, 3, replace=False):
+        counter[r:] -= counter[r] - rng.integers(0, 10)
+    rows = (holes, np.full(n_cap, np.nan), sparse, canary, infs, zeros, counter)
+    for lane, v in enumerate(rows):
+        times[lane] = START + (np.arange(n_cap, dtype=np.int64) + 1) * 10 * SEC
+        values[lane] = v
+    half = n_cap // 2
+    times[7, :half] = START + (np.arange(half, dtype=np.int64) + 1) * 10 * SEC
+    values[7, :half] = walk[:half]
     steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
     return times, values, steps
 

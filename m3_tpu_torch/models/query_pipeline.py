@@ -15,18 +15,22 @@ CUDA kernel on the card:
 - tier cut + merge into ``[n_lanes, n_cap]`` lanes: ``ops/query_merge``
   (QK1);
 - the windowed function: ``ops/query_temporal`` (QK2 rate family, QK3
-  prefix-sum reducers, QK5 min/max over time);
+  prefix-sum reducers, changes/resets and deriv/predict_linear, QK5
+  min/max over time, QK9 stddev/stdvar over time, QK10 holt_winters, QK11
+  quantile over time);
 - the group-by and the fleet sum: ``ops/query_grouped`` (QK4; QK6 for
   ``quantile``);
 - the interpreter's selection nodes: ``ops/lane_topk`` (QK7, topk and
-  bottomk) and ``ops/histo_quantile`` (QK8, histogram_quantile).
+  bottomk) and ``ops/histo_quantile`` (QK8, histogram_quantile);
+- the subquery node's packing of its inner grid: ``ops/query_merge``
+  (QK12).
 
 The interpreter's elementwise glue (binary operators, comparisons,
 scalar functions, padding re-masks, row gathers of vector matching) is
 plain PyTorch on the card.
 
 On CPU tensors (``device="cpu"``) every stage runs its plain PyTorch
-version.  Functions whose device form is not ported yet raise
+version.  The graphite node forms are not ported yet: they raise
 ``NotImplementedError`` naming the kernel row that will bring them; they
 never route to another form.
 
@@ -51,20 +55,10 @@ from m3_tpu_torch.utils.device import resolve_device
 
 I64 = torch.int64
 
-# The device forms of the reference's temporal family that later kernel
-# rows bring (PERF.md's table); each raises until then.
-UNPORTED_TEMPORAL = {
-    "stddev_over_time": "Q3c _stdvar_device",
-    "stdvar_over_time": "Q3c _stdvar_device",
-    "changes": "Q3d _changes_device",
-    "resets": "Q3d _changes_device",
-    "deriv": "Q3d _linreg_device",
-    "predict_linear": "Q3d _linreg_device",
-    "holt_winters": "Q4 _holt_winters_device",
-    "quantile_over_time": "Q4 _quantile_window_device",
-}
 TEMPORAL_FNS = (query_temporal.RATE_FNS + query_temporal.INSTANT_FNS
-                + query_temporal.REDUCERS + query_temporal.MINMAX_FNS)
+                + query_temporal.REDUCERS + query_temporal.MINMAX_FNS
+                + query_temporal.CHANGES_FNS + query_temporal.LINREG_FNS
+                + query_temporal.STDVAR_FNS + query_temporal.WINDOW_FNS)
 GROUP_AGGS = query_grouped.AGGS + ("quantile",)
 
 
@@ -86,18 +80,32 @@ def _decode_merge(words, nbits, slots, n_lanes: int, n_cap: int, n_dp: int | Non
 
 def _temporal_eval(fn: str, times, values, steps, range_nanos: int, horizon=0.0,
                    hw_sf: float = 0.5, hw_tf: float = 0.5, phi=0.5):
-    """One dispatch for the windowed temporal family (the reference's
-    signature; ``horizon``/``hw_*``/``phi`` belong to unported forms)."""
+    """One dispatch for the whole windowed temporal family (the reference's
+    signature): ``horizon`` is predict_linear's seconds ahead, ``hw_sf`` /
+    ``hw_tf`` holt_winters' factors and ``phi`` quantile_over_time's, all
+    kernel arguments."""
     _check_fn(fn)
-    if fn in query_temporal.RATE_FNS:
-        return query_temporal.rate(times, values, steps, range_nanos,
-                                   is_counter=fn != "delta", is_rate=fn == "rate")
-    if fn in query_temporal.INSTANT_FNS:
-        return query_temporal.instant(times, values, steps, range_nanos, is_rate=fn == "irate")
-    if fn in query_temporal.MINMAX_FNS:
-        return query_temporal.minmax_window(times, values, steps, range_nanos,
-                                            is_max=fn == "max_over_time")
-    return query_temporal.reduce_window(times, values, steps, range_nanos, fn)
+    qt = query_temporal
+    if fn in qt.RATE_FNS:
+        return qt.rate(times, values, steps, range_nanos, is_counter=fn != "delta",
+                       is_rate=fn == "rate")
+    if fn in qt.INSTANT_FNS:
+        return qt.instant(times, values, steps, range_nanos, is_rate=fn == "irate")
+    if fn in qt.MINMAX_FNS:
+        return qt.minmax_window(times, values, steps, range_nanos, is_max=fn == "max_over_time")
+    if fn in qt.CHANGES_FNS:
+        return qt.changes_window(times, values, steps, range_nanos, resets_only=fn == "resets")
+    if fn in qt.LINREG_FNS:
+        return qt.linreg_window(times, values, steps, range_nanos,
+                                predict=fn == "predict_linear", horizon=float(horizon))
+    if fn in qt.STDVAR_FNS:
+        return qt.stdvar_window(times, values, steps, range_nanos,
+                                is_stddev=fn == "stddev_over_time")
+    if fn == "holt_winters":
+        return qt.holt_winters_window(times, values, steps, range_nanos, hw_sf, hw_tf)
+    if fn == "quantile_over_time":
+        return qt.quantile_window(times, values, steps, range_nanos, float(phi))
+    return qt.reduce_window(times, values, steps, range_nanos, fn)
 
 
 def _grouped_reduce(out, groups, n_groups: int, agg: str, phi=0.5, index=None):
@@ -111,10 +119,6 @@ def _grouped_reduce(out, groups, n_groups: int, agg: str, phi=0.5, index=None):
 
 
 def _check_fn(fn: str) -> None:
-    if fn in UNPORTED_TEMPORAL:
-        raise NotImplementedError(
-            f"{fn} has no device form in the port yet: it comes with kernel row "
-            f"{UNPORTED_TEMPORAL[fn]}")
     if fn not in TEMPORAL_FNS:
         raise ValueError(f"no device form for {fn}")
 
@@ -198,7 +202,6 @@ _EXPR_CMP = frozenset(("==", "!=", ">", "<", ">=", "<="))
 # The node forms whose device form comes with a later kernel row (PERF.md's
 # table); each raises until then.
 UNPORTED_NODES = {
-    "subq": "Q7c (the subquery's row sort, query_pipeline.py:1604-1618)",
     "gsel": "G1 (the graphite slice: the row gather comes with _graphite_grouped_reduce)",
     "gagg": "G1 _graphite_grouped_reduce",
     "gcall": "G2 _graphite_call",
@@ -382,6 +385,17 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
             out = histo_quantile.bucket_quantile(cv, rows_idx, ubs, caps, float(phi))
             gvalid = on_dev(gvalid)
             return torch.where(gvalid[:, None], out, torch.nan), gvalid
+        if tag == "subq":
+            _, fn, _s_in_pad, hw_sf, hw_tf, pidx, child = node
+            sub_times, sub_valid, steps_out, rng, horizon = params[pidx]
+            cv, cvalid = ev(child, on_dev(sub_times))
+            # the child's cells at real inner steps, NaN dropped, packed
+            # into lanes (the host's pack_valid): QK12
+            t2, v2 = query_merge.subq_pack(cv, sub_times, sub_valid)
+            # phi stays at its default, as the reference's subq node has it
+            out = _temporal_eval(fn, t2, v2, on_dev(steps_out), int(rng), float(horizon),
+                                 hw_sf, hw_tf)
+            return torch.where(cvalid[:, None], out, torch.nan), cvalid
         if tag == "absent":
             _, pidx, child = node
             cv, _cvalid = ev(child, steps_cur)
@@ -451,8 +465,8 @@ def device_expr_pipeline(plan, leaves, params, steps, device=None):
     ``plan`` is the reference's static node tree (``query/plan.py``'s
     grammar; see ``m3_tpu/models/query_pipeline.py:device_expr_pipeline``):
     ``leaf`` (kind ``words`` or ``arrays``), ``agg`` (quantile included),
-    ``call``, ``vs``, ``vv``, ``topk``, ``hq`` and ``absent``; ``subq`` and
-    the graphite nodes raise ``NotImplementedError``.  ``leaves`` /
+    ``call``, ``vs``, ``vv``, ``topk``, ``hq``, ``absent`` and ``subq``; the
+    graphite nodes raise ``NotImplementedError``.  ``leaves`` /
     ``params`` / ``steps`` are the reference's numpy inputs, moved onto
     ``device`` (default the CUDA device) by ``expr_inputs_from_numpy``,
     or what that function returns (which run where they lie unless

@@ -96,17 +96,19 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
 
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed, with
-    ``argtypes`` set from ``signatures`` and an ``int`` return type."""
+    the ``argtypes`` of the entries in ``signatures`` set and an ``int``
+    return type."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all((name,))[name]))
-            for fn, argtypes in signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
             lib.m3_error_string.argtypes = [ctypes.c_int]
             lib.m3_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+        # several modules may bind entries of one source
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         return lib
 
 

@@ -2,7 +2,11 @@
 the numpy host tier of the query path.
 
 Copy of ``m3_tpu/ops/consolidate.py`` (the functions the query slice
-needs), in its numpy formulation only.  The reference routes large
+needs: packing and merging, window bounds, step consolidation,
+``extrapolated_rate``, ``window_reduce``, and the rest of the temporal
+family: ``window_quantile``, ``window_changes`` with
+``_pair_window_count``, ``window_linreg`` and ``window_holt_winters``), in
+its numpy formulation only.  The reference routes large
 batches through its native C++ kernels (``m3_tpu.utils.native``); those
 branches are left out here until the port carries a copied loader, so
 this module is the readable reference and the host oracle that
@@ -342,3 +346,151 @@ def window_reduce(
         out[lo:hi] = fn(values[lo:hi][:, None, :], m)
     empty = right == left
     return np.where(empty, np.nan, out)
+
+
+def window_quantile(
+    times: np.ndarray,
+    values: np.ndarray,
+    step_times: np.ndarray,
+    range_nanos: int,
+    phi: float,
+) -> np.ndarray:
+    """quantile_over_time: linear-interpolated quantile of the samples
+    in each window (upstream promql quantile semantics); out-of-range phi
+    yields +/-Inf where the window has samples."""
+    step_times = np.asarray(step_times, dtype=np.int64)
+    left, right = _window_bounds(times, _range_left(step_times, range_nanos), step_times)
+    L, N = values.shape
+    S = len(step_times)
+    out = np.full((L, S), np.nan)
+    idx = np.arange(N)
+    chunk = max(1, (1 << 23) // max(N, 1))
+    oob = np.inf if phi > 1 else (-np.inf if phi < 0 else None)
+    with np.errstate(invalid="ignore"):
+        for lo in range(0, L, chunk):
+            hi = min(L, lo + chunk)
+            m = (idx[None, None, :] >= left[lo:hi][:, :, None]) & (
+                idx[None, None, :] < right[lo:hi][:, :, None]
+            )
+            v = np.where(m, values[lo:hi][:, None, :], np.nan)
+            any_m = m.any(-1) & ~np.isnan(v).all(-1)
+            if oob is not None:
+                # upstream promql: out-of-range phi yields +/-Inf
+                out[lo:hi] = np.where(any_m, oob, np.nan)
+                continue
+            q = np.nanquantile(
+                np.where(any_m[..., None], v, 0.0), phi, axis=-1
+            )
+            out[lo:hi] = np.where(any_m, q, np.nan)
+    return out
+
+
+def _pair_window_count(flags: np.ndarray, left: np.ndarray, right: np.ndarray):
+    """Count adjacent-pair events fully inside each window.  flags[l, i]
+    marks the pair (i, i+1); pair counted when left <= i and i+1 < right."""
+    L, P = flags.shape
+    cum = np.concatenate([np.zeros((L, 1)), np.cumsum(flags, axis=1)], axis=1)
+    hi = np.clip(right - 1, 0, P)
+    lo = np.clip(left, 0, P)
+    return np.take_along_axis(cum, hi, axis=1) - np.take_along_axis(cum, lo, axis=1)
+
+
+def window_changes(times, values, step_times, range_nanos, resets_only: bool):
+    """changes()/resets(): adjacent-pair event counts per window
+    (ref upstream promql; src/query/functions/temporal/functions.go)."""
+    step_times = np.asarray(step_times, dtype=np.int64)
+    left, right = _window_bounds(times, _range_left(step_times, range_nanos), step_times)
+    L, N = values.shape
+    if N < 2:
+        return np.where(right > left, 0.0, np.nan)
+    prev, curr = values[:, :-1], values[:, 1:]
+    if resets_only:
+        flags = (curr < prev).astype(np.float64)
+    else:
+        flags = (curr != prev).astype(np.float64)
+    flags = np.where(np.isnan(prev) | np.isnan(curr), 0.0, flags)
+    out = _pair_window_count(flags, left, right)
+    return np.where(right > left, out, np.nan)
+
+
+def window_linreg(times, values, step_times, range_nanos):
+    """Least-squares fit per window, t relative to the step time in
+    seconds.  Returns (slope, intercept_at_step, n_samples) — deriv is
+    the slope; predict_linear is intercept + slope * horizon
+    (ref: src/query/functions/temporal/linear_regression.go)."""
+    step_times = np.asarray(step_times, dtype=np.int64)
+    left, right = _window_bounds(times, _range_left(step_times, range_nanos), step_times)
+    L, N = values.shape
+    vz = np.nan_to_num(values)
+    ok = (~np.isnan(values)).astype(np.float64)
+    # epoch-seconds squared destroy f64 precision in the sums; work
+    # relative to the query start (magnitudes ~ the query span)
+    origin = int(step_times[0]) - range_nanos
+    tsec = (np.where(times == _INF, origin, times) - origin).astype(
+        np.float64
+    ) / 1e9
+
+    def wsum(x):
+        cum = np.concatenate([np.zeros((L, 1)), np.cumsum(x, axis=1)], axis=1)
+        return np.take_along_axis(cum, right, axis=1) - np.take_along_axis(
+            cum, left, axis=1
+        )
+
+    n = wsum(ok)
+    sv = wsum(vz * ok)
+    st = wsum(tsec * ok)
+    stv = wsum(tsec * vz * ok)
+    stt = wsum(tsec * tsec * ok)
+    # shift t origin to the step time for numerical stability:
+    # t' = t - step;  sums transform in closed form
+    step_sec = (step_times - origin).astype(np.float64)[None, :] / 1e9
+    st_ = st - n * step_sec
+    stv_ = stv - step_sec * sv
+    stt_ = stt - 2 * step_sec * st + n * step_sec * step_sec
+    denom = n * stt_ - st_ * st_
+    with np.errstate(divide="ignore", invalid="ignore"):
+        slope = (n * stv_ - st_ * sv) / denom
+        intercept = sv / np.maximum(n, 1) - slope * (st_ / np.maximum(n, 1))
+    valid = (n >= 2) & (np.abs(denom) > 1e-30)
+    return (
+        np.where(valid, slope, np.nan),
+        np.where(valid, intercept, np.nan),
+        n,
+    )
+
+
+def window_holt_winters(times, values, step_times, range_nanos,
+                        sf: float, tf: float):
+    """Double exponential smoothing over each window's samples
+    (ref: src/query/functions/temporal/holt_winters.go; upstream
+    double_exponential_smoothing).  An O(S * N) loop of numpy steps: the
+    reference formulation."""
+    step_times = np.asarray(step_times, dtype=np.int64)
+    left, right = _window_bounds(times, _range_left(step_times, range_nanos), step_times)
+    L, N = values.shape
+    S = len(step_times)
+    out = np.full((L, S), np.nan)
+    if N < 2:
+        # the recurrence needs >= 2 samples in a window; a merged batch
+        # narrower than 2 columns cannot satisfy that
+        return out
+    idx = np.arange(N)
+    for s in range(S):
+        m = (idx[None, :] >= left[:, s, None]) & (idx[None, :] < right[:, s, None])
+        m &= ~np.isnan(values)
+        cnt = m.sum(1)
+        # positions of 1st/2nd samples per lane
+        order = np.argsort(~m, axis=1, kind="stable")
+        v = np.take_along_axis(np.where(m, values, 0.0), order, axis=1)
+        level = v[:, 0]
+        trend = np.where(cnt >= 2, v[:, 1] - v[:, 0], 0.0)
+        active = np.arange(N)[None, :] < cnt[:, None]
+        for i in range(1, N):
+            a = active[:, i]
+            x = v[:, i]
+            new_level = sf * x + (1 - sf) * (level + trend)
+            new_trend = tf * (new_level - level) + (1 - tf) * trend
+            level = np.where(a, new_level, level)
+            trend = np.where(a, new_trend, trend)
+        out[:, s] = np.where(cnt >= 2, level, np.nan)
+    return out

@@ -1,5 +1,6 @@
 """Per-lane merge of decoded (series, block) grids: the CUDA kernel QK1
-and its plain PyTorch version.
+and its plain PyTorch version; and the subquery's packing of its inner
+grid (QK12, ``subq_pack``).
 
 Port of the front half of ``m3_tpu/models/query_pipeline.py``:
 ``_tier_cut`` (the cross-namespace stitch), ``_merge_device`` (the
@@ -16,6 +17,11 @@ flag).
 Contract, as the reference's: rows of a slot are contiguous and slots
 ascend (the reference's segment ops are called with
 ``indices_are_sorted=True``); every slot lies in ``[0, n_lanes)``.
+
+``subq_pack`` ports the row sort of the subquery node
+(``query_pipeline.py:1604-1618``): on a CUDA tensor it launches
+``csrc/query_merge.cu``'s compaction (a warp per row), on a CPU tensor it
+runs ``subq_pack_plain``, the reference's stable sort.
 """
 
 from __future__ import annotations
@@ -85,7 +91,10 @@ _SIGNATURES = {
     "m3_query_merge": [_build.P, _build.P, _build.P, _build.P, _build.P, _build.LL, _build.I,
                        _build.LL, _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
                        _build.P],
+    "m3_subq_pack": [_build.P, _build.P, _build.P, _build.LL, _build.I, _build.P, _build.P,
+                     _build.I, _build.P],
 }
+SUBQ_BLOCKS_PER_SM = 8  # 256-thread blocks of QK12, a warp per row in turn
 
 
 def lane_merge(ts: torch.Tensor, vs: torch.Tensor, valid: torch.Tensor, slots: torch.Tensor,
@@ -129,3 +138,65 @@ def lane_merge(ts: torch.Tensor, vs: torch.Tensor, valid: torch.Tensor, slots: t
         _build.check(lib, rc, "query_merge")
         _build.count_launch("query_merge")
     return times, values, counts, unsorted
+
+
+def subq_pack_plain(cv: torch.Tensor, sub_times: torch.Tensor, sub_valid: torch.Tensor):
+    """Plain version of ``subq_pack``, the reference's form: each cell keyed
+    by its inner step time where the step is real and the cell not NaN,
+    INT64_MAX otherwise, each row sorted stably by the key, values riding
+    along (NaN where dropped).  Returns (times i64[rows, S], values
+    f64[rows, S])."""
+    sub_times = sub_times.to(cv.device, I64)
+    sub_valid = sub_valid.to(cv.device, torch.bool)
+    tkey = torch.where(sub_valid[None, :] & ~torch.isnan(cv), sub_times[None, :], INT64_MAX)
+    vm = torch.where(tkey == INT64_MAX, torch.nan, cv)
+    order = torch.sort(tkey, dim=1, stable=True).indices
+    return torch.gather(tkey, 1, order), torch.gather(vm, 1, order)
+
+
+def check_subq_grid(sub_times: torch.Tensor, sub_valid: torch.Tensor) -> None:
+    """The compaction equals the sort only on an ascending inner grid:
+    ``sub_times`` non-decreasing and below INT64_MAX where ``sub_valid``
+    (host tensors: plan-time data, so the check costs no device sync)."""
+    if sub_times.device.type != "cpu" or sub_valid.device.type != "cpu":
+        raise ValueError("sub_times and sub_valid must be host tensors")
+    t = sub_times.to(I64)[sub_valid.to(torch.bool)]
+    if bool((t == INT64_MAX).any()) or bool((t[1:] < t[:-1]).any()):
+        raise ValueError("the subquery's inner grid must ascend where it is valid")
+
+
+def subq_pack(cv: torch.Tensor, sub_times: torch.Tensor, sub_valid: torch.Tensor):
+    """The subquery's inner grid packed as lanes: the cells of the child's
+    ``cv f64[rows, S]`` at real inner steps (``sub_valid``) that are not NaN,
+    left-justified in step order with their step times, then (INT64_MAX,
+    NaN).  ``sub_times i64[S]`` / ``sub_valid bool[S]`` are host tensors.
+    Returns (times i64[rows, S], values f64[rows, S])."""
+    if cv.dim() != 2 or sub_times.shape != (cv.shape[1],) or sub_valid.shape != sub_times.shape:
+        raise ValueError("cv must be [rows, S] and sub_times, sub_valid [S]")
+    if cv.device.type == "cpu":
+        return subq_pack_plain(cv, sub_times, sub_valid)
+    if not cv.is_cuda:
+        raise ValueError(f"unsupported device {cv.device}")
+    return _launch_subq(cv, sub_times, sub_valid)
+
+
+def _launch_subq(cv: torch.Tensor, sub_times: torch.Tensor, sub_valid: torch.Tensor):
+    check_subq_grid(sub_times, sub_valid)
+    dev = cv.device
+    rows, S = cv.shape
+    x = cv.to(F64).contiguous()
+    st = sub_times.to(I64).to(dev, non_blocking=True)
+    sv = sub_valid.to(torch.bool).to(dev, non_blocking=True)
+    t_out = torch.empty((rows, S), dtype=I64, device=dev)
+    v_out = torch.empty((rows, S), dtype=F64, device=dev)
+    if rows and S:
+        lib = _build.library("query_merge", _SIGNATURES)
+        grid = max(1, min(-(-rows // 8),
+                          torch.cuda.get_device_properties(dev).multi_processor_count
+                          * SUBQ_BLOCKS_PER_SM))
+        rc = lib.m3_subq_pack(x.data_ptr(), st.data_ptr(), sv.data_ptr(), rows, S,
+                              t_out.data_ptr(), v_out.data_ptr(), grid,
+                              torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "subq_pack")
+        _build.count_launch("subq_pack")
+    return t_out, v_out

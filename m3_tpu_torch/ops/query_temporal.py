@@ -1,18 +1,25 @@
 """Windowed PromQL temporal functions over merged lanes: the CUDA kernels
-QK2 (rate family), QK3 (prefix-sum reducers) and QK5 (min/max over time)
-and their plain PyTorch versions.
+QK2 (rate family), QK3 (prefix-sum reducers, changes/resets,
+deriv/predict_linear), QK5 (min/max over time), QK9 (stddev/stdvar over
+time), QK10 (holt_winters) and QK11 (quantile over time), and their plain
+PyTorch versions.
 
 Port of ``m3_tpu/models/query_pipeline.py``: ``_window_bounds_device``,
 ``_rate_device``, ``_instant_device`` (QK2), the prefix-sum half of
-``_reduce_device`` (QK3: sum, avg, count, present and last over time) and
-``_minmax_device`` (QK5).
+``_reduce_device`` (QK3: sum, avg, count, present and last over time),
+``_changes_device`` and ``_linreg_device`` (QK3's further op codes),
+``_minmax_device`` (QK5), ``_stdvar_device`` (QK9),
+``_holt_winters_device`` (QK10) and ``_quantile_window_device`` (QK11).
 
-- On a CUDA tensor ``rate``, ``instant``, ``reduce_window`` and
-  ``minmax_window`` launch
+- On a CUDA tensor ``rate``, ``instant``, ``reduce_window``,
+  ``changes_window``, ``linreg_window``, ``minmax_window``,
+  ``stdvar_window`` and ``holt_winters_window`` launch
   ``csrc/query_temporal.cu`` (a few blocks per SM, each taking lanes in
   turn; a lane's prefix sums in the block's slice of a global scratch
-  buffer, so lanes have no length limit; one thread per step; QK5 scans
-  each window directly) or raise.
+  buffer, so lanes have no length limit; one thread per step; QK5, QK9 and
+  QK10 walk each window directly), and ``quantile_window`` launches QK11 in
+  ``csrc/query_select.cu`` (a warp per (lane, step) sorts the window), or
+  raise.
 - On a CPU tensor they run the plain versions below, which follow the
   reference line for line: the same bisection (a fixed number of levels,
   as ``jnp.searchsorted`` runs it, so unsorted lanes get the reference's
@@ -33,14 +40,21 @@ from m3_tpu_torch.ops import _build, ieee
 
 I64 = torch.int64
 F64 = torch.float64
+INT64_MAX = torch.iinfo(torch.int64).max
 
 RATE_FNS = ("rate", "increase", "delta")
 INSTANT_FNS = ("irate", "idelta")
 REDUCERS = ("sum_over_time", "avg_over_time", "count_over_time", "present_over_time",
             "last_over_time")
 MINMAX_FNS = ("min_over_time", "max_over_time")
+CHANGES_FNS = ("changes", "resets")
+LINREG_FNS = ("deriv", "predict_linear")
+STDVAR_FNS = ("stddev_over_time", "stdvar_over_time")
+# the windowed functions with a kernel of their own (QK10, QK11)
+WINDOW_FNS = ("holt_winters", "quantile_over_time")
 _OP_RATE, _OP_INSTANT = 0, 1
 _OP_OF_REDUCER = {name: 2 + i for i, name in enumerate(REDUCERS)}  # enum Op of the kernel
+_OP_CHANGES, _OP_RESETS, _OP_DERIV, _OP_PREDICT = 7, 8, 9, 10
 # The reference divides nanoseconds by 1e9; XLA compiles a division by a
 # constant as a multiplication by its reciprocal, so the reference's bits
 # are those of x * 1e-9, and the port computes that.
@@ -192,6 +206,200 @@ def minmax_plain(times, values, steps, range_nanos: int, is_max: bool):
     return torch.where(n > 0, acc if is_max else -acc, torch.nan)
 
 
+def changes_plain(times, values, steps, range_nanos: int, resets_only: bool):
+    """Plain version of ``changes``: prefix sums of the pair flags
+    ``curr != prev`` (resets: ``curr < prev``; a NaN on either side gives
+    0), a pair (i, i + 1) counted when left <= i and i + 1 < right; an
+    empty window is NaN."""
+    L, N = values.shape
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    prev, curr = values[:, :-1], values[:, 1:]
+    flags = (curr < prev) if resets_only else (curr != prev)
+    flags = flags & ~(torch.isnan(prev) | torch.isnan(curr))
+    zero = torch.zeros((L, 1), dtype=I64, device=values.device)
+    cum = torch.cat([zero, torch.cumsum(flags, dim=1)], dim=1)
+    out = (_take(cum, (right - 1).clamp(0, N - 1)) - _take(cum, left.clamp(0, N - 1))).to(F64)
+    return torch.where(right > left, out, torch.nan)
+
+
+def linreg_plain(times, values, steps, range_nanos: int):
+    """Plain version of the least-squares fit of ``deriv`` and
+    ``predict_linear``: five windowed prefix sums (n, sum v, sum t, sum tv,
+    sum tt; t in seconds from ``steps[0] - range``, NaN samples absent,
+    +-Inf as +-DBL_MAX), recentred on each step in closed form.  Returns
+    (slope, intercept at the step), NaN where n < 2 or |denom| <= 1e-30."""
+    L, N = values.shape
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    vz = torch.nan_to_num(values)
+    ok = (~torch.isnan(values)).to(F64)
+    origin = steps[0] - range_nanos
+    tsec = (torch.where(times == INT64_MAX, origin, times) - origin).to(F64) * NANO
+    zero = torch.zeros((L, 1), dtype=F64, device=values.device)
+
+    def wsum(x):
+        cum = torch.cat([zero, torch.cumsum(x, dim=1)], dim=1)
+        return _take(cum, right) - _take(cum, left)
+
+    n = wsum(ok)
+    sv = wsum(vz * ok)
+    st = wsum(tsec * ok)
+    stv = wsum(tsec * vz * ok)
+    stt = wsum(tsec * tsec * ok)
+    step_sec = (steps - origin).to(F64)[None, :] * NANO
+    st_ = st - n * step_sec
+    stv_ = stv - step_sec * sv
+    stt_ = stt - 2 * step_sec * st + n * step_sec * step_sec
+    denom = n * stt_ - st_ * st_
+    slope = (n * stv_ - st_ * sv) / denom
+    nn = torch.clamp(n, min=1.0)
+    intercept = sv / nn - slope * (st_ / nn)
+    valid = (n >= 2) & (denom.abs() > 1e-30)
+    return torch.where(valid, slope, torch.nan), torch.where(valid, intercept, torch.nan)
+
+
+def linreg_conditioning(times, values, steps, range_nanos: int) -> torch.Tensor:
+    """f64[L, S]: the first-order error of ``linreg_plain``'s slope when
+    each of its prefix sums (sum v, t, t*v, t*t) carries one rounding of
+    its magnitude (eps/2 times the sum of |terms| up to the window's end),
+    carried through the recentring and the closed form.  Two summation
+    orders of the prefix sums (XLA's, a sequential one, the kernel's tiles)
+    give slopes that differ on this scale: large on 1e9-offset lanes, where
+    the sums of 1e9 * t terms cancel (ROADMAP queue 3)."""
+    L, N = values.shape
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    ok = ~torch.isnan(values)
+    vz = torch.nan_to_num(values)
+    origin = steps[0] - range_nanos
+    tsec = (torch.where(times == INT64_MAX, origin, times) - origin).to(F64) * NANO
+    zero = torch.zeros((L, 1), dtype=F64, device=values.device)
+
+    def cum(x):
+        return torch.cat([zero, torch.cumsum(torch.where(ok, x, 0.0), dim=1)], dim=1)
+
+    def wsum(x):
+        c = cum(x)
+        return _take(c, right) - _take(c, left)
+
+    def mag(x):
+        return torch.finfo(F64).eps / 2 * _take(cum(x.abs()), right)
+
+    n, sv, st = wsum(torch.ones_like(vz)), wsum(vz), wsum(tsec)
+    step_sec = (steps - origin).to(F64)[None, :] * NANO
+    st_ = st - n * step_sec
+    stv_ = wsum(tsec * vz) - step_sec * sv
+    stt_ = wsum(tsec * tsec) - 2 * step_sec * st + n * step_sec * step_sec
+    denom = n * stt_ - st_ * st_
+    slope = (n * stv_ - st_ * sv) / denom
+    d_sv, d_st = mag(vz), mag(tsec)
+    d_stv = mag(tsec * vz) + step_sec.abs() * d_sv
+    d_stt = mag(tsec * tsec) + 2 * step_sec.abs() * d_st
+    num = n * d_stv + sv.abs() * d_st + st_.abs() * d_sv
+    den = n * d_stt + 2 * st_.abs() * d_st
+    return torch.nan_to_num((num + slope.abs() * den) / denom.abs(), nan=0.0)
+
+
+def _longest_window(left, right):
+    """The longest window (read back to the host: the loop versions below
+    are yardsticks, not serving paths)."""
+    return int((right - left).max()) if left.numel() else 0
+
+
+def stdvar_plain(times, values, steps, range_nanos: int, is_stddev: bool):
+    """Plain version of ``stdvar_window``: the population variance of each
+    window's present samples by a direct two-pass (the mean, then the sum
+    of squared deviations, both in sample order); an empty window is NaN,
+    a window of only NaN samples 0.0; stddev = sqrt(max(var, 0))."""
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    N = values.shape[1]
+    width = _longest_window(left, right)
+    zero = torch.zeros(left.shape, dtype=F64, device=values.device)
+    s, n, m2 = zero, zero, zero
+    cells = []
+    for o in range(width):
+        idx = left + o
+        x = _take(values, idx.clamp(0, N - 1))
+        take = (idx < right) & ~torch.isnan(x)
+        cells.append((x, take))
+        s = torch.where(take, s + x, s)
+        n = torch.where(take, n + 1.0, n)
+    nn = torch.clamp(n, min=1.0)
+    mean = s / nn
+    for x, take in cells:
+        d = x - mean
+        m2 = torch.where(take, m2 + d * d, m2)
+    var = m2 / nn
+    if is_stddev:
+        var = torch.sqrt(torch.clamp(var, min=0.0))
+    return torch.where(right > left, var, torch.nan)
+
+
+def holt_winters_plain(times, values, steps, range_nanos: int, sf: float, tf: float):
+    """Plain version of ``holt_winters_window``: per window, level = the
+    first present sample, trend = second - first, then from the second
+    present sample on level' = sf*x + (1-sf)*(level+trend), trend' =
+    tf*(level'-level) + (1-tf)*trend; fewer than 2 present samples: NaN."""
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    N = values.shape[1]
+    sf, tf = float(sf), float(tf)
+    zero = torch.zeros(left.shape, dtype=F64, device=values.device)
+    level, trend = zero, zero
+    seen = torch.zeros(left.shape, dtype=I64, device=values.device)
+    for o in range(_longest_window(left, right)):
+        idx = left + o
+        x = _take(values, idx.clamp(0, N - 1))
+        take = (idx < right) & ~torch.isnan(x)
+        first, second = take & (seen == 0), take & (seen == 1)
+        trend = torch.where(second, x - level, trend)
+        nl = sf * x + (1.0 - sf) * (level + trend)
+        nt = tf * (nl - level) + (1.0 - tf) * trend
+        upd = take & (seen >= 1)
+        level = torch.where(first, x, torch.where(upd, nl, level))
+        trend = torch.where(upd, nt, trend)
+        seen = seen + take.to(I64)
+    return torch.where(seen >= 2, level, torch.nan)
+
+
+def check_phi(phi) -> float:
+    phi = float(phi)
+    if not 0.0 <= phi <= 1.0:
+        raise ValueError(f"quantile_over_time's phi must lie in [0, 1], got {phi}")
+    return phi
+
+
+QUANTILE_CHUNK = 1 << 26  # window-grid cells per chunk of lanes of the plain version
+
+
+def quantile_window_plain(times, values, steps, range_nanos: int, phi):
+    """Plain version of ``quantile_window``, the reference's formulation
+    over a window grid as wide as the longest window (in chunks of lanes):
+    the window's samples keyed +inf where absent, a sort along the window,
+    and v_lo + (v_hi - v_lo) * frac at h = phi * max(n - 1, 0) between the
+    floor(h)-th and ceil(h)-th sorted keys; no present sample: NaN."""
+    phi = check_phi(phi)
+    _, left, right = window_bounds_plain(times, steps, range_nanos)
+    L, N = values.shape
+    S = left.shape[1]
+    W = max(_longest_window(left, right), 1)
+    out = torch.empty((L, S), dtype=F64, device=values.device)
+    off = torch.arange(W, device=values.device)
+    step = max(1, QUANTILE_CHUNK // max(S * W, 1))
+    for lo in range(0, L, step):
+        hi = min(L, lo + step)
+        idx = left[lo:hi, :, None] + off
+        inw = idx < right[lo:hi, :, None]
+        v = torch.gather(values[lo:hi, None, :].expand(hi - lo, S, N), 2, idx.clamp(0, N - 1))
+        pres = inw & ~torch.isnan(v)
+        vs = torch.sort(torch.where(pres, v, torch.inf), dim=2, stable=True).values
+        n = pres.sum(dim=2).to(F64)
+        h = phi * torch.clamp(n - 1.0, min=0.0)
+        fl = torch.floor(h)
+        frac = h - fl
+        v_lo = torch.gather(vs, 2, fl.to(I64).clamp(0, W - 1)[:, :, None])[:, :, 0]
+        v_hi = torch.gather(vs, 2, torch.ceil(h).to(I64).clamp(0, W - 1)[:, :, None])[:, :, 0]
+        out[lo:hi] = torch.where(n > 0, v_lo + (v_hi - v_lo) * frac, torch.nan)
+    return out
+
+
 def _check_reducer(reducer: str) -> None:
     if reducer not in REDUCERS:
         raise ValueError(f"no prefix-sum form for {reducer}")
@@ -199,14 +407,22 @@ def _check_reducer(reducer: str) -> None:
 
 # --- wrappers: CUDA tensor -> kernel, CPU tensor -> plain version --------
 
+_LANES = [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.I, _build.I, _build.LL]
 _SIGNATURES = {
-    "m3_query_temporal": [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.I, _build.I,
-                          _build.LL, _build.I, _build.I, _build.I, _build.P, _build.P, _build.P,
-                          _build.P, _build.P, _build.I, _build.P],
-    "m3_query_minmax": [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.I, _build.I,
-                        _build.LL, _build.I, _build.P, _build.I, _build.P],
+    "m3_query_temporal": _LANES + [_build.I, _build.I, _build.I, _build.D, _build.P, _build.P,
+                                   _build.P, _build.P, _build.P, _build.I, _build.P],
+    "m3_query_minmax": _LANES + [_build.I, _build.P, _build.I, _build.P],
+    "m3_query_stdvar": _LANES + [_build.I, _build.P, _build.I, _build.P],
+    "m3_query_holt_winters": _LANES + [_build.D, _build.D, _build.P, _build.I, _build.P],
 }
-BLOCKS_PER_SM = 8  # 128-thread blocks per SM; each block's prefix scratch is [N + 1]
+_QUANTILE_SIGNATURES = {
+    "m3_quantile_window": _LANES + [_build.D, _build.I, _build.LL, _build.P, _build.P,
+                                    _build.P, _build.I, _build.P],
+}
+# 128-thread blocks per SM; each block's prefix scratch is [N + 1] (four f64
+# rows for deriv/predict_linear: 73 MB at the serving shapes, past L2, which
+# measured faster than fewer blocks whose scratch stays in it)
+BLOCKS_PER_SM = 8
 
 
 def _check_lanes(times, values, steps):
@@ -219,12 +435,12 @@ def _check_lanes(times, values, steps):
     return times.to(I64).contiguous(), values.to(F64).contiguous(), steps.to(I64).contiguous()
 
 
-def _n_blocks(L: int, dev) -> int:
-    return min(L, torch.cuda.get_device_properties(dev).multi_processor_count * BLOCKS_PER_SM)
+def _n_blocks(L: int, dev, per_sm: int = BLOCKS_PER_SM) -> int:
+    return min(L, torch.cuda.get_device_properties(dev).multi_processor_count * per_sm)
 
 
 def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, is_rate: bool,
-            kernel: str, with_bounds: bool):
+            kernel: str, with_bounds: bool, horizon: float = 0.0):
     t, v, st = _check_lanes(times, values, steps)
     L, N = t.shape
     S = st.shape[0]
@@ -237,11 +453,12 @@ def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, i
     if L and S:
         lib = _build.library("query_temporal", _SIGNATURES)
         n_blocks = _n_blocks(L, dev)
-        prefix = torch.empty((n_blocks, N + 1), dtype=F64, device=dev)
+        rows = 4 if op in (_OP_DERIV, _OP_PREDICT) else 1
+        prefix = torch.empty((n_blocks, rows, N + 1), dtype=F64, device=dev)
         prefix_counts = torch.empty((n_blocks, N + 1), dtype=torch.int32, device=dev)
         rc = lib.m3_query_temporal(
             t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
-            int(range_nanos), op, int(is_counter), int(is_rate), out.data_ptr(),
+            int(range_nanos), op, int(is_counter), int(is_rate), float(horizon), out.data_ptr(),
             None if left is None else left.data_ptr(),
             None if right is None else right.data_ptr(),
             prefix.data_ptr(), prefix_counts.data_ptr(), n_blocks,
@@ -301,20 +518,105 @@ def minmax_window(times, values, steps, range_nanos: int, is_max: bool) -> torch
     """max_over_time (``is_max``) or min_over_time per (lane, step) -> f64[L, S]."""
     if _device_of(times) == "cpu":
         return minmax_plain(times, values, steps, range_nanos, is_max)
-    return _launch_minmax(times, values, steps, range_nanos, is_max)
+    return _launch_window("m3_query_minmax", "query_minmax", times, values, steps, range_nanos,
+                          int(is_max))
 
 
-def _launch_minmax(times, values, steps, range_nanos: int, is_max: bool) -> torch.Tensor:
+def _launch_window(entry: str, kernel: str, times, values, steps, range_nanos: int,
+                   *args) -> torch.Tensor:
+    """One launch of a window-walking kernel of ``csrc/query_temporal.cu``
+    (QK5, QK9, QK10: a block per lane in turn, a thread per step);
+    ``args`` are the entry's own arguments before ``out``."""
     t, v, st = _check_lanes(times, values, steps)
     L, N = t.shape
     S = st.shape[0]
     out = torch.empty((L, S), dtype=F64, device=t.device)
     if L and S:
         lib = _build.library("query_temporal", _SIGNATURES)
-        rc = lib.m3_query_minmax(
+        rc = getattr(lib, entry)(
             t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
-            int(range_nanos), int(is_max), out.data_ptr(), _n_blocks(L, t.device),
+            int(range_nanos), *args, out.data_ptr(), _n_blocks(L, t.device),
             torch.cuda.current_stream(t.device).cuda_stream)
-        _build.check(lib, rc, "query_minmax")
-        _build.count_launch("query_minmax")
+        _build.check(lib, rc, kernel)
+        _build.count_launch(kernel)
+    return out
+
+
+def changes_window(times, values, steps, range_nanos: int, resets_only: bool) -> torch.Tensor:
+    """resets (``resets_only``) or changes per (lane, step) -> f64[L, S]."""
+    if _device_of(times) == "cpu":
+        return changes_plain(times, values, steps, range_nanos, resets_only)
+    return _launch(times, values, steps, range_nanos, _OP_RESETS if resets_only else _OP_CHANGES,
+                   False, False, "query_changes", False)
+
+
+def linreg_window(times, values, steps, range_nanos: int, predict: bool,
+                  horizon: float = 0.0) -> torch.Tensor:
+    """deriv, or predict_linear ``horizon`` seconds ahead (``predict``), per
+    (lane, step) -> f64[L, S]; ``horizon`` is a kernel argument."""
+    if _device_of(times) == "cpu":
+        slope, intercept = linreg_plain(times, values, steps, range_nanos)
+        return intercept + slope * float(horizon) if predict else slope
+    return _launch(times, values, steps, range_nanos, _OP_PREDICT if predict else _OP_DERIV,
+                   False, False, "query_linreg", False, horizon)
+
+
+def stdvar_window(times, values, steps, range_nanos: int, is_stddev: bool) -> torch.Tensor:
+    """stddev_over_time (``is_stddev``) or stdvar_over_time per (lane,
+    step) -> f64[L, S]."""
+    if _device_of(times) == "cpu":
+        return stdvar_plain(times, values, steps, range_nanos, is_stddev)
+    return _launch_window("m3_query_stdvar", "query_stdvar", times, values, steps, range_nanos,
+                          int(is_stddev))
+
+
+def holt_winters_window(times, values, steps, range_nanos: int, sf: float,
+                        tf: float) -> torch.Tensor:
+    """holt_winters(x[range], sf, tf) per (lane, step) -> f64[L, S]; the
+    factors are kernel arguments."""
+    if _device_of(times) == "cpu":
+        return holt_winters_plain(times, values, steps, range_nanos, sf, tf)
+    return _launch_window("m3_query_holt_winters", "query_holt_winters", times, values, steps,
+                          range_nanos, float(sf), float(tf))
+
+
+QUANTILE_WARPS = 8  # warps per block of QK11, each sorting one window at a time
+# blocks per SM of QK11: each warp's global scratch is the padded lane
+# length (207 MB at the serving shapes with 4)
+QUANTILE_BLOCKS_PER_SM = 4
+QUANTILE_SMEM_P = 256  # padded window (pairs) a warp sorts in shared memory
+
+
+def quantile_window(times, values, steps, range_nanos: int, phi) -> torch.Tensor:
+    """quantile_over_time(phi, x[range]) per (lane, step) -> f64[L, S];
+    ``phi`` is a kernel argument in [0, 1] (others raise)."""
+    phi = check_phi(phi)
+    if _device_of(times) == "cpu":
+        return quantile_window_plain(times, values, steps, range_nanos, phi)
+    return _launch_quantile(times, values, steps, range_nanos, phi)
+
+
+def _launch_quantile(times, values, steps, range_nanos: int, phi: float) -> torch.Tensor:
+    t, v, st = _check_lanes(times, values, steps)
+    L, N = t.shape
+    S = st.shape[0]
+    dev = t.device
+    out = torch.empty((L, S), dtype=F64, device=dev)
+    if L and S:
+        n_blocks = _n_blocks(L, dev, QUANTILE_BLOCKS_PER_SM)
+        # a window never holds more than the lane's N samples: windows past
+        # the shared-memory size sort in the warp's slice of a global scratch
+        p_lane = 1 << max(N - 1, 0).bit_length()
+        p_scratch = p_lane if p_lane > QUANTILE_SMEM_P else 0
+        warps = n_blocks * QUANTILE_WARPS
+        keys = torch.empty((warps * p_scratch,), dtype=I64, device=dev)
+        pos = torch.empty((warps * p_scratch,), dtype=torch.int32, device=dev)
+        lib = _build.library("query_select", _QUANTILE_SIGNATURES)
+        rc = lib.m3_quantile_window(
+            t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
+            int(range_nanos), phi, QUANTILE_SMEM_P, p_scratch,
+            keys.data_ptr() if p_scratch else None, pos.data_ptr() if p_scratch else None,
+            out.data_ptr(), n_blocks, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "query_quantile_window")
+        _build.count_launch("query_quantile_window")
     return out

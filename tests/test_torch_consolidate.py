@@ -110,3 +110,50 @@ def test_window_reduce(reducer):
     for range_nanos in RANGES:
         assert_same(tcons.window_reduce(times, values, steps, range_nanos, reducer),
                     jcons.window_reduce(times, values, steps, range_nanos, reducer), reducer)
+
+
+# --- the rest of the temporal family (host oracles of QK3's further ops,
+# QK9-QK11): the probe corpus's lanes and corpus.temporal_probe_lanes ---------
+
+
+@functools.lru_cache(maxsize=None)
+def _family_lanes():
+    return (_lanes(), corpus.temporal_probe_lanes())
+
+
+@pytest.mark.parametrize("range_nanos", RANGES)
+def test_window_changes_and_linreg(range_nanos):
+    for times, values, steps in _family_lanes():
+        for resets_only in (False, True):
+            assert_same(tcons.window_changes(times, values, steps, range_nanos, resets_only),
+                        jcons.window_changes(times, values, steps, range_nanos, resets_only),
+                        f"window_changes({resets_only})")
+        with np.errstate(all="ignore"):
+            got = tcons.window_linreg(times, values, steps, range_nanos)
+            want = jcons.window_linreg(times, values, steps, range_nanos)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"window_linreg[{i}]")
+    assert_same(tcons.window_changes(times[:, :1], values[:, :1], steps, range_nanos, False),
+                jcons.window_changes(times[:, :1], values[:, :1], steps, range_nanos, False),
+                "window_changes on one column")
+
+
+@pytest.mark.parametrize("phi", [0.0, 0.5, 0.99, 1.0, -0.5, 1.5])
+def test_window_quantile(phi):
+    for times, values, steps in _family_lanes():
+        for range_nanos in RANGES:
+            assert_same(tcons.window_quantile(times, values, steps, range_nanos, phi),
+                        jcons.window_quantile(times, values, steps, range_nanos, phi),
+                        f"window_quantile({phi})")
+
+
+@pytest.mark.parametrize("sf,tf", [(0.5, 0.5), (0.3, 0.1)])
+def test_window_holt_winters(sf, tf):
+    for times, values, steps in _family_lanes():
+        assert times.size < 10_000  # below the reference's native threshold
+        with np.errstate(all="ignore"):
+            got = tcons.window_holt_winters(times, values, steps, RANGES[1], sf, tf)
+            want = jcons.window_holt_winters(times, values, steps, RANGES[1], sf, tf)
+        assert_same(got, want, f"window_holt_winters({sf}, {tf})")
+    assert_same(tcons.window_holt_winters(times[:, :1], values[:, :1], steps, RANGES[1], sf, tf),
+                np.full((len(times), len(steps)), np.nan), "one column")

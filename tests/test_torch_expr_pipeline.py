@@ -13,15 +13,25 @@ expressions are those of the reference's own fusion tests
 (``tests/test_device_query_fusion.py``: ``EXACT_EXPRS``, ``RATE_EXPRS``,
 the transcendental and loose families, ``sum(rate(..) ^ 0)``), the
 grouped-rate ratio of ``bench.py:1768``, histogram_quantile, topk and
-bottomk (with ``aux``), ``quantile by``, ``absent`` and every scalar
-function and operator form.
+bottomk (with ``aux``), ``quantile by``, ``absent``, every scalar
+function and operator form, the rest of the range functions (stddev/stdvar,
+changes/resets, deriv/predict_linear, holt_winters, quantile_over_time)
+and subqueries (``subq``: the child evaluated on the inner grid, packed by
+QK12, then a range function), the example of Prometheus's querying
+documentation ``max_over_time(rate(x[5m])[30m:1m])`` among them.  The range
+functions whose reference device form departs from its host contract on
++-Inf samples (ROADMAP queue 3; tests/test_torch_temporal_family.py holds
+the port there) run on the counters and the sparse gauge here.
 
 Tolerances: bit for bit (NaN positions equal, f64 bit patterns) where the
 plan's ops are exact; rtol 1e-12, atol 1e-12 with NaN positions equal for
 the rate family (as in the per-node tests), exp/ln/log2/log10/^ (the
 reference's own gate) and two products XLA:CPU contracts into an FMA
 under jit (the grouped quantile's interpolation and histogram_quantile's
-``phi * total - lo_c``; see tests/test_torch_query_select.py).
+``phi * total - lo_c``; see tests/test_torch_query_select.py); rtol 1e-9,
+atol 1e-9 (``FAMILY``, the reference's differential gate for them) for
+stddev/stdvar, deriv/predict_linear, holt_winters and quantile_over_time,
+in a leaf or after a subquery.
 
 The JAX references of each leaf kind come from one compiled program that
 evaluates every plan with ``_expr_eval``; the entry points themselves run
@@ -52,6 +62,7 @@ JOBS = ("api", "db", "web")
 DCS = ("east", "west")
 LES = ("0.1", "0.5", "1", "+Inf")
 LOOSE = 1e-12
+FAMILY = (1e-9, 1e-9)  # (rtol, atol)
 
 
 def _series(rng: random.Random, kind: str):
@@ -126,6 +137,15 @@ def _leaves(b: corpus.ExprPlanBuilder, kind: str) -> dict:
             else:
                 out[metric, rng] = b.arrays_leaf(*_grid(series), labels, rng)
     return out
+
+
+def _leaf_of(b: corpus.ExprPlanBuilder, kind: str, metric: str, rng: int) -> int:
+    """A new leaf of ``metric`` on the builder's current grid (a subquery's
+    inner grid inside ``b.subq``)."""
+    labels, series = _fleet()[metric]
+    if kind == "words":
+        return b.words_leaf_from_series(series, labels, rng)
+    return b.arrays_leaf(*_grid(series), labels, rng)
 
 
 def _plans(b: corpus.ExprPlanBuilder, kind: str) -> dict:
@@ -208,6 +228,47 @@ def _plans(b: corpus.ExprPlanBuilder, kind: str) -> dict:
     p["http_req <= on(job, dc) mem_use"] = (b.vv(
         "<=", sel("http_req", "last_over_time"), mem(), on=("job", "dc")), None)
     p["mem_use / mem_use"] = (b.vv("/", mem(), mem()), None)
+    # the rest of the range functions
+    p["stddev_over_time(http_req[5m])"] = (sel("http_req", "stddev_over_time"), FAMILY)
+    p["sum by (dc)(stdvar_over_time(http_lim[5m]))"] = (b.agg(
+        "sum", sel("http_lim", "stdvar_over_time"), ("dc",)), FAMILY)
+    p["changes(mem_use[5m])"] = (sel("mem_use", "changes"), None)
+    p["resets(http_req[10m]) > bool 0"] = (b.vs(">", sel("http_req", "resets", 10 * MIN), 0.0,
+                                                bool_mod=True), None)
+    p["deriv(http_req[10m])"] = (sel("http_req", "deriv", 10 * MIN), FAMILY)
+    p["predict_linear(http_req[10m], 3600)"] = (sel("http_req", "predict_linear", 10 * MIN,
+                                                    horizon=3600.0), FAMILY)
+    p["holt_winters(http_req[10m], 0.3, 0.1)"] = (sel("http_req", "holt_winters", 10 * MIN,
+                                                      hw_sf=0.3, hw_tf=0.1), FAMILY)
+    p["quantile_over_time(0.9, mem_use[5m])"] = (sel("mem_use", "quantile_over_time", phi=0.9),
+                                                 FAMILY)
+    p["max by (job)(quantile_over_time(0.25, sparse[5m]))"] = (b.agg(
+        "max", sel("sparse", "quantile_over_time", phi=0.25), ("job",)), FAMILY)
+    # subqueries
+    p["max_over_time(rate(http_req[5m])[30m:1m])"] = (b.subq(
+        "max_over_time", lambda bb: bb.leaf(_leaf_of(bb, kind, "http_req", 5 * MIN), "rate"),
+        MIN, 30 * MIN), LOOSE)
+    p["deriv(sum by (job)(rate(http_req[5m]))[10m:1m])"] = (b.subq(
+        "deriv", lambda bb: bb.agg("sum", bb.leaf(_leaf_of(bb, kind, "http_req", 5 * MIN),
+                                                   "rate"), ("job",)), MIN, 10 * MIN), FAMILY)
+    p["holt_winters(http_req[20m:2m], 0.3, 0.1)"] = (b.subq(
+        "holt_winters", lambda bb: bb.leaf(_leaf_of(bb, kind, "http_req", 5 * MIN),
+                                           "last_over_time"), 2 * MIN, 20 * MIN, hw_sf=0.3,
+        hw_tf=0.1), FAMILY)
+    p["predict_linear(sum(http_lim)[15m:1m], 600)"] = (b.subq(
+        "predict_linear", lambda bb: bb.agg("sum", bb.leaf(
+            _leaf_of(bb, kind, "http_lim", 5 * MIN), "last_over_time")), MIN, 15 * MIN,
+        horizon=600.0), FAMILY)
+    p["changes(mem_use[15m:1m])"] = (b.subq(
+        "changes", lambda bb: bb.leaf(_leaf_of(bb, kind, "mem_use", 5 * MIN),
+                                      "last_over_time"), MIN, 15 * MIN), None)
+    p["stddev_over_time(rate(http_lim[5m])[20m:1m]) * 60"] = (b.vs("*", b.subq(
+        "stddev_over_time", lambda bb: bb.leaf(_leaf_of(bb, kind, "http_lim", 5 * MIN), "rate"),
+        MIN, 20 * MIN), 60.0), FAMILY)
+    p["quantile_over_time(0.5, timestamp(sparse)[20m:90s])"] = (b.subq(
+        "quantile_over_time", lambda bb: bb.call("timestamp", bb.leaf(
+            _leaf_of(bb, kind, "sparse", 5 * MIN), "last_over_time")), 90 * SEC, 20 * MIN),
+        FAMILY)
     return p
 
 
@@ -255,10 +316,14 @@ def _port(kind: str, plan):
 def _check(got, want, tol, what):
     if tol is None:
         assert_same(got, want, what)
+        return
+    if isinstance(tol, tuple):
+        np.testing.assert_allclose(got.numpy(), want, rtol=tol[0], atol=tol[1], equal_nan=True,
+                                   err_msg=what)
     else:
         assert_close(got, want, tol, what)
-        np.testing.assert_array_equal(got.numpy()[np.isinf(want)], want[np.isinf(want)],
-                                      err_msg=what)
+    np.testing.assert_array_equal(got.numpy()[np.isinf(want)], want[np.isinf(want)],
+                                  err_msg=what)
 
 
 # the plans also run on words-kind leaves (the plain decoder on the CPU
@@ -273,6 +338,8 @@ WORDS_PLANS = (
     "histogram_quantile(0.9, sum by (job, le)(rate(http_bucket[5m])))",
     "bottomk by (dc)(2, mem_use)",
     "absent(max_over_time(sparse[5m]))",
+    "holt_winters(http_req[10m], 0.3, 0.1)",
+    "max_over_time(rate(http_req[5m])[30m:1m])",
 )
 CASES = [(name, "arrays") for name in _plans(corpus.ExprPlanBuilder(STEPS), "arrays")] + [
     (name, "words") for name in WORDS_PLANS]
@@ -375,24 +442,49 @@ def test_batched_matches_jax_and_solo():
     assert not torch.equal(out[0], out[1])
 
 
-@pytest.mark.parametrize("tag,row", [("subq", "Q7c"), ("gsel", "G1"), ("gagg", "G1"),
-                                     ("gcall", "G2")])
+def _subq_query(seed: int):
+    """One query of a subquery dashboard on arrays-kind leaves (the
+    megabatch fleet's gauges): sum by (job)(holt_winters(avg_over_time(
+    mem_use[5m])[20m:1m], 0.3, 0.1)); each seed its own data and window."""
+    rng = np.random.default_rng(seed)
+    ts = np.arange(T0 + SEC, T0 + 3600 * SEC, 20 * SEC, dtype=np.int64)
+    labels = [{"job": f"job{j}", "inst": f"i{i}"} for j in range(2) for i in range(5)]
+    times = np.tile(ts, (len(labels), 1))
+    values = rng.uniform(-50, 50, times.shape)
+    values[rng.random(times.shape) < 0.05] = np.nan
+    b = corpus.ExprPlanBuilder(STEPS + seed * MIN)
+    root = b.agg("sum", b.subq("holt_winters", lambda bb: bb.leaf(
+        bb.arrays_leaf(times, values, labels, 5 * MIN), "avg_over_time"), MIN, 20 * MIN,
+        hw_sf=0.3, hw_tf=0.1), ("job",))
+    return root.plan, b.inputs()
+
+
+def test_batched_subq_matches_jax_and_solo():
+    """Q = 3 subquery queries of one plan through
+    device_expr_pipeline_batched: against the reference's batched call at
+    the family's bound, and each slice against the port's solo call, bit
+    for bit."""
+    queries = [_subq_query(s) for s in range(3)]
+    plan = queries[0][0]
+    assert all(q[0] == plan for q in queries) and plan[4][0] == "subq"
+    stacked = corpus.stack_queries([q[1] for q in queries])
+    want = jax.tree_util.tree_map(np.array, jq.device_expr_pipeline_batched(plan, *stacked))
+    out, aux, errors = tq.device_expr_pipeline_batched(plan, *stacked, device="cpu")
+    assert out.shape == (3, 8, 64) and aux == () and errors == ()
+    _check(out, want[0], FAMILY, "batched subquery")
+    for q, (_, inputs) in enumerate(queries):
+        solo = tq.device_expr_pipeline(plan, *inputs, device="cpu")[0]
+        assert_same(out[q], solo.numpy(), f"slice {q} vs its solo call")
+    assert np.isfinite(want[0][:, :2, :len(STEPS)]).all()
+
+
+@pytest.mark.parametrize("tag,row", [("gsel", "G1"), ("gagg", "G1"), ("gcall", "G2")])
 def test_unported_nodes_raise(tag, row):
     b = corpus.ExprPlanBuilder(STEPS)
     lf = _leaves(b, "arrays")
     child = b.leaf(lf["mem_use", 5 * MIN], "last_over_time").plan
     plan = (tag, 0, child)
     with pytest.raises(NotImplementedError, match=f"kernel row {row}"):
-        tq.device_expr_pipeline(plan, *b.inputs(), device="cpu")
-
-
-@pytest.mark.parametrize("fn", ["stddev_over_time", "changes", "holt_winters",
-                                "quantile_over_time"])
-def test_unported_temporal_leaves_raise(fn):
-    b = corpus.ExprPlanBuilder(STEPS)
-    lf = _leaves(b, "arrays")
-    plan = b.leaf(lf["mem_use", 5 * MIN], fn).plan
-    with pytest.raises(NotImplementedError, match="kernel row Q[34]"):
         tq.device_expr_pipeline(plan, *b.inputs(), device="cpu")
 
 

@@ -13,7 +13,13 @@ compared on the reference's own merged lanes, at ranges of 93s and 5m.
 Tolerances:
 - bit for bit (f64 as int64 bit patterns, NaN positions equal): merged
   times and values, per-lane counts, every error flag, window bounds,
-  last/count/present_over_time, irate, idelta, grouped count/min/max/group;
+  last/count/present_over_time, irate, idelta, changes, resets, grouped
+  count/min/max/group;
+- stddev/stdvar_over_time, deriv, predict_linear, holt_winters and
+  quantile_over_time: ``test_torch_temporal_family.check_temporal`` (rtol
+  1e-9, atol 1e-9, with its stated exceptions on 1e9-offset lanes and on
+  the +-Inf windows where the reference's device form departs from its
+  host contract);
 - rtol 1e-12, atol 1e-12: rate/increase/delta, sum/avg_over_time, grouped
   sum/avg and the fleet sum (XLA:CPU's cumsum and segment_sum group their
   additions otherwise than an in-order sum);
@@ -23,7 +29,10 @@ Tolerances:
 The JAX references of a batch come from one compiled program, which runs
 the entry points, ``_decode_merge``, the tier cut and merge on the decode
 grid, every temporal function at both ranges (the range is traced) and
-every aggregation; the long-lane case is a second program.
+every aggregation; the long-lane case is a second program (without
+quantile_over_time, whose [L, S, N] window grid would take gigabytes at
+20,480 samples: the port is held there against the host tier's
+``window_quantile`` on a subset of the steps).
 """
 
 import functools
@@ -38,13 +47,22 @@ from m3_tpu.models import query_pipeline as jq
 from m3_tpu_torch.models import corpus
 from m3_tpu_torch.models import query_pipeline as tq
 from m3_tpu_torch.ops import m3tsz_decode as tdec
+from m3_tpu_torch.ops import consolidate as tcons
 from m3_tpu_torch.ops import query_grouped, query_merge, query_temporal
 
 from test_torch_m3tsz_decode import assert_same
+from test_torch_temporal_family import check_temporal
 
 SEC = 1_000_000_000
 RANGES = (93 * SEC, 300 * SEC)
 BIT_EXACT_FNS = ("last_over_time", "count_over_time", "present_over_time", "irate", "idelta")
+FAMILY_FNS = (query_temporal.CHANGES_FNS + query_temporal.LINREG_FNS + query_temporal.STDVAR_FNS
+              + query_temporal.WINDOW_FNS)
+LONG_FNS = tuple(fn for fn in tq.TEMPORAL_FNS if fn != "quantile_over_time")
+# the per-node pipeline's parameters: predict_linear's horizon, holt_winters'
+# factors, quantile_over_time's phi
+REDUCE_PARAMS = {"predict_linear": {"horizon": 600.0}, "holt_winters": {"hw_sf": 0.3, "hw_tf": 0.1},
+                 "quantile_over_time": {"phi": 0.9}}
 BIT_EXACT_AGGS = ("count", "min", "max", "group")
 REAL_LANES = 11  # the probe lanes of query_probe_corpus; the rest are padding
 SERVED_GROUPS = 3
@@ -73,9 +91,8 @@ def _decode_grid(tiered: bool):
     return ts.numpy(), vs.numpy(), valid.numpy()
 
 
-def _temporal_all(times, values, steps, range_nanos):
-    out = {fn: jq._temporal_eval(fn, times, values, steps, range_nanos)
-           for fn in tq.TEMPORAL_FNS}
+def _temporal_all(times, values, steps, range_nanos, fns=tq.TEMPORAL_FNS):
+    out = {fn: jq._temporal_eval(fn, times, values, steps, range_nanos) for fn in fns}
     out["bounds"] = jq._window_bounds_device(times, steps, range_nanos)[1:]
     return out
 
@@ -99,6 +116,9 @@ def _jax(tiered: bool) -> dict:
             out["reduce_pipeline"] = jq.device_reduce_pipeline(
                 words, nbits, slots, steps, reducer="avg_over_time", **kw)
             return out
+        out["reduce_params"] = {fn: jq.device_reduce_pipeline(
+            words, nbits, slots, steps, reducer=fn, **p, **kw)
+            for fn, p in REDUCE_PARAMS.items()}
         out["rate_pipeline"] = jq.device_rate_pipeline(words, nbits, slots, steps, **kw)
         out["grouped_pipeline"] = jq.device_grouped_pipeline(
             words, nbits, slots, steps, groups, n_groups=b.n_groups, fn="rate", agg="sum", **kw)
@@ -202,6 +222,8 @@ def test_temporal_matches_jax(fn, range_nanos):
     want = _jax_temporal(range_nanos)[fn]
     if fn in BIT_EXACT_FNS:
         assert_same(got, want, fn)
+    elif fn in FAMILY_FNS:
+        check_temporal(fn, got, want, times.numpy(), values.numpy(), steps.numpy(), range_nanos)
     else:
         assert_close(got, want, 1e-12, fn)
     assert np.isfinite(want).any() and np.isnan(want).any()  # windows of both kinds
@@ -209,22 +231,41 @@ def test_temporal_matches_jax(fn, range_nanos):
 
 @functools.lru_cache(maxsize=None)
 def _jax_long() -> dict:
-    """Every ported temporal function at 5m over corpus.long_lanes(LONG_CAP)."""
+    """Every ported temporal function but quantile_over_time at 5m over
+    corpus.long_lanes(LONG_CAP)."""
     t, v, st = corpus.long_lanes(LONG_CAP)
-    res = jax.jit(_temporal_all)(jnp.asarray(t), jnp.asarray(v), jnp.asarray(st), RANGES[1])
+    res = jax.jit(functools.partial(_temporal_all, fns=LONG_FNS))(
+        jnp.asarray(t), jnp.asarray(v), jnp.asarray(st), RANGES[1])
     return jax.tree_util.tree_map(np.array, res)
 
 
-@pytest.mark.parametrize("fn", tq.TEMPORAL_FNS)
+@pytest.mark.parametrize("fn", LONG_FNS)
 def test_temporal_long_lanes_match_jax(fn):
     """Lanes of 20,480 samples: the prefix sums have no length limit."""
-    t, v, st = (torch.from_numpy(x) for x in corpus.long_lanes(LONG_CAP))
-    got = tq._temporal_eval(fn, t, v, st, RANGES[1])
+    tn, vn, stn = corpus.long_lanes(LONG_CAP)
+    got = tq._temporal_eval(fn, *(torch.from_numpy(x) for x in (tn, vn, stn)), RANGES[1])
     want = _jax_long()[fn]
     if fn in BIT_EXACT_FNS:
         assert_same(got, want, fn)
+    elif fn in FAMILY_FNS:
+        check_temporal(fn, got, want, tn, vn, stn, RANGES[1])
     else:
         assert_close(got, want, 1e-12, fn)
+    assert np.isfinite(want).any() and np.isnan(want).any()
+
+
+@pytest.mark.parametrize("phi", [0.0, 0.5, 0.99, 1.0])
+def test_quantile_over_time_long_lanes_match_host(phi):
+    """quantile_over_time over lanes of 20,480 samples against the host
+    tier's window_quantile (every 40th step: its window grid is [L, S,
+    N]), rtol 1e-9 (numpy's interpolation rounds otherwise)."""
+    tn, vn, stn = corpus.long_lanes(LONG_CAP)
+    sub = stn[::40]
+    got = tq._temporal_eval("quantile_over_time", *(torch.from_numpy(x) for x in (tn, vn, sub)),
+                            RANGES[1], phi=phi)
+    want = tcons.window_quantile(tn, vn, sub, RANGES[1], phi)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9, equal_nan=True)
+    np.testing.assert_array_equal(got.numpy()[np.isinf(want)], want[np.isinf(want)])
     assert np.isfinite(want).any() and np.isnan(want).any()
 
 
@@ -307,16 +348,23 @@ def test_grouped_pipeline_matches_jax():
     assert_same(got[1], want[1], "error")
 
 
-# --- guards -------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("fn", sorted(tq.UNPORTED_TEMPORAL))
-def test_unported_functions_raise(fn):
+@pytest.mark.parametrize("fn", sorted(REDUCE_PARAMS))
+def test_reduce_pipeline_params_match_jax(fn):
+    """device_reduce_pipeline with predict_linear's horizon, holt_winters'
+    factors and quantile_over_time's phi."""
     b = _batch(False)
-    kw = dict(n_lanes=b.n_lanes, n_cap=b.n_cap, range_nanos=b.range_nanos, n_dp=b.n_dp,
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel row Q[34]"):
-        tq.device_reduce_pipeline(*_args(b), reducer=fn, **kw)
+    want = _jax(False)["reduce_params"][fn]
+    got = tq.device_reduce_pipeline(*_args(b), n_lanes=b.n_lanes, n_cap=b.n_cap,
+                                    range_nanos=b.range_nanos, reducer=fn, n_dp=b.n_dp,
+                                    device="cpu", **REDUCE_PARAMS[fn])
+    times, values, _ = _jax(False)["decode_merge"]
+    p = REDUCE_PARAMS[fn]
+    check_temporal(fn, got[0], want[0], times, values, b.steps, b.range_nanos,
+                   p.get("horizon", 0.0), p.get("hw_sf", 0.5), p.get("hw_tf", 0.5))
+    assert_same(got[1], want[1], "error")
+
+
+# --- guards -------------------------------------------------------------------
 
 
 def test_query_pipelines_never_fall_back_to_cpu(monkeypatch):
