@@ -1,4 +1,5 @@
-"""Chip smoke test: the PyTorch/CUDA port's read, query and write paths on one NVIDIA GPU.
+"""Chip smoke test: the PyTorch/CUDA port's read, query (PromQL and Graphite) and
+write paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
@@ -54,7 +55,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    stddev/stdvar, QK10 holt_winters, QK11 quantile_over_time) on the CPU
    tests' probe lanes and on lanes of 32,768 samples at 5m and 1h, and the
    subquery pack (QK12) against a stable sort; bit for bit but the fit's
-   sums (rtol 1e-9 and ``linreg_atol``), twice;
+   sums (rtol 1e-9 and ``linreg_atol``), twice; then the graphite kernels
+   (QK4's grouped NaN-reductions, GK2 percentiles in both forms, GK3
+   per-lane scans, buckets and windows) on their probes, twice, bit for bit
+   but QK4's sums and products (rtol 1e-12);
 8. expr main — BASELINE config 4's width through ``device_expr_pipeline``:
    the grouped-rate ratio of ``bench.py:1768`` (25,000 + 25,000 series,
    32 jobs), histogram_quantile(0.99, sum by (job, le)(rate(..))) over
@@ -78,9 +82,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    then QK3's new ops and QK9-QK12 beside their plain versions, bounds and
    ``torch.sort`` (along the window grid for QK11, of the packing key for
    QK12);
-9. the write side (rollup flush, timer quantiles, BASELINE config 2, the
+9. graphite — the same 50,000 series as Graphite paths
+   ``servers.host<i>.cpu.load`` through ``device_expr_pipeline`` with the
+   graphite nodes: the reference bench's target
+   movingAverage(groupByNode(servers.*.cpu.load, 1, 'sum'), 5) on
+   words-kind leaves, then sumSeries, stddevSeries, percentileOfSeries(..,
+   95), nPercentile(.., 95), summarize(integral(..), '5min', 'max') and
+   keepLastValue(.., 3) on one arrays-kind leaf decoded once; each checked
+   against a numpy oracle over the host tier's fetch (rtol 1e-9, NaN
+   positions exact; per-lane results tiled bit for bit) and timed; then
+   QK4 (one group and 50,000 one-lane groups), GK2 and GK3 (movingAverage
+   also over 60 and 400 steps) beside their plain versions, bounds and
+   ``torch.nansum``, ``torch.nanquantile``, ``torch.cumsum`` and
+   ``unfold(..).sum``;
+10. the write side (rollup flush, timer quantiles, BASELINE config 2, the
    encode and a block seal), as its phases' docstrings say;
-10. report — one JSON line listing the kernels, then the result line.
+11. report — one JSON line listing the kernels, then the result line.
 
 The script imports nothing of JAX.  It exits non-zero without a result
 when no CUDA device is present.
@@ -103,7 +120,8 @@ from m3_tpu_torch.aggregator import Aggregator, ElemPool, elems
 from m3_tpu_torch.models import corpus
 from m3_tpu_torch.models import query_pipeline as qp
 from m3_tpu_torch.models.read_pipeline import _SIMPLE_AGGS, decode_downsample, inputs_from_numpy
-from m3_tpu_torch.ops import _build, histo_quantile, lane_topk, m3tsz_scalar, query_grouped
+from m3_tpu_torch.ops import _build, graphite, histo_quantile, lane_topk, m3tsz_scalar
+from m3_tpu_torch.ops import query_grouped
 from m3_tpu_torch.ops import query_merge, query_temporal
 from m3_tpu_torch.ops import consolidate as cons
 from m3_tpu_torch.ops import downsample as ds
@@ -185,6 +203,17 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_once(fn):
+    """(fn(), its time in ms) from one run timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def card() -> str:
@@ -1503,6 +1532,335 @@ def family_kernel_times(fc: corpus.FanoutCorpus, shapes: dict):
     return rows
 
 
+# --- phase 10: Graphite rendering (QK4's graphite ops, GK2, GK3) -------------
+
+GRAPHITE_STEP = 60 * SEC
+GRAPHITE_QS = (-0.2, 0.0, 0.2, 0.5, 0.95, 1.0, 1.5)  # fractions for the column form
+GRAPHITE_BIT_EXACT_OPS = ("count", "min", "max", "range", "last")  # independent of order
+
+
+def _graphite_probes():
+    """(tag, values f64[L, S], groups, real_S): the CPU tests' probe matrix
+    (NaN holes, +-Inf, +-0.0, all-NaN rows and columns, one-lane groups,
+    21 real steps of 64), 5,000 lanes in three groups (the column sort in
+    global scratch past 4,096 lanes) and 5 rows of 1,500 steps with 1,300
+    real (the row sort in global scratch past 512)."""
+    v, groups, _ = corpus.graphite_probe_matrix(real_S=21)
+    yield "probes", v, groups, 21
+    rng = np.random.default_rng(3)
+    big = np.round(rng.uniform(-5, 5, (5000, 9)), 1)  # ties
+    big[rng.random(big.shape) < 0.2] = np.nan
+    big[:, 2] = np.where(rng.random(5000) < 0.5, -0.0, 0.0)
+    big[7, 4], big[9, 4], big[:, 6] = np.inf, -np.inf, np.nan
+    yield "5,000 lanes", big, rng.integers(0, 3, 5000), 7
+    long = rng.uniform(-5, 5, (5, 1500))
+    long[rng.random(long.shape) < 0.1] = np.nan
+    long[1, ::7] = -0.0
+    yield "long rows", long, np.asarray([0, 1, 1, 2, 0]), 1300
+    # groupByNode's layout: one-lane groups, the padding lanes parked on
+    # group 0 (QK4 launches the large group and the small ones apart)
+    parked = np.round(rng.uniform(-5, 5, (300, 40)), 1)
+    parked[rng.random(parked.shape) < 0.2] = np.nan
+    parked[200:] = np.nan
+    yield "parked padding", parked, np.where(np.arange(300) < 200, np.arange(300), 0), 33
+
+
+def compare_graphite_kernels():
+    """GK2, GK3 and QK4's graphite ops against their plain versions on the
+    card, twice: every op code, summarize func and percentile form, on the
+    probes above, windows and buckets of 1, 3 and 7 steps and wider than
+    the real steps (k not dividing them), gap limits 0, 2 and +inf,
+    percentiles -20 to 150.  Bit for bit, but for QK4's sums and products,
+    whose plain version on the card sums with atomics (rtol 1e-12; stddev
+    1e-9, as QK4's PromQL ops)."""
+    g = graphite
+    n = 0
+    for tag, v, groups, real_S in _graphite_probes():
+        x = torch.from_numpy(v).to(DEVICE)
+        L, S = x.shape
+        g_pad = corpus.bucket_pow2(int(groups.max()) + 1, 8)
+        zeros = np.zeros(L, dtype=np.int64)
+        for op in g.GROUP_OPS:
+            grp, gp = (zeros, 8) if op in g.SINGLE_GROUP_OPS else (groups, g_pad)
+            out = twice(lambda: g.grouped_reduce(x, grp, gp, op), f"graphite {tag} {op}")
+            want = query_grouped.grouped_reduce_plain(x, torch.from_numpy(grp), gp, op,
+                                                      g.GROUP_EMPTY.get(op, float("nan")))
+            if op in GRAPHITE_BIT_EXACT_OPS:
+                _record("query_grouped[graphite]", same_bits(out, want, f"graphite {tag} {op}"))
+            else:  # the plain version's sums and products are index_add_'s atomics
+                rtol = 1e-9 if op == "stddev" else 1e-12
+                _record("query_grouped[graphite]", close(out, want, rtol, f"graphite {tag} {op}"))
+            n += 1
+        for qf in GRAPHITE_QS:
+            out = twice(lambda: g.percentile_columns(x, qf), f"graphite {tag} column {qf}")
+            _record("graphite_percentile", same_bits(out, g.percentile_columns_plain(x, qf),
+                                                     f"graphite {tag} column percentile {qf}"))
+            n += 1
+        for fn in g.PERCENTILE_FNS:
+            for q in (-20.0, 0.0, 37.0, 90.0, 100.0, 150.0):
+                out = twice(lambda: g.percentile_rows(x, q, real_S, fn), f"graphite {tag} {fn}")
+                _record("graphite_percentile_rows", same_bits(
+                    out, g.percentile_rows_plain(x, q, real_S, fn), f"graphite {tag} {fn} {q}"))
+                n += 1
+        for fn in g.ROW_FNS:
+            ks = (1,) if fn in ("integral", "keepLastValue", "offsetToZero", "minMax") else (
+                1, 3, 7, S + 5)
+            funcs = g.SUMMARIZE_FUNCS if fn == "summarize" else ("sum",)
+            limits = (0.0, 2.0, float("inf")) if fn == "keepLastValue" else (float("inf"),)
+            for k in ks:
+                for func in funcs:
+                    for lim in limits:
+                        out = twice(lambda: g.row_transform(x, fn, real_S, k, func, lim),
+                                    f"graphite {tag} {fn}")
+                        _record("graphite_row", same_bits(
+                            out, g.row_transform_plain(x, fn, real_S, k, func, lim),
+                            f"graphite {tag} {fn} k={k} {func} limit={lim}"))
+                        n += 1
+    torch.cuda.synchronize()
+    log(f"graphite parity QK4 graphite ops, GK2, GK3: {n} cases (every op code, summarize "
+        "func and percentile form; NaN, +-Inf, +-0.0, all-NaN rows and columns, one-lane "
+        "groups, real steps < padded steps, k not dividing them, windows wider than them, "
+        "5,000-lane columns and 1,300-step rows in global scratch): bit for bit (QK4's "
+        "count/min/max/range/last, GK2, GK3; QK4's sum/avg/multiply/diff within rtol 1e-12, "
+        "stddev 1e-9), each kernel twice bit for bit")
+
+
+def _np_moving_average(x: np.ndarray, w: int) -> np.ndarray:
+    """movingAverage over w cells up to each column, NaN skipped; NaN where
+    none is present."""
+    m = ~np.isnan(x)
+    xz = np.where(m, x, 0.0)
+    sums, cnts = np.zeros_like(x), np.zeros_like(x)
+    for d in range(w):
+        sums[:, d:] += xz[:, :x.shape[1] - d]
+        cnts[:, d:] += m[:, :x.shape[1] - d]
+    with np.errstate(invalid="ignore"):
+        return np.where(cnts == 0, np.nan, sums / np.maximum(cnts, 1))
+
+
+def _np_keep_last(x: np.ndarray, limit: float) -> np.ndarray:
+    out = x.copy()
+    last_v = np.full(x.shape[0], np.nan)
+    last_c = np.full(x.shape[0], -1)
+    for c in range(x.shape[1]):
+        m = ~np.isnan(x[:, c])
+        last_v[m], last_c[m] = x[m, c], c
+        fill = ~m & (last_c >= 0) & (c - last_c <= limit)
+        out[fill, c] = last_v[fill]
+    return out
+
+
+def graphite_main(fc: corpus.FanoutCorpus):
+    """BASELINE config 4's data as Graphite paths ``servers.host{i:05d}.
+    cpu.load`` (50,000 series, 65,536 lanes padded, 355 steps padded to
+    512) through device_expr_pipeline.  The leaf is last_over_time with the
+    60s step as its range, under the path-depth gsel, as the reference
+    lowers a fetch; the plans come from ExprPlanBuilder's graphite nodes.
+    movingAverage(groupByNode(servers.*.cpu.load, 1, 'sum'), 5) (the
+    reference bench's target, bench.py:3196) runs on the words-kind leaf;
+    the rest on one arrays-kind leaf decoded once: sumSeries, stddevSeries,
+    percentileOfSeries(.., 95), nPercentile(.., 95),
+    summarize(integral(..), '5min', 'max') and keepLastValue(.., 3).  Each
+    is driven once with the launch counts reset just before and read just
+    after, checked against a numpy oracle over the host tier's fetch
+    (ops/consolidate.py:step_consolidate, the last sample of each step, on
+    the merged lanes) at rtol 1e-9 with NaN
+    positions exact, per-lane results also tiled bit for bit, and timed."""
+    b = fc.batch
+    n, S, nu = b.n_lanes, len(b.steps), fc.n_unique
+    reps = n // nu
+    paths = [f"servers.host{i:05d}.cpu.load" for i in range(n)]
+    labels = corpus.graphite_labels(paths)
+    names = [{b"__name__": p.encode()} for p in paths]
+    results = {}
+    t0 = time.time()
+    t_h, v_h = host_lanes(fc, range(nu))
+    leaf_np = cons.step_consolidate(t_h, v_h, b.steps, GRAPHITE_STEP)
+    log(f"graphite oracle leaf: the host tier's step consolidation on the {nu} unique lanes "
+        f"({time.time() - t0:.1f} s)")
+    s_pad = corpus.bucket_pow2(S, 64)
+    padded = np.full((nu, s_pad), np.nan)
+    padded[:, :S] = leaf_np  # the leaf after a call's normalization
+    front = ["query_reduce"]
+
+    def fetch(eb, lf):  # the fetch: the leaf under the depth filter (every path has 4 parts)
+        return eb.gsel(eb.leaf(lf, "last_over_time"), range(n), names)
+
+    # 1. the bench target on words-kind leaves
+    eb = corpus.ExprPlanBuilder(b.steps)
+    lf = eb.words_leaf(b.words, b.nbits, b.slots, labels, b.n_dp, b.n_cap, GRAPHITE_STEP)
+    hosts = [{b"__name__": f"host{i:05d}".encode()} for i in range(n)]
+    root = eb.gcall("movingAverage", eb.gagg("sum", fetch(eb, lf), np.arange(n), hosts), (5,))
+    name, plan, inputs, want = _expr_query(
+        "movingAverage(groupByNode(servers.*.cpu.load, 1, 'sum'), 5)", eb, root,
+        ["decode_batched", "query_merge"] + front + ["query_grouped", "graphite_row"])
+    (out, _, _), launches = _drive(plan, inputs, want, name)
+    check(tuple(out.shape) == (corpus.bucket_pow2(n, 8), s_pad),
+          f"{name}: shape {tuple(out.shape)}")
+    _tiled_rows(out, n, nu, name)
+    sums = np.where(np.isnan(padded), 0.0, padded)
+    sums[:, S:] = np.nan  # the group sums' padding steps, normalized by the call
+    err = close(out[:nu].cpu(), torch.from_numpy(_np_moving_average(sums, 5)), 1e-9,
+                f"{name} vs numpy", 1e-9)
+    _time_expr("graphite_moving_average_group_by_node", plan, inputs, launches, n,
+               f"tiled rows bit for bit; the {nu} unique rows vs numpy over the host tier's "
+               f"leaf: max abs err {err} (rtol 1e-9, atol 1e-9)", results)
+    del out, inputs
+
+    # the arrays-kind leaf, decoded once
+    w, nb, sl, _, _ = qp._inputs(b.words, b.nbits, b.slots, b.steps, None, DEVICE)
+    times, values, _ = qp._decode_merge(w, nb, sl, corpus.bucket_pow2(n, 64), b.n_cap,
+                                        b.n_dp, SEC)
+    del w, nb, sl
+    torch.cuda.empty_cache()
+    tiled = np.tile(leaf_np, (reps, 1))
+    with np.errstate(invalid="ignore"):
+        col_oracle = {"sum": np.nansum(tiled, axis=0), "stddev": np.nanstd(tiled, axis=0),
+                      "percentile": np.nanpercentile(tiled, 95, axis=0)}
+    integ = np.cumsum(np.where(np.isnan(padded), 0.0, padded), axis=1)
+    summ = np.full((nu, s_pad), np.nan)
+    for b0 in range(0, S, 5):
+        summ[:, b0:b0 + 5] = integ[:, b0:b0 + 5].max(axis=1, keepdims=True)
+    summ[:, S:] = np.nan
+    npct = np.full((nu, s_pad), np.nan)
+    npct[:, :S] = np.nanpercentile(leaf_np, 95, axis=1, keepdims=True)
+    arrays_plans = (  # (name, build, its kernel, per-lane oracle or None, column op)
+        ("sumSeries(servers.*.cpu.load)", lambda eb, x: eb.gagg(
+            "sum", x, np.zeros(n, dtype=np.int64), [{}]), "query_grouped", None, "sum"),
+        ("stddevSeries(servers.*.cpu.load)", lambda eb, x: eb.gagg(
+            "stddev", x, np.zeros(n, dtype=np.int64), [{}]), "query_grouped", None, "stddev"),
+        ("percentileOfSeries(servers.*.cpu.load, 95)", lambda eb, x: eb.gagg(
+            "percentile", x, np.zeros(n, dtype=np.int64), [{}], (95.0,)),
+         "graphite_percentile", None, "percentile"),
+        ("nPercentile(servers.*.cpu.load, 95)", lambda eb, x: eb.gcall(
+            "nPercentile", x, (95.0,)), "graphite_percentile_rows", npct, None),
+        ("summarize(integral(servers.*.cpu.load), '5min', 'max')", lambda eb, x: eb.gcall(
+            "summarize", eb.gcall("integral", x), (5, "max")), "graphite_row", summ, None),
+        ("keepLastValue(servers.*.cpu.load, 3)", lambda eb, x: eb.gcall(
+            "keepLastValue", x, (), (np.float64(3.0),)), "graphite_row",
+         _np_keep_last(padded, 3.0), None),
+    )
+    shapes = {}
+    for name, build, kernel, lane_oracle, col_op in arrays_plans:
+        eb = corpus.ExprPlanBuilder(b.steps)
+        root = build(eb, fetch(eb, eb.arrays_leaf(times, values, labels, GRAPHITE_STEP)))
+        name, plan, inputs, want = _expr_query(name, eb, root, front + [kernel])
+        (out, _, _), launches = _drive(plan, inputs, want, name)
+        if lane_oracle is not None:
+            _tiled_rows(out, n, nu, name)
+            err = close(out[:nu].cpu(), torch.from_numpy(lane_oracle), 1e-9,
+                        f"{name} vs numpy", 1e-9)
+            what = (f"tiled rows bit for bit; the {nu} unique rows vs numpy over the host "
+                    f"tier's leaf: max abs err {err} (rtol 1e-9, atol 1e-9)")
+        else:
+            check(tuple(out.shape) == (8, s_pad) and bool(torch.isnan(out[1:]).all()),
+                  f"{name}: one row")
+            err = close(out[0, :S].cpu(), torch.from_numpy(col_oracle[col_op]), 1e-9,
+                        f"{name} vs numpy", 1e-9)
+            np_fn = {"sum": "nansum", "stddev": "nanstd", "percentile": "nanpercentile"}[col_op]
+            what = (f"row 0 vs numpy's {np_fn} over the {n} host-tier rows: max abs "
+                    f"err {err} (rtol 1e-9, atol 1e-9)")
+        check(bool(torch.isfinite(out[0, :S]).all()), f"{name}: non-finite real steps")
+        _time_expr(name, plan, inputs, launches, int(out.shape[0]), what, results)
+        del out, inputs
+    # the leaf's values as the graphite nodes see them, for the kernel times
+    shapes["x"] = qp._temporal_eval("last_over_time", times, values,
+                                    torch.from_numpy(corpus.ExprPlanBuilder(b.steps).steps).to(
+                                        DEVICE), GRAPHITE_STEP)
+    shapes["x"][n:] = torch.nan
+    shapes["real_S"] = S
+    del times, values
+    torch.cuda.synchronize()
+    return shapes, results
+
+
+def graphite_kernel_times(shapes: dict):
+    """QK4, GK2 and GK3 at the full-width plans' shapes ([65,536, 512], 355
+    real steps): each kernel's time, its plain version's (held against
+    it), its bound, and one PyTorch call computing the same function where
+    there is one.  QK4 at sumSeries' one group of every lane and at
+    groupByNode's 50,000 one-lane groups (of 65,536, the padding lanes
+    parked on group 0); GK3's movingAverage also at the
+    dashboards' wide windows, 60 steps (an hour at 60 s) and 400 (wider
+    than the 355 real steps)."""
+    g = graphite
+    x, real_S = shapes["x"], shapes["real_S"]
+    L, S = x.shape
+    rows = {}
+    cell_bytes = L * S * 8
+    real_bytes = L * real_S * 8  # GK3 reads a lane's real steps and writes every step
+    one = np.zeros(L, dtype=np.int64)
+    index = query_grouped.group_index(one, 8, DEVICE)
+    fn = lambda: g.grouped_reduce(x, one, 8, "sum", index=index)  # noqa: E731
+    one_t = torch.from_numpy(one)
+    plain = lambda: query_grouped.grouped_reduce_plain(x, one_t, 8, "sum", 0.0)  # noqa: E731
+    _record("query_grouped[graphite]", close(fn(), plain(), 1e-12, "main sumSeries"))
+    row("query_grouped[graphite]", rows, time_ms(fn, reps=7), time_ms(plain, reps=3),
+        cell_bytes + L * 8 + 8 * S * 8, L * S / FP64_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.nansum(x, dim=0), reps=7), "torch.nansum along the lanes")
+    n = int((~torch.isnan(x).all(dim=1)).nonzero().max()) + 1  # the real lanes
+    ids = np.where(np.arange(L) < n, np.arange(L), 0)  # padding parked on group 0
+    index = query_grouped.group_index(ids, L, DEVICE)
+    fn = lambda: g.grouped_reduce(x, ids, L, "sum", index=index)  # noqa: E731
+    plain = lambda: query_grouped.grouped_reduce_plain(  # noqa: E731
+        x, torch.from_numpy(ids), L, "sum", 0.0)
+    _record("query_grouped[graphite]", same_bits(fn(), plain(), "main groupByNode sum"))
+    bound_ms = (2 * cell_bytes + L * 16) / HBM_BYTES_PER_S * 1e3
+    log(f"time query_grouped[groupByNode, {n} one-lane groups of {L}, the padding lanes on "
+        f"group 0]: kernel "
+        f"{time_ms(fn, reps=7):.3f} ms, plain {time_ms(plain, reps=3):.3f} ms, bound "
+        f"{bound_ms:.3f} ms by bytes")
+
+    qf = g.percentile_fraction(95.0)
+    fn = lambda: g.percentile_columns(x, qf)  # noqa: E731
+    plain = lambda: g.percentile_columns_plain(x, qf)  # noqa: E731
+    _record("graphite_percentile", same_bits(fn(), plain(), "main percentileOfSeries"))
+    # a selection of two order statistics per step: one 64-bit compare (two
+    # INT32 operations) per lane for each
+    row("graphite_percentile", rows, time_ms(fn, reps=5), time_ms(plain, reps=3),
+        cell_bytes + S * 8, L * S * 2 * 2 / INT32_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.nanquantile(x, qf, dim=0, interpolation="linear"), reps=5),
+        'torch.nanquantile(dim=0, interpolation="linear")')
+    xr = x[:, :real_S]
+    fn = lambda: g.percentile_rows(x, 95.0, real_S, "nPercentile")  # noqa: E731
+    plain = lambda: g.percentile_rows_plain(x, 95.0, real_S, "nPercentile")  # noqa: E731
+    _record("graphite_percentile_rows", same_bits(fn(), plain(), "main nPercentile"))
+    row("graphite_percentile_rows", rows, time_ms(fn, reps=7), time_ms(plain, reps=3),
+        L * real_S * 8 + cell_bytes, L * real_S * 2 * 2 / INT32_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.nanquantile(xr, qf, dim=1, interpolation="linear"), reps=5),
+        'torch.nanquantile(dim=1, interpolation="linear") over the real steps')
+
+    fn = lambda: g.row_transform(x, "integral", real_S)  # noqa: E731
+    plain = lambda: g.row_transform_plain(x, "integral", real_S)  # noqa: E731
+    _record("graphite_row", same_bits(fn(), plain(), "main integral"))
+    row("graphite_row", rows, time_ms(fn, reps=7), time_ms(plain, reps=3), real_bytes + cell_bytes,
+        L * S / FP64_OPS_PER_S * 1e3, time_ms(lambda: torch.cumsum(x, dim=1), reps=7),
+        "torch.cumsum along the steps")
+    for fn_name, k, lib, lib_name in (
+            ("movingSum", 5, lambda: x.unfold(1, 5, 1).sum(dim=2), "unfold(1, 5, 1).sum"),
+            ("keepLastValue", 1, lambda: torch.cummax(x, dim=1), "torch.cummax along the steps"),
+            ("movingAverage", 60, lambda: x.unfold(1, 60, 1).mean(dim=2),
+             "unfold(1, 60, 1).mean"),
+            ("movingAverage", 400, lambda: x.unfold(1, 400, 1).mean(dim=2),
+             "unfold(1, 400, 1).mean")):
+        fn = lambda: g.row_transform(x, fn_name, real_S, k, limit=3.0)  # noqa: E731
+        got = fn()
+        want, plain_ms = time_once(lambda: g.row_transform_plain(x, fn_name, real_S, k,
+                                                                 limit=3.0))
+        _record("graphite_row", same_bits(got, want, f"main {fn_name} k={k}"))
+        del got, want
+        # the bound is the bytes (a running window needs O(1) operations a
+        # cell); the kernel's direct form adds each window's w cells anew
+        bytes_ms = (real_bytes + cell_bytes) / HBM_BYTES_PER_S * 1e3
+        direct_ms = L * S * min(k, real_S) / FP64_OPS_PER_S * 1e3
+        what = f"{fn_name}, w={k}" if fn_name.startswith("moving") else fn_name
+        log(f"time graphite_row[{what}]: kernel {time_ms(fn, reps=7):.3f} ms, plain "
+            f"{plain_ms:.3f} ms (one run), bound {bytes_ms:.3f} ms by bytes (the direct "
+            f"windows' adds at the FP64 rate {direct_ms:.3f} ms), {lib_name} "
+            f"{time_ms(lib, reps=7):.3f} ms")
+    torch.cuda.synchronize()
+    return rows
+
 # --- phase 7: the write side's kernels vs their plain versions -------------
 
 ENC_SERIES = 250_000  # the reference's bench_encode shape (bench.py:323, side_leg_specs)
@@ -2067,6 +2425,7 @@ def main() -> int:
     compare_long_lanes()
     compare_expr_kernels()
     compare_family_kernels()
+    compare_graphite_kernels()
     enc_probes = corpus.encode_probe_series()
     ts_w, vs_w = corpus.gen_grids(64, N_DP)
     walks_w = [(ts_w[i].tolist(), vs_w[i].tolist(), corpus.START) for i in range(64)]
@@ -2098,7 +2457,17 @@ def main() -> int:
     rows_q.update(family_kernel_times(fc, f_shapes))
     log(f"family phase done at {time.time() - t_start:.1f} s")
     x_results.update(f_results)
-    del f_shapes, fc
+    del f_shapes
+    torch.cuda.empty_cache()
+    g_shapes, g_results = graphite_main(fc)
+    rows_q.update(graphite_kernel_times(g_shapes))
+    log(f"graphite phase done at {time.time() - t_start:.1f} s")
+    g_launch = {}
+    for r in g_results.values():
+        for kernel, n in r["launches"].items():
+            g_launch[kernel] = g_launch.get(kernel, 0) + n
+    x_results.update(g_results)
+    del g_shapes, fc
     torch.cuda.empty_cache()
     log(f"expr main phase done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
@@ -2209,6 +2578,21 @@ def main() -> int:
         dict(name="subq_pack", source=src + "query_merge.cu", replaces=qsrc + "1604",
              launches=x_launch.get("subq_pack", 0), max_abs_err=ERRORS["subq_pack"],
              **rows_q["subq_pack"]),
+        # QK4 again, on the graphite path: its NaN-reductions
+        dict(name="query_grouped[graphite]", source=src + "query_grouped.cu",
+             replaces=qsrc + "1216", launches=g_launch.get("query_grouped", 0),
+             max_abs_err=ERRORS["query_grouped[graphite]"], **rows_q["query_grouped[graphite]"]),
+        # GK2's two forms: one source, two kernels, counted apart
+        dict(name="graphite_percentile", source=src + "query_select.cu", replaces=qsrc + "1280",
+             launches=x_launch.get("graphite_percentile", 0),
+             max_abs_err=ERRORS["graphite_percentile"], **rows_q["graphite_percentile"]),
+        dict(name="graphite_percentile_rows", source=src + "query_select.cu",
+             replaces=qsrc + "1434", launches=x_launch.get("graphite_percentile_rows", 0),
+             max_abs_err=ERRORS["graphite_percentile_rows"],
+             **rows_q["graphite_percentile_rows"]),
+        dict(name="graphite_row", source=src + "graphite_call.cu", replaces=qsrc + "1289",
+             launches=x_launch.get("graphite_row", 0), max_abs_err=ERRORS["graphite_row"],
+             **rows_q["graphite_row"]),
         dict(name="pack_encode", source=src + "m3tsz_encode.cu",
              replaces="m3_tpu/ops/m3tsz_encode.py:443",
              launches=r_enc["launches"].get("pack_encode", 0)

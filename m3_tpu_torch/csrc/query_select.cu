@@ -1,5 +1,7 @@
 // Order statistics of each group's lanes, per step, on Hopper (QK6, QK7),
-// and of each window of a lane (QK11, quantile_window_kernel below).
+// of each window of a lane (QK11, quantile_window_kernel below), and
+// Graphite's percentiles over the lanes of a step or the steps of a lane
+// (GK2, the graphite_percentile kernels below).
 //
 // Replaces:
 //   QK6  m3_tpu/models/query_pipeline.py:871 _grouped_quantile: the
@@ -280,6 +282,151 @@ __global__ void __launch_bounds__(kQWarps * 32) quantile_window_kernel(
   }
 }
 
+// GK2.  Replaces jnp.nanpercentile / jnp.nanmedian as
+// m3_tpu/models/query_pipeline.py uses them in _graphite_grouped_reduce
+// (:1278-1280, medianSeries and percentileOfSeries: over the lanes of each
+// step, one group) and in _graphite_call (:1432-1440, nPercentile and
+// remove{Above,Below}Percentile: over each lane's real steps), in jnp's own
+// arithmetic (jax/_src/numpy/reductions.py:_quantile): h = q * (n - 1) with
+// n the present cells, low = floor(h) and high = ceil(h) clamped to
+// [0, n - 1], the result lo * (1 - w) + hi * w with w = h - floor(h) (so a
+// +-inf neighbour at weight 0 gives NaN, as it does there), NaN where
+// nothing is present.  Not QK6's v_lo + (v_hi - v_lo) * frac.
+//
+// jnp sorts with NaN last and -0.0 equal to +0.0; the values it reads lie
+// among the n present ones.  Here the (order key, position) pairs sort as
+// in QK6 (a present cell's key, a NaN cell keyed +inf, ties by position),
+// and the cells at positions low and high are read back (NaN as +inf: a NaN
+// cell tied with a real +inf reads as +inf).  The column form is one block
+// per step over the L lanes (shared memory up to p_smem pairs, else the
+// block's slice of a global scratch); the row form one warp per lane over
+// its real_S steps (QK11's layout), which then writes the lane's row:
+// mode 1 the percentile on each real step (NaN past them), mode 2 / 3 the
+// cells above / below it NaN.
+//
+// What bounds it on an H100: bytes (each cell read once; the row form
+// writes each once); the sorts' P log2(P)^2 / 4 compare-exchanges per step
+// or lane are far above that at the column form's 65,536 lanes.
+
+struct PercentilePick {
+  long long low, high;
+  double lw, hw;
+};
+
+__device__ __forceinline__ PercentilePick percentile_pick(double n, double qf) {
+  const double h = qf * (n - 1.0);
+  double low = floor(h), high = ceil(h);
+  const double hw = h - low;
+  const double lw = 1.0 - hw;
+  const double top = n - 1.0;
+  low = low < top ? low : top;
+  low = low > 0.0 ? low : 0.0;
+  high = high < top ? high : top;
+  high = high > 0.0 ? high : 0.0;
+  return {(long long)low, (long long)high, lw, hw};
+}
+
+__device__ __forceinline__ double present_or_inf(double v) { return isnan(v) ? INFINITY : v; }
+
+__global__ void graphite_percentile_columns_kernel(
+    const double* __restrict__ x, long long L, long long S, double qf, int p_smem,
+    long long p_scratch, unsigned long long* __restrict__ scratch_keys,
+    int* __restrict__ scratch_pos, double* __restrict__ out) {
+  extern __shared__ unsigned long long csmem[];
+  __shared__ int n_present;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  int P = 1;
+  while (P < L) P <<= 1;
+  unsigned long long* keys;
+  int* pos;
+  if (P <= p_smem) {
+    keys = csmem;
+    pos = (int*)(csmem + P);
+  } else {
+    keys = scratch_keys + (long long)blockIdx.x * p_scratch;
+    pos = scratch_pos + (long long)blockIdx.x * p_scratch;
+  }
+  for (long long s = blockIdx.x; s < S; s += gridDim.x) {
+    if (tid == 0) n_present = 0;
+    __syncthreads();
+    int mine = 0;
+    for (int i = tid; i < P; i += nt) {
+      if (i < L) {
+        const double v = x[(long long)i * S + s];
+        mine += !isnan(v);
+        keys[i] = order_key(present_or_inf(v));
+      } else {
+        keys[i] = ~0ull;
+      }
+      pos[i] = i;
+    }
+    if (mine) atomicAdd(&n_present, mine);
+    __syncthreads();
+    bitonic_sort(keys, pos, P);
+    if (tid == 0) {
+      const double n = (double)n_present;
+      const PercentilePick k = percentile_pick(n, qf);
+      const double lo = present_or_inf(x[(long long)pos[k.low] * S + s]);
+      const double hi = present_or_inf(x[(long long)pos[k.high] * S + s]);
+      out[s] = n > 0.0 ? lo * k.lw + hi * k.hw : nan;
+    }
+    __syncthreads();  // the pairs are rewritten by the next step
+  }
+}
+
+constexpr int kRowWarps = 8;
+
+__global__ void __launch_bounds__(kRowWarps * 32) graphite_percentile_rows_kernel(
+    const double* __restrict__ x, long long L, long long S, int real_S, int mode, double qf,
+    int p_smem, long long p_scratch, unsigned long long* __restrict__ scratch_keys,
+    int* __restrict__ scratch_pos, double* __restrict__ out) {
+  extern __shared__ unsigned long long rsmem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long gw = (long long)blockIdx.x * kRowWarps + warp;
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  int P = 1;
+  while (P < real_S) P <<= 1;
+  unsigned long long* keys;
+  int* pos;
+  if (P <= p_smem) {
+    keys = rsmem + warp * p_smem;
+    pos = (int*)(rsmem + kRowWarps * p_smem) + warp * p_smem;
+  } else {
+    keys = scratch_keys + gw * p_scratch;
+    pos = scratch_pos + gw * p_scratch;
+  }
+  for (long long row = gw; row < L; row += (long long)gridDim.x * kRowWarps) {
+    const double* xr = x + row * S;
+    int n = 0;
+    for (int i = lane; i < P; i += 32) {
+      if (i < real_S) {
+        const double v = xr[i];
+        n += !isnan(v);
+        keys[i] = order_key(present_or_inf(v));
+      } else {
+        keys[i] = ~0ull;
+      }
+      pos[i] = i;
+    }
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+    __syncwarp();
+    warp_bitonic_sort(keys, pos, P);
+    const PercentilePick k = percentile_pick((double)n, qf);
+    const double p = n > 0 ? present_or_inf(xr[pos[k.low]]) * k.lw +
+                                 present_or_inf(xr[pos[k.high]]) * k.hw
+                           : nan;
+    double* o = out + row * S;
+    for (long long c = lane; c < S; c += 32) {
+      const double v = c < real_S ? xr[c] : nan;
+      if (mode == 1) o[c] = c < real_S ? p : nan;
+      else if (mode == 2) o[c] = v > p ? nan : v;
+      else o[c] = v < p ? nan : v;
+    }
+    __syncwarp();  // the pairs are rewritten by the next lane
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -336,6 +483,47 @@ int m3_quantile_window(const long long* times, const double* values, const long 
   quantile_window_kernel<<<grid, kQWarps * 32, smem, (cudaStream_t)stream>>>(
       times, values, steps, L, N, S, levels, range_nanos, phi, p_smem, p_scratch, scratch_keys,
       scratch_pos, out);
+  return (int)cudaGetLastError();
+}
+
+// GK2: x f64[L, S].  mode 0 (the column form): out f64[S], the percentile at
+// the finite fraction qf of each step's L lanes, `grid` blocks.  mode 1-3
+// (the row form: nPercentile, removeAbovePercentile, removeBelowPercentile):
+// out f64[L, S] from each lane's first real_S steps, `grid` blocks of
+// kRowWarps warps.  p_smem: the padded size (pairs) that sorts in shared
+// memory; p_scratch: 0, or the padded size past it with scratch keys
+// u64[rows * p_scratch] and positions i32 alike (rows: grid for the column
+// form, grid * kRowWarps for the row form).  Launches on `stream` and
+// returns cudaGetLastError().
+int m3_graphite_percentile(const double* x, long long L, long long S, int real_S, int mode,
+                           double qf, int p_smem, long long p_scratch,
+                           unsigned long long* scratch_keys, int* scratch_pos, int grid,
+                           double* out, void* stream) {
+  if (mode < 0 || mode > 3 || !isfinite(qf) || p_smem < 1 || grid < 1 ||
+      real_S < 0 || real_S > S ||
+      (p_scratch > 0 && (scratch_keys == nullptr || scratch_pos == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (L <= 0 || S <= 0) return (int)cudaSuccess;
+  const size_t pair = sizeof(unsigned long long) + sizeof(int);
+  cudaError_t rc;
+  if (mode == 0) {
+    long long P = 1;
+    while (P < L) P <<= 1;
+    const int threads = (int)(P / 2 < 64 ? 64 : (P / 2 > 512 ? 512 : P / 2));
+    const size_t smem = (size_t)p_smem * pair;
+    rc = cudaFuncSetAttribute(graphite_percentile_columns_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    graphite_percentile_columns_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        x, L, S, qf, p_smem, p_scratch, scratch_keys, scratch_pos, out);
+  } else {
+    const size_t smem = (size_t)kRowWarps * p_smem * pair;
+    rc = cudaFuncSetAttribute(graphite_percentile_rows_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    graphite_percentile_rows_kernel<<<grid, kRowWarps * 32, smem, (cudaStream_t)stream>>>(
+        x, L, S, real_S, mode, qf, p_smem, p_scratch, scratch_keys, scratch_pos, out);
+  }
   return (int)cudaGetLastError();
 }
 

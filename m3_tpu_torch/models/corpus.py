@@ -35,6 +35,9 @@ The fused expression interpreter:
   ``temporal_probe_lanes``: those of the rest of the temporal family
   (stddev/stdvar, changes/resets, deriv/predict_linear, holt_winters,
   quantile_over_time);
+- ``graphite_labels``: graphite paths as labels (``__name__`` and one
+  ``__g<i>__`` per component) for the builder's ``gsel``/``gagg``/``gcall``
+  nodes; ``graphite_probe_matrix``: the graphite kernels' probe corners;
 - ``expr_fleet``: BASELINE config 4's width for the expression plans
   (http_requests / http_limit counters, histogram buckets, gauges);
   ``megabatch_queries``: the reference's 16-query dashboard fleet.
@@ -700,13 +703,20 @@ class ExprPlanBuilder:
 
     def arrays_leaf(self, times, values, labels, rng: int) -> int:
         """A decoded leaf (the decoded-block cache's bridge): merged lanes
-        ``times i64[n, n_cap]`` (INT64_MAX-padded) and ``values``, padded
-        to ``bucket_pow2(n, 64)`` lanes."""
-        n_lanes, n_cap = times.shape
+        ``times i64[n, n_cap]`` (INT64_MAX-padded) and ``values`` of the n
+        labelled lanes, padded to ``bucket_pow2(n, 64)`` lanes.  Tensors
+        that already hold the padded lanes (a decode's output) are kept as
+        they are."""
+        n_lanes, n_cap = len(labels), times.shape[1]
         lanes_pad = bucket_pow2(n_lanes, 64)
-        t = np.full((lanes_pad, n_cap), INT64_MAX, dtype=np.int64)
-        v = np.full((lanes_pad, n_cap), np.nan)
-        t[:n_lanes], v[:n_lanes] = times, values
+        if isinstance(times, torch.Tensor):
+            if times.shape[0] != lanes_pad or values.shape != times.shape:
+                raise ValueError(f"tensor lanes must come padded to {lanes_pad} rows")
+            t, v = times, values
+        else:
+            t = np.full((lanes_pad, n_cap), INT64_MAX, dtype=np.int64)
+            v = np.full((lanes_pad, n_cap), np.nan)
+            t[:n_lanes], v[:n_lanes] = times, values
         self.leaves.append({"times": t, "values": v, "steps": self.steps.copy(),
                             "rng": np.int64(rng), "valid": np.arange(lanes_pad) < n_lanes})
         self._statics.append(("arrays", (lanes_pad, n_cap, 0, 1, 0, 0, self.s_pad)))
@@ -849,8 +859,60 @@ class ExprPlanBuilder:
         avalid[0] = True
         return PlanNode(("absent", self._param((avalid,)), child.plan), [{}], 8)
 
+    # The graphite nodes, laid out as m3_tpu/query/plan.py:864-922 does; the
+    # caller computes the selection and grouping from the labels, as the
+    # lowering's select_fn / group_fn do.
+
+    def gsel(self, child: PlanNode, keep, labels=None) -> PlanNode:
+        """Rows ``keep`` of ``child`` in that order (a graphite path-depth
+        filter, sort, limit, exclude or grep), out_pad = bucket_pow2(n, 8);
+        ``labels`` default to the kept rows' own."""
+        keep = [int(i) for i in keep]
+        out_pad = bucket_pow2(max(len(keep), 1), 8)
+        idx = np.zeros(out_pad, dtype=np.int64)
+        idx[:len(keep)] = keep
+        pidx = self._param((idx, np.arange(out_pad) < len(keep)))
+        labels = [child.labels[i] for i in keep] if labels is None else list(labels)
+        return PlanNode(("gsel", out_pad, pidx, child.plan), labels, out_pad)
+
+    def gagg(self, op: str, child: PlanNode, groups, labels, extra=(),
+             tval: float = 0.0) -> PlanNode:
+        """A graphite combiner or grouped aggregate: ``groups`` gives each
+        real row's group id, ``labels`` one dict per group; g_pad =
+        bucket_pow2(groups, 8), padding rows parked on group 0; ``extra``
+        the static per-op tuple (percentile's q), ``tval`` countSeries'
+        constant."""
+        n_groups = len(labels)
+        g_pad = bucket_pow2(max(n_groups, 1), 8)
+        groups_p = np.zeros(child.rows_pad, dtype=np.int64)
+        groups_p[:len(groups)] = groups
+        pidx = self._param((groups_p, np.arange(g_pad) < n_groups, np.float64(tval)))
+        return PlanNode(("gagg", op, tuple(extra), g_pad, pidx, child.plan), list(labels),
+                        g_pad)
+
+    def gcall(self, fn: str, child: PlanNode, statics=(), fparams=(), labels=None) -> PlanNode:
+        """A graphite per-series transform: the plan's statics are
+        (real steps,) + ``statics`` (window widths, bucket sizes, summarize's
+        func, percentile's q, delay's k); ``fparams`` the numpy scalars the
+        call reads at run time (float64, timeSlice's int64 bounds)."""
+        pidx = self._param(tuple(fparams))
+        return PlanNode(("gcall", fn, (self.n_steps,) + tuple(statics), pidx, child.plan),
+                        child.labels if labels is None else list(labels), child.rows_pad)
+
     def inputs(self):
         return self.leaves, tuple(self.params), self.steps
+
+
+def graphite_labels(paths) -> list[dict]:
+    """Graphite series labels as the coordinator stores them: ``__name__``
+    the dotted path and ``__g<i>__`` its i-th component (bytes, as the
+    reference's graphite tier keys them)."""
+    out = []
+    for path in paths:
+        ls = {b"__name__": path.encode()}
+        ls.update({b"__g%d__" % i: c.encode() for i, c in enumerate(path.split("."))})
+        out.append(ls)
+    return out
 
 
 def stack_queries(queries):
@@ -963,6 +1025,46 @@ def select_probes(n_steps: int = 64, seed: int = 23):
     v[:, 9] = np.nan
     v[n_real:] = np.nan
     return v, groups, n_groups
+
+
+def graphite_probe_matrix(n_rows: int = 16, s_pad: int = 64, real_S: int = 41, seed: int = 31):
+    """A served [n_rows, s_pad] matrix for the graphite kernels (QK4, GK2, GK3):
+    ``(values f64[n_rows, s_pad], groups i64[n_rows], n_groups)``.  Columns
+    past ``real_S`` repeat the last real one, as a leaf's padding steps do.
+    Rows: 0 a walk with NaN holes; 1 the walk with +-Inf samples; 2 random
+    +-0.0 and NaN; 3 all NaN; 4 one present sample; 5 a constant (range 0);
+    6 only -0.0; 7 small integers (ties); 8 -Inf and +Inf only; then
+    uniform values with ~25% NaN; the last two rows all-NaN padding.  Column
+    3 is NaN in every row, column 7 NaN in all but row 4's one sample.
+    Groups: 1, 2, 3 and 5 lanes interleaved, one-lane groups, the padding
+    rows parked on group 0 as the planner parks them."""
+    rng = np.random.default_rng(seed)
+    L, S = n_rows, s_pad
+    v = np.round(rng.uniform(-50, 50, (L, S)), 2)
+    v[rng.random((L, S)) < 0.25] = np.nan
+    v[0] = np.cumsum(rng.integers(-3, 4, S)).astype(np.float64)
+    v[0, rng.random(S) < 0.15] = np.nan
+    v[1] = v[0]
+    v[1, rng.random(S) < 0.1] = np.inf
+    v[1, rng.random(S) < 0.1] = -np.inf
+    v[2] = np.where(rng.random(S) < 0.5, -0.0, 0.0)
+    v[2, rng.random(S) < 0.2] = np.nan
+    v[3] = np.nan
+    v[4] = np.nan
+    v[4, 7] = 12.5
+    v[5] = 4.0
+    v[6] = -0.0
+    v[7] = rng.integers(-2, 3, S).astype(np.float64)
+    v[8] = np.where(rng.random(S) < 0.5, -np.inf, np.inf)
+    v[:, 3] = np.nan
+    v[np.arange(L) != 4, 7] = np.nan
+    v[L - 2:] = np.nan
+    v[:, real_S:] = v[:, real_S - 1:real_S]
+    n_real = L - 2
+    sizes = [1, 2, 3, 5] + [1] * (n_real - 11)
+    groups = np.zeros(L, dtype=np.int64)
+    groups[:n_real] = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    return v, groups, len(sizes)
 
 
 def histogram_probes(n_steps: int = 64, seed: int = 29):

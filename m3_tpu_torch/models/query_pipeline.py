@@ -6,8 +6,8 @@ Port of the serving pipelines of ``m3_tpu/models/query_pipeline.py``
 (single device), with the same arguments and the same result tuples:
 the per-node ``device_rate_pipeline``, ``device_reduce_pipeline`` and
 ``device_grouped_pipeline``, and the fused expression interpreter
-``device_expr_pipeline`` / ``device_expr_pipeline_batched`` for the
-PromQL node forms (see ``_expr_eval``).  Each stage is a hand-written
+``device_expr_pipeline`` / ``device_expr_pipeline_batched`` for every
+node form, PromQL's and Graphite's (see ``_expr_eval``).  Each stage is a hand-written
 CUDA kernel on the card:
 
 - decode: ``ops/m3tsz_decode.decode_batched`` (K3) at stream width with
@@ -23,16 +23,19 @@ CUDA kernel on the card:
 - the interpreter's selection nodes: ``ops/lane_topk`` (QK7, topk and
   bottomk) and ``ops/histo_quantile`` (QK8, histogram_quantile);
 - the subquery node's packing of its inner grid: ``ops/query_merge``
-  (QK12).
+  (QK12);
+- the graphite nodes: ``ops/graphite`` (QK4's grouped NaN-reductions for
+  ``gagg``, GK2 percentiles for ``gagg`` median/percentile and the
+  ``gcall`` percentile family, GK3 per-lane scans, buckets and windows for
+  the rest of ``gcall``).
 
 The interpreter's elementwise glue (binary operators, comparisons,
-scalar functions, padding re-masks, row gathers of vector matching) is
-plain PyTorch on the card.
+scalar functions, padding re-masks, row gathers of vector matching and of
+``gsel``, graphite's elementwise and shift functions) is plain PyTorch on
+the card.
 
 On CPU tensors (``device="cpu"``) every stage runs its plain PyTorch
-version.  The graphite node forms are not ported yet: they raise
-``NotImplementedError`` naming the kernel row that will bring them; they
-never route to another form.
+version.
 
 Error contract (``_decode_merge``): a stream is flagged when its decode
 failed, it did not reach its end within ``n_dp`` records, its lane
@@ -47,7 +50,8 @@ import numpy as np
 import torch
 
 from m3_tpu_torch.models.read_pipeline import inputs_from_numpy
-from m3_tpu_torch.ops import histo_quantile, ieee, lane_topk, query_grouped, query_merge
+from m3_tpu_torch.ops import graphite, histo_quantile, ieee, lane_topk, query_grouped
+from m3_tpu_torch.ops import query_merge
 from m3_tpu_torch.ops import query_temporal
 from m3_tpu_torch.ops.m3tsz_decode import decode_batched
 from m3_tpu_torch.utils import xtime
@@ -199,14 +203,6 @@ def device_grouped_pipeline(words, nbits, slots, steps, groups, n_lanes: int, n_
 
 _EXPR_CMP = frozenset(("==", "!=", ">", "<", ">=", "<="))
 
-# The node forms whose device form comes with a later kernel row (PERF.md's
-# table); each raises until then.
-UNPORTED_NODES = {
-    "gsel": "G1 (the graphite slice: the row gather comes with _graphite_grouped_reduce)",
-    "gagg": "G1 _graphite_grouped_reduce",
-    "gcall": "G2 _graphite_call",
-}
-
 
 def _expr_arith(op: str, a, b):
     """Elementwise arithmetic as the host tier's numpy forms: fmod for %,
@@ -306,10 +302,6 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
     def ev(node, steps_cur):
         nonlocal aux
         tag = node[0]
-        if tag in UNPORTED_NODES:
-            raise NotImplementedError(
-                f"plan node {tag!r} has no device form in the port yet: it comes with "
-                f"kernel row {UNPORTED_NODES[tag]}")
         if tag == "leaf":
             (_, i, pidx, kind, fn, lanes_pad, n_cap, n_dp, n_tiers,
              _m_pad, _w_pad, _s_pad, hw_sf, hw_tf) = node
@@ -396,6 +388,24 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
             out = _temporal_eval(fn, t2, v2, on_dev(steps_out), int(rng), float(horizon),
                                  hw_sf, hw_tf)
             return torch.where(cvalid[:, None], out, torch.nan), cvalid
+        if tag == "gsel":
+            # graphite row selection: a gather by host-computed indices
+            _, _out_pad, pidx, child = node
+            cv, _cvalid = ev(child, steps_cur)
+            idx, valid = (on_dev(x) for x in params[pidx])
+            return torch.where(valid[:, None], cv[idx], torch.nan), valid
+        if tag == "gagg":
+            _, op, extra, g_pad, pidx, child = node
+            cv, _cvalid = ev(child, steps_cur)
+            groups, gvalid, tval = params[pidx]
+            out = graphite.grouped_reduce(cv, groups, g_pad, op, extra, float(tval))
+            gvalid = on_dev(gvalid)
+            return torch.where(gvalid[:, None], out, torch.nan), gvalid
+        if tag == "gcall":
+            _, fn, statics, pidx, child = node
+            cv, cvalid = ev(child, steps_cur)
+            out = graphite.call(fn, cv, statics, params[pidx], steps_cur)
+            return torch.where(cvalid[:, None], out, torch.nan), cvalid
         if tag == "absent":
             _, pidx, child = node
             cv, _cvalid = ev(child, steps_cur)
@@ -417,7 +427,8 @@ def expr_inputs_from_numpy(leaves, params, steps, device=None):
     patterns), each leaf's window ``rng`` a host int64 tensor, and the
     params host tensors (plan-time data: the nodes move index maps and
     bounds to the device themselves and build the kernels' group CSR from
-    the host group ids).  Works with or without the batched [Q] axis."""
+    the host group ids).  Leaf arrays that are tensors already move as they
+    are.  Works with or without the batched [Q] axis."""
     dev = resolve_device(device)
 
     def leaf(lf):
@@ -427,6 +438,8 @@ def expr_inputs_from_numpy(leaves, params, steps, device=None):
                 out[k], out["nbits"] = inputs_from_numpy(v, lf["nbits"], dev)
             elif k == "rng":
                 out[k] = torch.as_tensor(np.asarray(v, dtype=np.int64))
+            elif isinstance(v, torch.Tensor):
+                out[k] = v.to(dev)
             elif k != "nbits":
                 out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
         return out
@@ -457,7 +470,7 @@ def _expr_inputs(leaves, params, steps, device):
 
 
 def device_expr_pipeline(plan, leaves, params, steps, device=None):
-    """Whole-query fused execution of a lowered PromQL op-tree: decode,
+    """Whole-query fused execution of a lowered PromQL or Graphite op-tree: decode,
     step consolidation and the whole temporal / aggregation / operator /
     function tree, with only the root [rows, S] matrix, ``aux`` and the
     error flags returned (nothing is read back inside the call).
@@ -465,8 +478,8 @@ def device_expr_pipeline(plan, leaves, params, steps, device=None):
     ``plan`` is the reference's static node tree (``query/plan.py``'s
     grammar; see ``m3_tpu/models/query_pipeline.py:device_expr_pipeline``):
     ``leaf`` (kind ``words`` or ``arrays``), ``agg`` (quantile included),
-    ``call``, ``vs``, ``vv``, ``topk``, ``hq``, ``absent`` and ``subq``; the
-    graphite nodes raise ``NotImplementedError``.  ``leaves`` /
+    ``call``, ``vs``, ``vv``, ``topk``, ``hq``, ``absent``, ``subq`` and the
+    graphite nodes ``gsel``, ``gagg`` and ``gcall``.  ``leaves`` /
     ``params`` / ``steps`` are the reference's numpy inputs, moved onto
     ``device`` (default the CUDA device) by ``expr_inputs_from_numpy``,
     or what that function returns (which run where they lie unless

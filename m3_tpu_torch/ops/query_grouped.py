@@ -5,7 +5,10 @@ Port of ``m3_tpu/models/query_pipeline.py:_grouped_reduce`` (sum, avg,
 count, min, max, group, stddev, stdvar; NaN cells are absent and a
 group-step with no present cell is NaN), of the fleet sum
 ``jnp.nansum(rate, axis=0)`` of ``device_rate_pipeline`` (the one-group
-case, 0.0 where nothing is present) and of ``_grouped_quantile`` (QK6,
+case, 0.0 where nothing is present), of ``_graphite_grouped_reduce``'s
+NaN-reductions (``ops/graphite.py`` calls ``grouped_reduce`` with the
+further ops multiply, range, diff and last and with numpy's value over
+nothing as ``empty_value``) and of ``_grouped_quantile`` (QK6,
 ``grouped_quantile``: the phi-quantile of each group's present cells, in
 ``csrc/query_select.cu``, which QK7 ``ops/lane_topk.py`` shares).
 
@@ -35,8 +38,11 @@ from m3_tpu_torch.ops import _build, ieee
 I64 = torch.int64
 F64 = torch.float64
 
-AGGS = ("sum", "avg", "count", "min", "max", "group", "stddev", "stdvar")  # enum Agg order
-MAX_GROUPS = 65535  # the kernel's grid.y
+AGGS = ("sum", "avg", "count", "min", "max", "group", "stddev", "stdvar")  # PromQL's
+# enum Agg of csrc/query_grouped.cu: PromQL's, then graphite's further ops
+# (diff and last answer for a grouping whose lane 0 lies in group 0)
+OPS = AGGS + ("multiply", "range", "diff", "last")
+MAX_WARPS = 32  # kMaxWarps of the kernel
 # Largest padded group (pairs) that csrc/query_select.cu sorts in shared
 # memory (48 KB); larger groups sort in a global scratch buffer.
 SELECT_SMEM_MAX_P = 4096
@@ -44,7 +50,7 @@ SELECT_QUANTILE, SELECT_TOPK, SELECT_BOTTOMK = 0, 1, 2  # enum Mode of the kerne
 
 
 def _check_agg(agg: str) -> None:
-    if agg not in AGGS:
+    if agg not in OPS:
         raise ValueError(f"no device form for aggregation {agg}")
 
 
@@ -71,7 +77,8 @@ def _segment_extreme(x: torch.Tensor, seg: torch.Tensor, n: int, is_max: bool) -
     return torch.where(r == 0, signed, r)
 
 
-def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int, agg: str):
+def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int, agg: str,
+                         empty_value: float = float("nan")):
     """Plain version of ``grouped_reduce`` (same arguments)."""
     _check_agg(agg)
     groups = groups.to(out.device, I64)
@@ -89,6 +96,20 @@ def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int,
     elif agg in ("min", "max"):
         fill = -torch.inf if agg == "max" else torch.inf
         g = _segment_extreme(torch.where(m, rows, fill), seg, n_groups, agg == "max")
+    elif agg == "range":
+        g = (_segment_extreme(torch.where(m, rows, -torch.inf), seg, n_groups, True)
+             - _segment_extreme(torch.where(m, rows, torch.inf), seg, n_groups, False))
+    elif agg == "multiply":
+        idx = seg[:, None].expand_as(rows)
+        g = torch.ones_like(sums).scatter_reduce(0, idx, torch.where(m, rows, 1.0), "prod")
+    elif agg == "diff":  # lane 0 is the minuend
+        g = 2.0 * torch.where(torch.isnan(out[0]), 0.0, out[0].to(F64)) - sums
+    elif agg == "last":  # the cell of the group's highest lane present at the step
+        lane = torch.arange(out.shape[0], device=out.device)[inside]
+        key = torch.where(m, lane[:, None], -1)
+        top = torch.full(sums.shape, -1, dtype=I64, device=out.device).scatter_reduce(
+            0, seg[:, None].expand_as(key), key, "amax")
+        g = torch.gather(out.to(F64), 0, top.clamp(min=0))
     elif agg == "group":
         g = torch.ones_like(sums)
     else:
@@ -96,7 +117,7 @@ def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int,
         d = torch.where(m, rows - mean[seg], 0.0)
         var = _segment_sum(d * d, seg, n_groups) / torch.clamp(counts, min=1.0)
         g = torch.sqrt(var) if agg == "stddev" else var
-    return torch.where(counts == 0, torch.nan, g)
+    return torch.where(counts == 0, empty_value, g)
 
 
 def fleet_nansum_plain(x: torch.Tensor) -> torch.Tensor:
@@ -151,8 +172,8 @@ def grouped_quantile_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: in
 # --- wrappers: CUDA tensor -> kernel, CPU tensor -> plain version --------
 
 _SIGNATURES = {
-    "m3_query_grouped": [_build.P, _build.LL, _build.P, _build.P, _build.I, _build.I,
-                         _build.D, _build.P, _build.P],
+    "m3_query_grouped": [_build.P, _build.LL, _build.P, _build.P, _build.P, _build.I,
+                         _build.I, _build.D, _build.I, _build.P, _build.P],
 }
 _SELECT_SIGNATURES = {
     "m3_query_select": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I, _build.D,
@@ -199,17 +220,29 @@ def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float):
     if x.dim() != 2:
         raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
     n_groups = len(index.sizes)
-    if n_groups > MAX_GROUPS:
-        raise ValueError(f"at most {MAX_GROUPS} groups")
     dev = x.device
     S = x.shape[1]
     xc = x.to(F64).contiguous()
     out = torch.empty((n_groups, S), dtype=F64, device=dev)
-    if n_groups and S:
-        lib = _build.library("query_grouped", _SIGNATURES)
+    if not (n_groups and S):
+        return out
+    # groups of more than 32 lanes with 32 warps a block; the others with as
+    # many warps as the largest of them has lanes (one for one-lane groups);
+    # empty groups go with the large ones when no other group is small
+    large = index.sizes > MAX_WARPS
+    if not (index.sizes[~large] > 0).any():
+        large[:] = True
+    small_warps = min(MAX_WARPS, pow2(int(index.sizes[~large].max(initial=1))))
+    if large.all() or not large.any():
+        launches = [(None, n_groups, MAX_WARPS if large.all() else small_warps)]
+    else:
+        launches = [(torch.from_numpy(np.flatnonzero(sel)).to(dev, non_blocking=True),
+                     int(sel.sum()), w) for sel, w in ((~large, small_warps), (large, MAX_WARPS))]
+    lib = _build.library("query_grouped", _SIGNATURES)
+    for ids, n, warps in launches:
         rc = lib.m3_query_grouped(
-            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), n_groups,
-            AGGS.index(agg), empty_value, out.data_ptr(),
+            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), _ptr(ids), n,
+            OPS.index(agg), float(empty_value), warps, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, "query_grouped")
         _build.count_launch("query_grouped")
@@ -217,19 +250,21 @@ def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float):
 
 
 def grouped_reduce(out: torch.Tensor, groups, n_groups: int, agg: str,
-                   index: GroupIndex | None = None) -> torch.Tensor:
-    """``agg`` of each group's lanes per step: [L, S] -> f64[n_groups, S].
-    ``groups`` gives each lane's group id (tensor or numpy); ``index`` may
-    pass ``group_index(groups, n_groups, out.device)`` built ahead."""
+                   index: GroupIndex | None = None,
+                   empty_value: float = float("nan")) -> torch.Tensor:
+    """``agg`` (one of ``OPS``) of each group's lanes per step: [L, S] ->
+    f64[n_groups, S].  ``groups`` gives each lane's group id (tensor or
+    numpy); ``index`` may pass ``group_index(groups, n_groups, out.device)``
+    built ahead; a group-step with no present cell gets ``empty_value``."""
     _check_agg(agg)
     if out.device.type == "cpu":
         groups = groups if isinstance(groups, torch.Tensor) else torch.from_numpy(
             np.asarray(groups, dtype=np.int64))
-        return grouped_reduce_plain(out, groups, n_groups, agg)
+        return grouped_reduce_plain(out, groups, n_groups, agg, empty_value)
     if not out.is_cuda:
         raise ValueError(f"unsupported device {out.device}")
     index = index if index is not None else group_index(groups, n_groups, out.device)
-    return _launch(out, index, agg, float("nan"))
+    return _launch(out, index, agg, empty_value)
 
 
 def fleet_nansum(x: torch.Tensor) -> torch.Tensor:
@@ -242,7 +277,8 @@ def fleet_nansum(x: torch.Tensor) -> torch.Tensor:
     return _launch(x, GroupIndex(None, offsets, np.asarray([x.shape[0]])), "sum", 0.0)[0]
 
 
-def _pow2(n: int) -> int:
+def pow2(n: int) -> int:
+    """The smallest power of two >= n (1 for n <= 1)."""
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
@@ -256,7 +292,7 @@ def launch_select(x: torch.Tensor, index: GroupIndex, mode: int, phi: float = 0.
     L, S = x.shape
     G = len(index.sizes)
     xc = x.to(F64).contiguous()
-    padded = [_pow2(n) for n in index.sizes if n > 0]
+    padded = [pow2(n) for n in index.sizes if n > 0]
     p_smem = max((p for p in padded if p <= SELECT_SMEM_MAX_P), default=0)
     p_scratch = max((p for p in padded if p > SELECT_SMEM_MAX_P), default=0)
     threads = min(512, max(64, max(padded, default=1) // 2))

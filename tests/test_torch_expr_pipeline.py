@@ -480,12 +480,19 @@ def test_batched_subq_matches_jax_and_solo():
 
 @pytest.mark.parametrize("tag,row", [("gsel", "G1"), ("gagg", "G1"), ("gcall", "G2")])
 def test_unported_nodes_raise(tag, row):
+    """Every node form of the grammar is ported (the graphite nodes with
+    kernel rows G1 and G2): the graphite node evaluates, and a tag outside
+    the grammar still raises ValueError."""
     b = corpus.ExprPlanBuilder(STEPS)
     lf = _leaves(b, "arrays")
-    child = b.leaf(lf["mem_use", 5 * MIN], "last_over_time").plan
-    plan = (tag, 0, child)
-    with pytest.raises(NotImplementedError, match=f"kernel row {row}"):
-        tq.device_expr_pipeline(plan, *b.inputs(), device="cpu")
+    child = b.leaf(lf["mem_use", 5 * MIN], "last_over_time")
+    node = {"gsel": lambda: b.gsel(child, [1, 0]),
+            "gagg": lambda: b.gagg("sum", child, [0] * len(child.labels), [{}]),
+            "gcall": lambda: b.gcall("integral", child)}[tag]()
+    out = tq.device_expr_pipeline(node.plan, *b.inputs(), device="cpu")[0]
+    assert out.shape == (node.rows_pad, b.s_pad) and bool(torch.isfinite(out[0]).any()), row
+    with pytest.raises(ValueError, match="unknown plan node"):
+        tq.device_expr_pipeline((tag + "_v2",) + node.plan[1:], *b.inputs(), device="cpu")
 
 
 def test_expr_pipeline_never_falls_back_to_cpu(monkeypatch):

@@ -1,0 +1,248 @@
+"""Port parity: the plain versions of the graphite kernels (QK4's graphite
+ops in ``m3_tpu_torch/ops/query_grouped.py``, GK2 and GK3 in
+``m3_tpu_torch/ops/graphite.py``) and the glue around them, against the
+reference's ``_graphite_grouped_reduce`` and ``_graphite_call`` called
+directly under ``jit``.
+
+The probe is ``corpus.graphite_probe_matrix()`` ([16, 64], 41 real steps,
+the padding steps repeating the last real one): NaN holes, +-Inf, +-0.0,
+all-NaN rows and columns, a one-sample row, a constant row, ties, groups
+of 1, 2, 3 and 5 lanes with the padding rows parked on group 0.  Every op
+code of the grouped reduce runs, every ``_graphite_call`` function and
+every summarize func; windows wider than the real steps, buckets that do
+not divide them,
+negative and over-long delays, gap limits 0, 2 and +inf, percentiles -20
+to 150.  The reference's cases come from one compiled program (the call
+parameters traced, as the interpreter traces them).
+
+Tolerances, NaN positions and infinities always equal:
+- bit for bit, but for
+- rtol/atol 1e-12 (``SUM``): the in-order sums against XLA's grouping of
+  ``jnp.cumsum`` and ``lax.reduce_window`` past 12 cells (integral,
+  integralByInterval, the moving sums and averages, summarize's sum, avg
+  and multiply), which also gives -0.0 for a window of one -0.0 cell where
+  the in-order sum from 0.0 gives +0.0; ``pow`` and ``logarithm`` (XLA's
+  own pow and log);
+- rtol/atol 1e-9 (``STAT``): stddev and the percentiles (XLA:CPU contracts
+  jnp's ``lo * (1 - w) + hi * w`` into an FMA; the port rounds twice, as
+  QK6 does; ROADMAP queue 3).  The masks of remove{Above,Below}Percentile
+  are NaN positions, so they stay exact.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from m3_tpu.models import query_pipeline as jq
+from m3_tpu_torch.models import corpus
+from m3_tpu_torch.ops import _build, graphite, query_grouped
+
+from test_torch_m3tsz_decode import assert_same
+
+SUM = (1e-12, 1e-12)
+STAT = (1e-9, 1e-9)
+G_PAD = 8
+REAL_S = 41
+
+
+def _probe():
+    v, groups, _ = corpus.graphite_probe_matrix(real_S=REAL_S)
+    steps = (1_600_000_000 + 60 * np.arange(v.shape[1], dtype=np.int64)) * 10**9
+    steps[REAL_S:] = steps[REAL_S - 1]
+    return v, groups, steps
+
+
+# (op, extra, tolerance) of _graphite_grouped_reduce; single-group ops run
+# with every group id 0, as the lowering gives them
+GROUPED = [("sum", (), SUM), ("count", (), None), ("avg", (), SUM), ("min", (), None),
+           ("max", (), None), ("multiply", (), SUM), ("range", (), None), ("stddev", (), STAT),
+           ("count_series", (), None)]
+SINGLE = [("diff", (), SUM), ("last", (), None), ("median", (), STAT)] + [
+    ("percentile", (q,), STAT) for q in (-20.0, 0.0, 20.0, 50.0, 75.0, 95.0, 100.0, 150.0)]
+
+
+def _calls():
+    """(fn, statics after real_S, fparams, tolerance) of _graphite_call."""
+    _, _, steps = _probe()
+    c = [("scale", (), (2.5,), None), ("offset", (), (-7.5,), None), ("absolute", (), (), None),
+         ("invert", (), (), None), ("logarithm", (), (np.log(10.0),), SUM),
+         ("pow", (), (2.0,), SUM), ("pow", (), (0.5,), SUM), ("pow", (), (-0.5,), SUM),
+         ("squareRoot", (), (), None), ("transformNull", (), (0.0,), None),
+         ("transformNull", (), (-1.5,), None), ("removeAboveValue", (), (25.0,), None),
+         ("removeBelowValue", (), (10.0,), None), ("isNonNull", (), (), None),
+         ("derivative", (), (), None), ("nonNegativeDerivative", (), (), None),
+         ("perSecond", (), (60.0,), None), ("changed", (), (), None),
+         ("timeSlice", (), (np.int64(steps[5]), np.int64(steps[30])), None),
+         ("integral", (), (), SUM), ("offsetToZero", (), (), None), ("minMax", (), (), None)]
+    c += [("keepLastValue", (), (limit,), None) for limit in (0.0, 2.0, np.inf)]
+    c += [("delay", (k,), (), None) for k in (3, -2, 0, 100)]
+    for fn in ("movingAverage", "movingSum", "movingMax", "movingMin"):
+        tol = SUM if fn in ("movingAverage", "movingSum") else None
+        c += [(fn, (w,), (), tol) for w in (1, 3, 50)]
+    for func in ("sum", "total", "", "avg", "average", "max", "min", "count", "range",
+                 "rangeOf", "multiply"):
+        tol = SUM if func in ("sum", "total", "", "avg", "average", "multiply") else None
+        c += [("summarize", (k, func), (), tol) for k in (5, 41, 50)]
+    c += [("integralByInterval", (k,), (), SUM) for k in (1, 5, 7)]
+    c += [("nPercentile", (q,), (), STAT) for q in (-20.0, 0.0, 50.0, 90.0, 100.0, 150.0)]
+    c += [(fn, (q,), (), STAT) for fn in ("removeAbovePercentile", "removeBelowPercentile")
+          for q in (20.0, 80.0)]
+    return c
+
+
+CALLS = _calls()
+
+
+def _fparams(fp):
+    return tuple(np.asarray(x, dtype=np.int64 if isinstance(x, np.integer) else np.float64)
+                 for x in fp)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax() -> list:
+    """Every case through the reference, one compiled program."""
+    v, groups, steps = _probe()
+
+    def run(cv, grp, steps, fps):
+        zeros = jax.numpy.zeros_like(grp)
+        out = [jq._graphite_grouped_reduce(cv, grp, G_PAD, op, ex, 5.0) for op, ex, _ in GROUPED]
+        out += [jq._graphite_grouped_reduce(cv, zeros, G_PAD, op, ex, 0.0) for op, ex, _ in SINGLE]
+        out += [jq._graphite_call(fn, cv, (REAL_S,) + st, fp, steps)
+                for (fn, st, _, _), fp in zip(CALLS, fps)]
+        return out
+
+    fps = [_fparams(fp) for _, _, fp, _ in CALLS]
+    return [np.array(a) for a in jax.jit(run)(v, groups, steps, fps)]
+
+
+def _check(got: torch.Tensor, want: np.ndarray, tol, what: str):
+    if tol is None:
+        assert_same(got, want, what)
+        return
+    g = got.numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(want), err_msg=f"{what}: NaN positions")
+    np.testing.assert_allclose(g, want, rtol=tol[0], atol=tol[1], equal_nan=True, err_msg=what)
+    np.testing.assert_array_equal(g[np.isinf(want)], want[np.isinf(want)], err_msg=what)
+
+
+CASES = ([("grouped", i) for i in range(len(GROUPED))] + [("single", i) for i in range(len(SINGLE))]
+         + [("call", i) for i in range(len(CALLS))])
+
+
+def _case_id(case):
+    kind, i = case
+    if kind == "grouped":
+        return f"gagg-{GROUPED[i][0]}"
+    if kind == "single":
+        return f"gagg-{SINGLE[i][0]}{list(SINGLE[i][1]) or ''}"
+    fn, st, fp, _ = CALLS[i]
+    return f"gcall-{fn}{list(st) or ''}{[float(x) for x in fp] or ''}"
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
+def test_plain_matches_jax(case):
+    v, groups, steps = _probe()
+    kind, i = case
+    cv = torch.from_numpy(v)
+    if kind == "grouped":
+        op, ex, tol = GROUPED[i]
+        got = graphite.grouped_reduce(cv, groups, G_PAD, op, ex, 5.0)
+        want = _jax()[i]
+    elif kind == "single":
+        op, ex, tol = SINGLE[i]
+        got = graphite.grouped_reduce(cv, np.zeros_like(groups), G_PAD, op, ex, 0.0)
+        want = _jax()[len(GROUPED) + i]
+    else:
+        fn, st, fp, tol = CALLS[i]
+        got = graphite.call(fn, cv, (REAL_S,) + st,
+                            tuple(torch.as_tensor(x) for x in _fparams(fp)),
+                            torch.from_numpy(steps))
+        want = _jax()[len(GROUPED) + len(SINGLE) + i]
+    _check(got, want, tol, _case_id(case))
+    assert got.device.type == "cpu" and got.dtype == torch.float64
+
+
+def test_probe_reaches_the_corners():
+    """The probe's cases reach what they are meant to: empty groups and
+    all-NaN columns give the empty results, the percentile meets +-inf (a
+    +inf neighbour at weight 0 gives NaN), the padding columns carry values
+    where the reference leaves them."""
+    v, _, _ = _probe()
+    want = dict(zip([_case_id(c) for c in CASES], _jax()))
+    assert (want["gagg-sum"][:, 3] == 0.0).all() and np.isnan(want["gagg-avg"][:, 3]).all()
+    assert (want["gagg-multiply"][:, 3] == 1.0).all()
+    top_inf = (v[:, :REAL_S] == np.inf).any(axis=0)
+    assert top_inf.any() and np.isnan(want["gagg-percentile[100.0]"][0, :REAL_S][top_inf]).all()
+    assert any(np.isinf(want[f"gagg-percentile[{q}]"][0]).any() for q in (20.0, 75.0, 95.0))
+    assert (want["gcall-minMax"][:, REAL_S:] == 0.0).all()
+    assert (want["gcall-transformNull[-1.5]"][:, REAL_S:] == -1.5).all()
+    assert np.isfinite(want["gcall-integral"][0, REAL_S:]).all()
+    signs = np.signbit(want["gcall-keepLastValue[inf]"][2][:REAL_S])
+    assert signs.any() and not signs.all()
+
+
+@pytest.mark.parametrize("op", ["diff", "median", "percentile", "last"])
+def test_single_group_ops_refuse_groups(op):
+    v, groups, _ = _probe()
+    with pytest.raises(ValueError, match="one group"):
+        graphite.grouped_reduce(torch.from_numpy(v), groups, G_PAD, op, (50.0,))
+
+
+def test_unknown_forms_raise():
+    v, groups, steps = _probe()
+    cv, st = torch.from_numpy(v), torch.from_numpy(steps)
+    with pytest.raises(ValueError, match="no device form"):
+        graphite.grouped_reduce(cv, groups, G_PAD, "mode")
+    with pytest.raises(ValueError, match="no device form"):
+        graphite.call("sortByMaxima", cv, (REAL_S,), (), st)
+    with pytest.raises(ValueError, match="no device form for summarize"):
+        graphite.call("summarize", cv, (REAL_S, 5, "median"), (), st)
+    with pytest.raises(ValueError, match="at least 1"):
+        graphite.row_transform(cv, "movingSum", REAL_S, k=0)
+    with pytest.raises(ValueError, match="finite"):
+        graphite.percentile_rows(cv, np.nan, REAL_S, "nPercentile")
+    with pytest.raises(ValueError, match="finite"):
+        graphite.grouped_reduce(cv, np.zeros_like(groups), G_PAD, "percentile", (np.inf,))
+
+
+
+class _FakeGrouped:
+    """Stands in for QK4's library: records each launch's groups and warps
+    (the wrapper's pointers are passed as the tensors themselves)."""
+
+    def __init__(self):
+        self.launches = []
+
+    def m3_query_grouped(self, x, S, members, offsets, group_ids, n, agg, empty, warps, out,
+                         stream):
+        ids = None if group_ids is None else group_ids.tolist()
+        self.launches.append((ids, n, warps))
+        return 0
+
+
+@pytest.mark.parametrize("sizes,want", [
+    ([1] * 6, [(None, 6, 1)]),  # groupByNode: a warp a block
+    ([1, 2, 5, 0], [(None, 4, 8)]),  # small groups: lane order with 8 warps
+    ([40, 33], [(None, 2, 32)]),
+    ([20, 1, 1, 0], [(None, 4, 32)]),  # a group of 17-32 lanes takes 32 warps
+    ([40, 1, 1, 0, 2], [([1, 2, 3, 4], 4, 2), ([0], 1, 32)]),  # padding parked on group 0
+    ([40, 0, 0], [(None, 3, 32)]),  # sumSeries: one group and the empty padding groups
+    ([0, 0], [(None, 2, 32)]),
+])
+def test_grouped_launch_classes(monkeypatch, sizes, want):
+    """QK4's host side: groups of more than 32 lanes launch with 32 warps a
+    block, the others apart with the warps of the largest of them, so a
+    group's fold order never depends on the other groups."""
+    fake = _FakeGrouped()
+    monkeypatch.setattr(_build, "library", lambda name, sig: fake)
+    monkeypatch.setattr(query_grouped, "_ptr", lambda t: None if t is None else t)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 0}))
+    groups = np.repeat(np.arange(len(sizes)), sizes)
+    index = query_grouped.group_index(groups, len(sizes), "cpu")
+    x = torch.zeros((len(groups), 40), dtype=torch.float64)
+    out = query_grouped._launch(x, index, "sum", 0.0)
+    assert out.shape == (len(sizes), 40)
+    assert fake.launches == want
