@@ -1,5 +1,5 @@
-"""Chip smoke test: the PyTorch/CUDA port's read, query (PromQL and Graphite) and
-write paths on one NVIDIA GPU.
+"""Chip smoke test: the PyTorch/CUDA port's read, query (PromQL and Graphite),
+write and storage paths on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
@@ -97,7 +97,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``unfold(..).sum``;
 10. the write side (rollup flush, timer quantiles, BASELINE config 2, the
    encode and a block seal), as its phases' docstrings say;
-11. report — one JSON line listing the kernels, then the result line.
+11. tiles parity (run with the parity phases) — T1 against its plain
+   version on the card, bit for bit, twice (``compare_tiles``'s probes);
+12. storage — BASELINE config 4's series (cut to 40,000) through a ``Database`` on
+   the card: one 2h block of 10s data written, sealed (E1), flushed,
+   aggregated into 5m tiles (T1, twice), the tiles sealed and flushed, a
+   restart, and every tile read back through the decoded-block cache (K3)
+   and checked against numpy (``storage_main``); then T1 alone at
+   1,000,000 lanes x 720 points, 1m and 5m tiles, beside its plain
+   version, its bound and K3 + ``index_add_``/``scatter_reduce_``;
+13. report — one JSON line listing the kernels, then the result line.
 
 The script imports nothing of JAX.  It exits non-zero without a result
 when no CUDA device is present.
@@ -120,7 +129,7 @@ from m3_tpu_torch.aggregator import Aggregator, ElemPool, elems
 from m3_tpu_torch.models import corpus
 from m3_tpu_torch.models import query_pipeline as qp
 from m3_tpu_torch.models.read_pipeline import _SIMPLE_AGGS, decode_downsample, inputs_from_numpy
-from m3_tpu_torch.ops import _build, graphite, histo_quantile, lane_topk, m3tsz_scalar
+from m3_tpu_torch.ops import _build, graphite, histo_quantile, lane_topk, m3tsz_scalar, tiles
 from m3_tpu_torch.ops import query_grouped
 from m3_tpu_torch.ops import query_merge, query_temporal
 from m3_tpu_torch.ops import consolidate as cons
@@ -2389,6 +2398,322 @@ def encode_main(rows):
     return res
 
 
+# --- phase 12: the AggregateTiles kernel (T1) vs its plain version ---------
+
+TILE_FIELDS = ("sum", "sum_sq", "count", "min", "max", "last", "decoded_count", "error")
+
+
+def _tiles_flat(out):
+    agg, decoded, error = out
+    return (*agg, decoded, error)
+
+
+def compare_tiles_case(streams, tag: str, n_steps: int, n_tiles: int, tile: int, bs: int,
+                       unit: int = SEC, int_optimized: bool = True):
+    """T1 twice (the same bits) and against its plain version, bit for bit."""
+    words, nbits = inputs_from_numpy(*pack_streams(streams), device=DEVICE)
+    args = (words, nbits, n_steps, n_tiles, tile, bs, unit, int_optimized)
+    k = twice(lambda: _tiles_flat(tiles.aggregate_tiles(*args)), f"{tag} aggregate_tiles")
+    p = _tiles_flat(tiles.aggregate_tiles_plain(*args))
+    for field, kt, pt in zip(TILE_FIELDS, k, p):
+        _record("aggregate_tiles", same_bits(kt, pt, f"{tag} aggregate_tiles.{field}"))
+    return k
+
+
+def compare_tiles(walks):
+    """T1's probes: seed-42 walks (and truncated at n_steps), the decoder's
+    probe streams (error lanes, truncation, garbage), float mode (NaN,
+    +-Inf, +-0.0), a millisecond unit, duplicate timestamps and timestamps
+    going back across tiles, points 1 ns before the block start and at the
+    grid's end, a block start off the tile grid, 1, 7 and 129 lanes."""
+    probes = corpus.probe_streams(N_DP)
+    tp = corpus.tile_probe_streams(MIN, 12)
+    cases = [
+        (walks + probes, "walks+probes, 1m", N_DP, 60, MIN, corpus.START, SEC, True),
+        (walks[:512], "walks truncated at 300, 5m", 300, 12, 5 * MIN, corpus.START, SEC, True),
+        (walks[:512], "block start off the tile grid", N_DP, 61, MIN, corpus.START + 37 * SEC,
+         SEC, True),
+        (corpus.probe_streams(N_DP, int_optimized=False) + corpus.golden_streams(),
+         "float mode", N_DP, 60, MIN, corpus.START, SEC, False),
+        (corpus.ms_streams(256, N_DP), "millisecond unit", N_DP, 100, SEC, corpus.START, MS,
+         True),
+        (tp, "tile probes", 64, 12, MIN, corpus.START, SEC, True),
+        (tp, "tile probes, block start 1 ns past a second", 64, 12, MIN,
+         corpus.START + 100 * SEC + 1, SEC, True),
+    ] + [((tp + probes + walks)[:lanes], f"{lanes} lanes", 64, 12, MIN, corpus.START, SEC, True)
+         for lanes in (1, 7, 129)]
+    for streams, tag, *args in cases:
+        compare_tiles_case(streams, tag, *args)
+    torch.cuda.synchronize()
+    log(f"tiles parity (T1): {len(cases)} probe sets bit for bit with the plain version, twice")
+
+
+# --- phase 13: the storage node, write -> seal -> flush -> AggregateTiles -> read
+
+# BASELINE config 4's 50,000 series cut to 40,000: the phase is host-bound by
+# the reference's design and took 195 s at 50,000 on the H100's host (PERF.md)
+STORE_SERIES = 40_000
+STORE_SHARDS = 64
+STORE_DP = 720  # one 2h block of 10s data
+STORE_BLOCK = 2 * 3600 * SEC
+STORE_TILE = 5 * MIN  # BASELINE config 3's middle resolution: 24 tiles a block
+STORE_AGGS = (ds.AggregationType.MEAN, ds.AggregationType.MAX, ds.AggregationType.LAST)
+
+
+def _busy(fn):
+    """fn() under torch.profiler: (its result, wall ms, device kernel ms,
+    device copy ms); the device times are None when the profiler saw no
+    device activity (then they are not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel_us = copy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copy_us += ev.self_device_time_total
+        else:
+            kernel_us += ev.self_device_time_total
+    if kernel_us + copy_us == 0:
+        return out, wall, None, None
+    return out, wall, kernel_us / 1e3, copy_us / 1e3
+
+
+def storage_main(n_series: int = STORE_SERIES):
+    """A port ``Database`` on the card through the storage node's path
+    (the reference's large_tiles_test.go flow): ``write_columns`` of one 2h
+    block of 10s data (the 2,000 seed-42 walks tiled), ``tick`` past the
+    block (E1 seals every shard), ``flush`` to filesets,
+    ``TileAggregator.aggregate_tiles`` at 5m tiles with MEAN, MAX and LAST
+    (T1, twice: the decode bound grows 512 -> 1024), a tick and flush of
+    the tiles, then a restart (a new ``Database`` on the same directory,
+    ``bootstrap``) and ``fetch_tagged`` of every tile through the
+    decoded-block cache (K3 via ``decode_streams_adaptive``), cold and
+    warm.  Launch counts are reset before each stage and read after it;
+    every tile read back is checked against numpy over the written samples
+    (mean at rtol 1e-12, max and last bit for bit)."""
+    import shutil
+    import tempfile
+
+    from m3_tpu_torch.aggregator.aggregator import MetricKind, apply_suffix, suffix_for
+    from m3_tpu_torch.cache import CacheOptions
+    from m3_tpu_torch.storage.database import Database, DatabaseOptions
+    from m3_tpu_torch.storage.namespace import NamespaceOptions
+    from m3_tpu_torch.storage.tiles import AggregateTilesOptions, TileAggregator
+
+    b0 = corpus.START - corpus.START % STORE_BLOCK
+    n_tiles = STORE_BLOCK // STORE_TILE
+    t0 = time.time()
+    ts_u, vs_u = corpus.gen_grids(N_UNIQUE, STORE_DP, start=b0 - 10 * SEC)
+    reps = n_series // N_UNIQUE
+    check(n_series % N_UNIQUE == 0, "storage: series must tile the unique walks")
+    ids = [b"cpu_load{host=h%06d}" % i for i in range(n_series)]
+    tags = [{b"__name__": b"cpu_load", b"host": b"h%06d" % i, b"dc": b"dc%d" % (i % 4)}
+            for i in range(n_series)]
+    times = np.tile(ts_u, (reps, 1)).reshape(-1)
+    values = np.tile(vs_u, (reps, 1)).reshape(-1)
+    uniq_idx = np.repeat(np.arange(n_series, dtype=np.int64), STORE_DP)
+    log(f"storage data: {n_series} series x {STORE_DP} points ({times.size} samples, "
+        f"{N_UNIQUE} walks tiled) in {time.time() - t0:.1f} s")
+    root = _build.BUILD_DIR.parent / "storage_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    path = tempfile.mkdtemp(dir=root)
+    opts = DatabaseOptions(path=path, num_shards=STORE_SHARDS, commit_log_enabled=False,
+                           cache=CacheOptions(decoded_policy="lru",
+                                              decoded_max_bytes=4 << 30))
+    stages = {}
+
+    def stage(name, fn):
+        _build.reset_launches()
+        out, wall, kernel_ms, copy_ms = _busy(fn)
+        stages[name] = {"wall_ms": wall, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+                        "launches": dict(_build.LAUNCHES)}
+        dev = ("device not measured" if kernel_ms is None
+               else f"device kernels {kernel_ms:.3f} ms, copies {copy_ms:.3f} ms")
+        log(f"storage {name}: {wall:.1f} ms wall; {dev}; launches {dict(_build.LAUNCHES)}")
+        return out
+
+    def open_db():
+        db = Database(opts, device=DEVICE)
+        db.create_namespace(NamespaceOptions(name="raw"))
+        db.create_namespace(NamespaceOptions(name="tiles_5m", aggregated=True,
+                                             aggregation_resolution=STORE_TILE))
+        return db
+
+    try:
+        db = open_db()
+        stage("write_columns", lambda: db.write_columns("raw", ids, tags, times, values,
+                                                        uniq_idx))
+        sealed = stage("tick (seal)", lambda: db.tick(now_nanos=b0 + STORE_BLOCK + 11 * MIN))
+        check(sorted(sealed["raw"]) == [b0] * STORE_SHARDS, f"storage: sealed {sealed}")
+        check(stages["tick (seal)"]["launches"].get("pack_encode", 0) >= STORE_SHARDS,
+              "storage: the seal did not launch pack_encode on every shard")
+        flushed = stage("flush", lambda: db.flush())
+        check(len(flushed["raw"]) == STORE_SHARDS, f"storage: flushed {flushed}")
+        src = db.series_streams_for_block("raw", b0)
+        check(len(src) == n_series, f"storage: {len(src)} sealed streams")
+        by_id = {sid: stream for sid, _, stream in src}
+        for u in range(0, N_UNIQUE, 97):  # a sample of the sealed streams, by the scalar encoder
+            want = m3tsz_scalar.encode_series(ts_u[u].tolist(), vs_u[u].tolist(), b0)
+            check(by_id[ids[u]] == want, f"storage: sealed stream {u} differs from the encoder")
+        unique_streams = [by_id[ids[u]] for u in range(N_UNIQUE)]
+        del src, by_id
+        res = stage("aggregate_tiles", lambda: TileAggregator(db).aggregate_tiles(
+            "raw", "tiles_5m", b0, b0 + STORE_BLOCK,
+            AggregateTilesOptions(tile_nanos=STORE_TILE, agg_types=STORE_AGGS)))
+        check((res.n_series, res.n_blocks, res.n_errors, res.n_tiles_written)
+              == (n_series, 1, 0, n_series * n_tiles * len(STORE_AGGS)),
+              f"storage: aggregate_tiles result {res}")
+        check(stages["aggregate_tiles"]["launches"].get("aggregate_tiles", 0) == 2,
+              "storage: T1 must run twice (decode bound 512, then 1024)")
+        stage("tick+flush (tiles)", lambda: (db.tick(now_nanos=b0 + 3 * STORE_BLOCK),
+                                             db.flush()))
+        db.close()
+        db = stage("restart (bootstrap)", lambda: (lambda d: (d.bootstrap(), d)[1])(open_db()))
+        matchers = [("eq", b"__name__", b"cpu_load")]
+        cold = stage("fetch_tagged (cold)", lambda: db.fetch_tagged(
+            "tiles_5m", matchers, b0, b0 + 2 * STORE_BLOCK, with_counts=True))
+        check(stages["fetch_tagged (cold)"]["launches"].get("decode_batched", 0) > 0,
+              "storage: the cold fetch did not decode with K3")
+        warm = stage("fetch_tagged (warm)", lambda: db.fetch_tagged(
+            "tiles_5m", matchers, b0, b0 + 2 * STORE_BLOCK, with_counts=True))
+        check(not stages["fetch_tagged (warm)"]["launches"],
+              "storage: the warm fetch decoded again")
+        check(len(cold) == n_series * len(STORE_AGGS), f"storage: fetched {len(cold)} series")
+        # every tile against numpy over the written samples
+        grid = vs_u.reshape(N_UNIQUE, n_tiles, STORE_DP // n_tiles)
+        want = {ds.AggregationType.MEAN: grid.sum(axis=2) / grid.shape[2],
+                ds.AggregationType.MAX: grid.max(axis=2),
+                ds.AggregationType.LAST: grid[:, :, -1]}
+        suffix = {at: suffix_for(MetricKind.GAUGE, at) for at in STORE_AGGS}
+        t_end = b0 + (np.arange(n_tiles, dtype=np.int64) + 1) * STORE_TILE
+        checked = 0
+        for at, w in want.items():
+            oids = [apply_suffix(sid, suffix[at]) for sid in ids]
+            t = np.stack([np.concatenate([e[1][0] for e in cold[o]]) for o in oids])
+            v = np.stack([np.concatenate([e[1][1] for e in cold[o]]) for o in oids])
+            v_warm = np.stack([np.concatenate([e[1][1] for e in warm[o]]) for o in oids])
+            check(t.shape == (n_series, n_tiles) and bool((t == t_end).all()),
+                  f"storage: {at.name} tile times")
+            check(np.array_equal(v.view(np.int64), v_warm.view(np.int64)),
+                  f"storage: {at.name} warm reads differ from cold")
+            ref = w[np.arange(n_series) % N_UNIQUE]
+            if at == ds.AggregationType.MEAN:
+                ok = bool(np.all(np.abs(v - ref) <= 1e-12 * np.abs(ref)))
+            else:
+                ok = np.array_equal(v.view(np.int64), ref.view(np.int64))
+            check(ok, f"storage: {at.name} tiles differ from numpy")
+            checked += v.size
+        log(f"storage checks: {checked} tiles of {len(cold)} series against numpy over the "
+            f"written samples (mean rtol 1e-12, max and last bit for bit): passed")
+        db.close()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    launches = {}
+    for st in stages.values():
+        for kernel, n in st["launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    return {"stages": stages, "launches": launches, "n_series": n_series}, unique_streams, b0
+
+
+def _library_tiles(words, nbits, n_steps, n_tiles, tile, bs):
+    """The same function from PyTorch calls on K3's decoded grid:
+    ``index_add_`` for sum, sum_sq and count, ``scatter_reduce_`` for min,
+    max and the greatest time, ``scatter_`` for last.  (No PyTorch call
+    decodes M3TSZ.)  The points are compacted first, so the scatters see
+    only in-range points and no cell collects the padding."""
+    ts, vs, valid, decoded, error = dec.decode_batched(words, nbits, n_steps)
+    L = ts.shape[0]
+    n = L * n_tiles
+    k = tiles.tile_index(ts, bs, tile)
+    inr = (valid & (k >= 0) & (k < n_tiles)).view(-1)
+    lane = torch.arange(L, device=ts.device)[:, None] * n_tiles
+    seg = (lane + k).view(-1)[inr]
+    tv = ts.view(-1)[inr]
+    vv = vs.view(-1)[inr]
+    num = ~torch.isnan(vv)
+    segc, vc = seg[num], vv[num]
+    f64 = dict(dtype=torch.float64, device=ts.device)
+    s = torch.zeros(n, **f64).index_add_(0, segc, vc)
+    ssq = torch.zeros(n, **f64).index_add_(0, segc, vc * vc)
+    cnt = torch.zeros(n, dtype=torch.int64, device=ts.device).index_add_(
+        0, seg, torch.ones_like(seg))
+    mn = torch.full((n,), torch.inf, **f64).scatter_reduce_(0, segc, vc, "amin")
+    mx = torch.full((n,), -torch.inf, **f64).scatter_reduce_(0, segc, vc, "amax")
+    lt = torch.full((n,), torch.iinfo(torch.int64).min, dtype=torch.int64,
+                    device=ts.device).scatter_reduce_(0, seg, tv, "amax")
+    win = tv == lt[seg]
+    last = torch.full((n,), torch.nan, **f64).scatter_(0, seg[win], vv[win])
+    return s, ssq, cnt, mn, mx, last, decoded, error
+
+
+TILES_LANES = 1_000_000  # the read main's width
+TILES_STEPS = 1024  # TileAggregator's decode bound for a 2h block of 10s data, grown
+TILES_CHUNK = 250_000  # lanes per call of the plain and library versions (device memory)
+
+
+def tiles_kernel_times(unique_streams, b0: int, rows):
+    """T1 alone at full width: 1,000,000 lanes (the storage phase's 2,000
+    unique sealed streams tiled) x 720 points, at 1m (120) and 5m (24)
+    tiles; beside its plain version (held against the kernel bit for bit),
+    its bound and K3 + index_add_/scatter_reduce_ over the decoded grid."""
+    uw, un = pack_streams(unique_streams)
+    reps = TILES_LANES // len(unique_streams)
+    words, nbits = inputs_from_numpy(np.tile(uw, (reps, 1)), np.tile(un, reps), device=DEVICE)
+    L, W = words.shape
+    for tile in (MIN, 5 * MIN):
+        n_tiles = STORE_BLOCK // tile
+        args = (TILES_STEPS, n_tiles, tile, b0)
+        k = _tiles_flat(tiles.aggregate_tiles(words, nbits, *args))
+        check(bool((k[6] == STORE_DP).all()) and not bool(k[7].any()),
+              f"T1 {n_tiles} tiles: decoded counts / errors")
+        check(bool((k[2].sum(dim=1) == STORE_DP).all()), f"T1 {n_tiles} tiles: counts")
+        plain_out = []
+
+        def plain_all():
+            plain_out.clear()
+            for lo in range(0, L, TILES_CHUNK):
+                plain_out.append(_tiles_flat(tiles.aggregate_tiles_plain(
+                    words[lo:lo + TILES_CHUNK], nbits[lo:lo + TILES_CHUNK], *args)))
+
+        _, plain_ms = time_once(plain_all)
+        for c, part in enumerate(plain_out):
+            lo = c * TILES_CHUNK
+            for field, kt, pt in zip(TILE_FIELDS, k, part):
+                _record("aggregate_tiles", same_bits(kt[lo:lo + TILES_CHUNK], pt,
+                                                     f"T1 {n_tiles} tiles [{lo}:] {field}"))
+        # the yardstick computes the same function: count, max and last of
+        # its first call are T1's (every tile holds points, no time ties)
+        lib = _library_tiles(words[:TILES_CHUNK], nbits[:TILES_CHUNK], *args)
+        for field, i in (("count", 2), ("max", 4), ("last", 5)):
+            same_bits(lib[i].view(-1, n_tiles), k[i][:TILES_CHUNK],
+                      f"T1 {n_tiles} tiles: library {field}")
+        datapoints = int(k[6].sum())
+        del k, lib, plain_out[:]
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: tiles.aggregate_tiles(words, nbits, *args), reps=5)
+
+        def library_all():
+            for lo in range(0, L, TILES_CHUNK):
+                _library_tiles(words[lo:lo + TILES_CHUNK], nbits[lo:lo + TILES_CHUNK], *args)
+
+        library_ms = time_ms(library_all, reps=3)
+        torch.cuda.empty_cache()
+        bytes_ = words.numel() * 4 + nbits.numel() * 4 + L * n_tiles * 48 + L * 5
+        row(f"aggregate_tiles[{tile // MIN}m]", rows, ms, plain_ms, bytes_,
+            datapoints * INT32_OPS_PER_DATAPOINT / INT32_OPS_PER_S * 1e3, library_ms,
+            f"K3 + index_add_/scatter_reduce_ ({L // TILES_CHUNK} calls)")
+    del words, nbits
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2435,6 +2760,7 @@ def main() -> int:
     compare_elems(corpus.elem_probe_batches(), "probes")
     compare_elems(corpus.elem_probe_batches(n=4096, n_batches=3, seed=6), "dense")
     compare_padded_quantiles()
+    compare_tiles(walks)
     log(f"parity phases done at {time.time() - t_start:.1f} s")
 
     words, nbits, results = main_path(walks)
@@ -2496,6 +2822,14 @@ def main() -> int:
     r_enc = encode_main(rows_w)
     log(f"write phases done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
+    r_store, unique_streams, b0 = storage_main()
+    tiles_kernel_times(unique_streams, b0, rows_w)
+    log(f"storage phases done at {time.time() - t_start:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    log(json.dumps({"storage_end_to_end": {
+        "n_series": r_store["n_series"],
+        "stages": {k: {f: v[f] for f in ("wall_ms", "kernel_ms", "copy_ms")}
+                   for k, v in r_store["stages"].items()}}, "card": name_power}))
     log(json.dumps({"write_end_to_end": {
         "rollup": {k: v for k, v in r_rollup.items() if k != "launches"},
         "config2": {k: v for k, v in r_agg.items() if k != "launches"},
@@ -2508,13 +2842,15 @@ def main() -> int:
     k3 = results["P99"]["launches"].get("decode_batched", 0)
     k4 = results["P99"]["launches"].get("window_quantiles", 0)
     k3q = q_launch.get("decode_batched", 0)
+    k3s = r_store["launches"].get("decode_batched", 0)
+    t1 = r_store["launches"].get("aggregate_tiles", 0)
     src = "m3_tpu_torch/csrc/"
     qsrc = "m3_tpu/models/query_pipeline.py:"
     kernels = [
         # K1 is the __device__ step inside K2 and K3: it launches with them,
         # and its time is that of K2 in the MEAN configuration (decode only).
         dict(name="decode_step", source=src + "m3tsz_decode.cu",
-             replaces="m3_tpu/ops/m3tsz_decode.py:405", launches=k2 + k2f + k3 + k3q,
+             replaces="m3_tpu/ops/m3tsz_decode.py:405", launches=k2 + k2f + k3 + k3q + k3s + t1,
              max_abs_err=max(ERRORS["decode_downsample_fused"], ERRORS["decode_batched"]),
              **rows["decode_downsample_fused"]),
         dict(name="decode_downsample_fused", source=src + "m3tsz_decode.cu",
@@ -2524,8 +2860,9 @@ def main() -> int:
              replaces="m3_tpu/ops/m3tsz_decode.py:488", launches=k2f,
              max_abs_err=ERRORS["decode_downsample_fused[full_agg]"],
              **rows["decode_downsample_fused[full_agg]"]),
+        # K3 on the read path's P99 and on the storage phase's cold fetch
         dict(name="decode_batched", source=src + "m3tsz_decode.cu",
-             replaces="m3_tpu/ops/m3tsz_decode.py:440", launches=k3,
+             replaces="m3_tpu/ops/m3tsz_decode.py:440", launches=k3 + k3s,
              max_abs_err=ERRORS["decode_batched"], **rows["decode_batched"]),
         # K3 again, on the query path: [150,000 streams, 720 + 1 steps]
         dict(name="decode_batched[flag_truncation]", source=src + "m3tsz_decode.cu",
@@ -2596,7 +2933,8 @@ def main() -> int:
         dict(name="pack_encode", source=src + "m3tsz_encode.cu",
              replaces="m3_tpu/ops/m3tsz_encode.py:443",
              launches=r_enc["launches"].get("pack_encode", 0)
-             + r_enc["seal_launches"].get("pack_encode", 0),
+             + r_enc["seal_launches"].get("pack_encode", 0)
+             + r_store["launches"].get("pack_encode", 0),
              max_abs_err=ERRORS["pack_encode"], **rows_w["pack_encode"]),
         dict(name="scatter_update", source=src + "aggregator_elems.cu",
              replaces="m3_tpu/aggregator/elems.py:79",
@@ -2612,6 +2950,10 @@ def main() -> int:
              replaces="m3_tpu/aggregator/elems.py:131",
              launches=sum(r["launches"].get("padded_quantiles", 0) for r in r_timer.values()),
              max_abs_err=ERRORS["padded_quantiles"], **rows_w["padded_quantiles"]),
+        # T1 at the storage phase's 5m tiles (its 1m time is printed beside it)
+        dict(name="aggregate_tiles", source=src + "m3tsz_decode.cu",
+             replaces="m3_tpu/ops/tiles.py:34", launches=t1,
+             max_abs_err=ERRORS["aggregate_tiles"], **rows_w["aggregate_tiles[5m]"]),
     ]
     for k in kernels:
         k["route"] = "cuda"

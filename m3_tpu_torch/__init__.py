@@ -22,9 +22,14 @@ Layout mirrors the reference so each module's counterpart is easy to find:
                 query path: decode -> merge -> rate/reduce -> group-by)
     aggregator/ the write side's rollups: ElemPool (device slot state)
                 and Aggregator
-    storage/    the block seal's batched encode
+    storage/    the storage node: database, shards (the seal's batched
+                encode), filesets, the tag index, AggregateTiles
+    cache/      the read caches (decoded blocks, postings, fileset readers)
     metrics/    host-only metrics model (policies, pipelines, rules)
-    utils/      time units, bit IO, hashing, the native (g++) loader
+    attribution/, observe/
+                host-only per-tenant accounting and the task ledger
+    utils/      time units, bit IO, hashing, the native (g++) loader,
+                logging/metrics, tracing, fault points
     csrc/       CUDA C++ sources, built by ops/_build.py at first use
 """
 

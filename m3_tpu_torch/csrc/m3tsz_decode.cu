@@ -6,7 +6,10 @@
 //       _parse_sig_mult, _parse_xor, _plan_value, _apply_value, _emit_value)
 //       -> decode_step(), a __device__ function shared by K2 and K3;
 //   K2  decode_downsample_fused -> decode_downsample_fused_kernel;
-//   K3  decode_batched          -> decode_batched_kernel.
+//   K3  decode_batched          -> decode_batched_kernel;
+// and, from m3_tpu/ops/tiles.py:
+//   T1  aggregate_tiles_kernel  -> aggregate_tiles_kernel (decode inline,
+//       then the per-(lane, tile) reduction, without the [L, n_steps] grid).
 //
 // The JAX kernel reads each lane's 128-bit window with a one-hot masked
 // row-sum over all of [L, W] on every step, because the TPU has no fast
@@ -378,6 +381,156 @@ __global__ void __launch_bounds__(kThreads) decode_batched_kernel(
   error[lane] = st.error || (flag_truncation && !st.done);
 }
 
+// T1: a tile's six accumulators, in registers while the lane is in it.
+struct Tile {
+  double sum, sum_sq, vmin, vmax, last;
+  int64_t count, last_t;
+  bool has_last;
+};
+
+__device__ __forceinline__ Tile empty_tile() {
+  Tile a;
+  a.sum = 0.0;
+  a.sum_sq = 0.0;
+  a.vmin = INFINITY;
+  a.vmax = -INFINITY;
+  a.last = NAN;
+  a.count = 0;
+  a.last_t = 0;
+  a.has_last = false;
+  return a;
+}
+
+// One in-range point, as the reference's scatters take it: count every
+// point; sum, sum_sq, min and max only non-NaN values (in stream order,
+// min/max with -0.0 below +0.0); last = the value at the greatest
+// timestamp, the last such point in stream order (XLA:CPU's scatter
+// `.set` keeps the last of duplicate indices).
+__device__ __forceinline__ void tile_add(Tile& a, int64_t t, double v) {
+  a.count += 1;
+  if (!isnan(v)) {
+    a.sum = __dadd_rn(a.sum, v);
+    a.sum_sq = __dadd_rn(a.sum_sq, __dmul_rn(v, v));
+    a.vmin = min_ieee(a.vmin, v);
+    a.vmax = max_ieee(a.vmax, v);
+  }
+  if (!a.has_last || t >= a.last_t) {
+    a.last_t = t;
+    a.last = v;
+    a.has_last = true;
+  }
+}
+
+// A min or max that is +-Inf (no contribution, or a real +-Inf sample)
+// comes out NaN, as the reference's final where(isinf(..)) has it.
+__device__ __forceinline__ void tile_store(const Tile& a, size_t o, double* sum,
+                                           double* sum_sq, int64_t* count, double* vmin,
+                                           double* vmax, double* last) {
+  sum[o] = a.sum;
+  sum_sq[o] = a.sum_sq;
+  count[o] = a.count;
+  vmin[o] = isinf(a.vmin) ? NAN : a.vmin;
+  vmax[o] = isinf(a.vmax) ? NAN : a.vmax;
+  last[o] = a.last;
+}
+
+// Tile index of a point, or -1 when it falls outside [0, n_tiles): the
+// floor of (t - block_start) / tile_nanos on wrapping int64, as jnp's `//`.
+__device__ __forceinline__ int tile_of(int64_t t, int64_t block_start, int64_t tile_nanos,
+                                       int n_tiles) {
+  const int64_t d = (int64_t)((uint64_t)t - (uint64_t)block_start);
+  int64_t q = d / tile_nanos;  // truncates toward zero
+  if (d % tile_nanos != 0 && d < 0) q -= 1;
+  return (q >= 0 && q < n_tiles) ? (int)q : -1;
+}
+
+// T1: decode up to n_steps points of a lane and reduce them into its
+// tiles.  One thread per lane walks its stream once, keeping the current
+// tile in registers and storing each tile once, when it leaves it (tiles
+// it skips are stored empty).  A stream whose tile index goes backwards
+// (timestamps out of order across tiles) cannot be reduced that way
+// without reloading a stored tile's running state, which the stored
+// outputs do not keep (min/max are finalised, the last timestamp is not
+// stored); such a lane is redone tile by tile instead: one walk per tile
+// it touches, each accumulating only that tile's points in stream order
+// and finding the next tile.  Both orders add a tile's points in stream
+// order, so the sums are the reference's sequential scatter-add bit for bit.
+__global__ void __launch_bounds__(kThreads) aggregate_tiles_kernel(
+    const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
+    int n_steps, int n_tiles, long long tile_nanos, long long block_start, bool int_optimized,
+    int64_t unit_nanos, Divisors div, double* __restrict__ sum, double* __restrict__ sum_sq,
+    int64_t* __restrict__ count, double* __restrict__ vmin, double* __restrict__ vmax,
+    double* __restrict__ last, int32_t* __restrict__ decoded, bool* __restrict__ error) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  const uint32_t* row = words + (size_t)lane * W;
+  const int32_t nb = nbits[lane];
+  const size_t base = (size_t)lane * n_tiles;
+  const Tile none = empty_tile();
+
+  // fast walk: tiles visited in ascending order
+  State st = init_state(row, W, nb);
+  Tile a = none;
+  int cur = -1;  // tiles [0, cur) are stored; cur is in registers
+  bool backwards = false;
+  int32_t cnt = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    if (!decode_step(row, W, nb, st, int_optimized, unit_nanos)) break;  // done or error: for good
+    ++cnt;
+    const int64_t t = st.prev_time;
+    const int k = tile_of(t, block_start, tile_nanos, n_tiles);
+    if (k < 0) continue;
+    if (k != cur) {
+      if (k < cur) {
+        backwards = true;
+        break;
+      }
+      if (cur >= 0) tile_store(a, base + cur, sum, sum_sq, count, vmin, vmax, last);
+      for (int e = cur + 1; e < k; ++e) tile_store(none, base + e, sum, sum_sq, count, vmin, vmax, last);
+      cur = k;
+      a = none;
+    }
+    tile_add(a, t, emit_value(st, div));
+  }
+  if (!backwards) {
+    if (cur >= 0) tile_store(a, base + cur, sum, sum_sq, count, vmin, vmax, last);
+    for (int e = cur + 1; e < n_tiles; ++e) tile_store(none, base + e, sum, sum_sq, count, vmin, vmax, last);
+    decoded[lane] = cnt;
+    error[lane] = st.error;
+    return;
+  }
+
+  // tile-by-tile walks: `target` = the tile accumulated in this walk (-1:
+  // none, the first walk only finds the lowest tile), `next` = the lowest
+  // tile above it that the stream touches
+  int target = -1, stored = 0;  // tiles [0, stored) are written
+  while (true) {
+    st = init_state(row, W, nb);
+    a = none;
+    cnt = 0;
+    int next = n_tiles;
+    for (int step = 0; step < n_steps; ++step) {
+      if (!decode_step(row, W, nb, st, int_optimized, unit_nanos)) break;
+      ++cnt;
+      const int64_t t = st.prev_time;
+      const int k = tile_of(t, block_start, tile_nanos, n_tiles);
+      if (k < 0) continue;
+      if (k == target) tile_add(a, t, emit_value(st, div));
+      else if (k > target && k < next) next = k;
+    }
+    if (target >= 0) {
+      tile_store(a, base + target, sum, sum_sq, count, vmin, vmax, last);
+      stored = target + 1;
+    }
+    for (int e = stored; e < next; ++e) tile_store(none, base + e, sum, sum_sq, count, vmin, vmax, last);
+    stored = next;
+    if (next >= n_tiles) break;
+    target = next;
+  }
+  decoded[lane] = cnt;
+  error[lane] = st.error;
+}
+
 inline Divisors load_divisors(const double* host) {
   Divisors d;
   for (int i = 0; i <= kMaxMult; ++i) d.d[i] = host[i];
@@ -409,6 +562,18 @@ int m3_decode_batched(const uint32_t* words, const int32_t* nbits, int L, int W,
   decode_batched_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
       words, nbits, L, W, n_steps, scan_len, int_optimized != 0, unit_nanos,
       flag_truncation != 0, load_divisors(divisors_host), ts, vs, valid, count, error);
+  return (int)cudaGetLastError();
+}
+
+int m3_aggregate_tiles(const uint32_t* words, const int32_t* nbits, int L, int W, int n_steps,
+                       int n_tiles, long long tile_nanos, long long block_start,
+                       int int_optimized, long long unit_nanos, const double* divisors_host,
+                       double* sum, double* sum_sq, int64_t* count, double* vmin, double* vmax,
+                       double* last, int32_t* decoded, bool* error, void* stream) {
+  aggregate_tiles_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
+      words, nbits, L, W, n_steps, n_tiles, tile_nanos, block_start, int_optimized != 0,
+      unit_nanos, load_divisors(divisors_host), sum, sum_sq, count, vmin, vmax, last, decoded,
+      error);
   return (int)cudaGetLastError();
 }
 

@@ -57,6 +57,13 @@ The write side:
 - ``rollup_rounds``, ``timer_windows`` and ``config2_batches``: the
   write-side chip phases' inputs (BASELINE configs 2-3).
 
+Storage and tiles:
+- ``tile_probe_streams``: the AggregateTiles kernel's corners (duplicate
+  timestamps at a tile's greatest time, timestamps going back across
+  tiles, NaN / +-Inf / +-0.0 in one tile, points at the grid's edges and
+  1 ns around them for a block start off the second grid, a sum whose
+  value depends on its order).
+
 Everything is built from a seed with the scalar encoder, so the same
 bytes feed the JAX package and the port.
 """
@@ -193,6 +200,38 @@ def ms_streams(n: int, n_dp: int, seed: int = 3) -> list[bytes]:
               for i in range(n_dp)]
         vs = [float(rng.randint(0, 100)) for _ in range(n_dp)]
         out.append(tsz.encode_series(ts, vs, START, unit=xtime.Unit.MILLISECOND))
+    return out
+
+
+def tile_probe_streams(tile: int = 60 * SEC, n_tiles: int = 12, start: int = START) -> list[bytes]:
+    """Streams for T1 with block_start ``start`` (or ``start + 100s + 1ns``,
+    the off-grid probe) and ``n_tiles`` tiles of ``tile`` nanos."""
+    inf, nan = math.inf, math.nan
+
+    def enc(ts, vs):
+        return tsz.encode_series([start + t for t in ts], vs, start)
+
+    end = n_tiles * tile
+    out = []
+    # ties at a tile's greatest time: the last one in stream order wins
+    out.append(enc([10 * SEC, 30 * SEC, 30 * SEC, 20 * SEC, 30 * SEC, 70 * SEC, 70 * SEC],
+                   [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, nan]))
+    # back across tiles, and back again inside the first tile revisited
+    out.append(enc([5 * SEC, 130 * SEC, 65 * SEC, 10 * SEC, 200 * SEC, 7 * SEC, 125 * SEC,
+                    10 * SEC, 600 * SEC, 59 * SEC],
+                   [float(i) for i in range(10)]))
+    # NaN, +-Inf and +-0.0 in one tile, and tiles of each alone (the int
+    # grammar writes -0.0 as +0.0: float-mode streams carry the sign)
+    out.append(enc([s * SEC for s in range(1, 13)] + [61 * SEC, 62 * SEC, 121 * SEC, 181 * SEC,
+                                                      182 * SEC, 241 * SEC],
+                   [0.0, -0.0, nan, 2.0, -0.0, inf, -inf, 0.0, nan, 1e308, 1e308, -3.5,
+                    -0.0, 0.0, nan, inf, inf, -inf]))
+    # the grid's edges: before it, its first and last second, its end
+    out.append(enc([-SEC, 0, 99 * SEC, 100 * SEC, 101 * SEC, end - SEC, end, end + 100 * SEC,
+                    end + 101 * SEC],
+                   [float(i) for i in range(9)]))
+    # order-sensitive sums within a tile
+    out.append(enc([1 * SEC, 2 * SEC, 3 * SEC], [0.1, 0.2, 0.3]))
     return out
 
 

@@ -14,6 +14,11 @@ reference iterator keeps (``DecodeState``).
   Python.  The tests hold these against the JAX package, and the chip
   smoke test holds the kernels against these on the card.
 
+The host entries ``decode_streams`` (one width), ``decode_streams_adaptive``
+(the width sized by the native count pass) and ``decode_streams_merged``
+(the native fused decode + merge of the warm read path, host only) keep
+the reference's contracts.
+
 Constructs that cannot appear in sealed numeric blocks written with a
 fixed time unit — annotations, mid-stream time-unit changes — set a
 per-lane ``error`` flag; ``decode_streams`` re-decodes those lanes with the
@@ -640,3 +645,173 @@ def decode_streams(
         valid[lane, :] = False
         valid[lane, :n] = True
     return ts, vs, valid
+
+
+def decode_streams_adaptive(
+    streams: list[bytes],
+    int_optimized: bool = True,
+    unit: xtime.Unit = xtime.Unit.SECOND,
+    counts: np.ndarray | None = None,
+    device=None,
+):
+    """``decode_streams`` at a width that holds every stream.
+
+    A stream's datapoint count is not recoverable from its byte length
+    (int-optimized walks compress to ~4.5 bits a point, float-mode streams
+    to 12-26), so: with stored (v2-fileset) ``counts`` decode at their
+    maximum + 1, and if any lane disagrees, retry without them; else size
+    the grid with the native count pass; without a host toolchain, start
+    at 12 bits a point and re-decode the lanes that filled the grid 4x
+    wider, down to the grammar's 2 bits a point.  Every decode runs on
+    ``device`` (default ``cuda``); the ``except`` below covers only the
+    host count pass.  Returns numpy (ts [L, T], vs [L, T], valid [L, T])
+    with T the widest round's width.
+    """
+    if not streams:
+        return (np.zeros((0, 1), dtype=np.int64),
+                np.zeros((0, 1)), np.zeros((0, 1), dtype=bool))
+    dev = resolve_device(device)
+    max_len = max(len(s) for s in streams)
+    hard_cap = 1 + max_len * 8 // 2  # grammar floor: 1b time + 1b value
+    if counts is not None:
+        # the extra column catches a stale or understated stored count
+        counts = np.asarray(counts, dtype=np.int64)
+        width = int(counts.max(initial=0)) + 1
+        ts, vs, valid = decode_streams(streams, max(width, 1),
+                                       int_optimized=int_optimized,
+                                       unit=unit, device=dev)
+        if bool((valid.sum(axis=1) == counts).all()):
+            return ts, vs, valid
+        return decode_streams_adaptive(streams, int_optimized=int_optimized,
+                                       unit=unit, device=dev)
+    if int_optimized:
+        width = None
+        try:
+            from m3_tpu_torch.utils.native import count_batch_native
+
+            counts = count_batch_native(streams, unit_nanos=unit.nanos)
+            width = int(counts.max(initial=0))
+            for lane in np.nonzero(counts < 0)[0]:
+                # unsupported constructs: the scalar oracle counts here
+                # and re-decodes inside decode_streams below
+                got_t, _ = _scalar_decode(streams[lane], int_optimized, unit)
+                width = max(width, len(got_t))
+        except Exception:  # host toolchain unavailable: escalation below
+            width = None
+        if width is not None:
+            return decode_streams(streams, max(width, 1),
+                                  int_optimized=int_optimized, unit=unit,
+                                  device=dev)
+    est = min(1 + max_len * 8 // 12, hard_cap)
+    todo = np.arange(len(streams))
+    rounds: list[tuple[np.ndarray, tuple]] = []
+    while True:
+        sub = [streams[i] for i in todo]
+        ts, vs, valid = decode_streams(sub, est, int_optimized=int_optimized,
+                                       unit=unit, device=dev)
+        if est >= hard_cap:
+            rounds.append((todo, (ts, vs, valid)))
+            break
+        sat = valid[:, -1]  # grid filled: may be truncated
+        done = ~sat
+        if done.any():
+            rounds.append((todo[done], (ts[done], vs[done], valid[done])))
+        if not sat.any():
+            break
+        todo = todo[sat]
+        est = min(est * 4, hard_cap)
+    width = max(r[1][0].shape[1] for r in rounds)
+    L = len(streams)
+    out_t = np.zeros((L, width), dtype=np.int64)
+    out_v = np.zeros((L, width))
+    out_m = np.zeros((L, width), dtype=bool)
+    for idx, (ts, vs, valid) in rounds:
+        w = ts.shape[1]
+        out_t[idx, :w] = ts
+        out_v[idx, :w] = vs
+        out_m[idx, :w] = valid
+    return out_t, out_v, out_m
+
+
+def decode_streams_merged(
+    streams: list[bytes],
+    slots: np.ndarray,
+    n_lanes: int,
+    int_optimized: bool = True,
+    unit: xtime.Unit = xtime.Unit.SECOND,
+    counts: np.ndarray | None = None,
+):
+    """Fused decode + merge of the warm read path, on the host: count
+    pass, exact per-lane sizing, each block stream decoded directly into
+    its packed [n_lanes, N] position (``native/m3tsz_ref.cc``), then the
+    tail padding.
+
+    Contract: streams of one lane (``slots``) come in ascending time
+    order.  Returns (times [n_lanes, N] with INT64_MAX padding, values
+    [n_lanes, N] with NaN padding, lane_counts [n_lanes]), or None when
+    the preconditions do not hold (out-of-order timestamps inside or
+    across streams, slots not grouped, no native toolchain, the
+    float-only grammar): callers then take the general decode and a
+    sorting merge."""
+    if not int_optimized or not len(streams):
+        return None
+    decode_counter.bump(len(streams))
+    try:
+        from m3_tpu_torch.utils.native import (blob_offsets,
+                                               count_batch_native,
+                                               decode_merged_native,
+                                               pad_lane_tails_native)
+
+        packed = blob_offsets(streams)  # shared by the count and decode passes
+        if counts is not None:
+            # v2 filesets store per-stream counts: no count pass
+            counts = np.ascontiguousarray(counts, dtype=np.int64)
+        else:
+            counts = count_batch_native(streams, unit_nanos=unit.nanos,
+                                        packed=packed)
+    except Exception:  # host toolchain unavailable
+        return None
+    slots = np.ascontiguousarray(slots, dtype=np.int64)
+    if len(slots) > 1 and not bool(np.all(slots[1:] >= slots[:-1])):
+        return None  # not grouped: the adjacency order check would not cover
+    bad = np.nonzero(counts < 0)[0]
+    bad_data: dict[int, tuple[list, list]] = {}
+    for lane in bad:
+        got_t, got_v = _scalar_decode(streams[lane], int_optimized, unit)
+        bad_data[int(lane)] = (got_t, got_v)
+        counts[lane] = len(got_t)
+    lane_counts = np.bincount(slots, weights=counts,
+                              minlength=n_lanes).astype(np.int64)
+    n_cap = max(int(lane_counts.max(initial=0)), 1)
+    # flat destination offsets: a global cumsum re-based at each group
+    # start gives each row's position within its lane
+    cum = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    first = np.concatenate(([True], slots[1:] != slots[:-1]))
+    group_idx = np.cumsum(first) - 1
+    pos_in_lane = cum - cum[np.nonzero(first)[0]][group_idx]
+    row_dst = slots * n_cap + pos_in_lane
+    out_t = np.empty((n_lanes, n_cap), dtype=np.int64)
+    out_v = np.empty((n_lanes, n_cap), dtype=np.float64)
+    row_n, row_first, row_last, row_sorted = decode_merged_native(
+        streams, row_dst, counts, out_t.reshape(-1), out_v.reshape(-1),
+        unit_nanos=unit.nanos, packed=packed)
+    for lane, (got_t, got_v) in bad_data.items():
+        dst = row_dst[lane]
+        flat_t, flat_v = out_t.reshape(-1), out_v.reshape(-1)
+        flat_t[dst:dst + len(got_t)] = got_t
+        flat_v[dst:dst + len(got_v)] = got_v
+        row_n[lane] = len(got_t)
+        row_first[lane] = got_t[0] if got_t else np.iinfo(np.int64).max
+        row_last[lane] = got_t[-1] if got_t else np.iinfo(np.int64).min
+        row_sorted[lane] = int(all(a <= b for a, b in zip(got_t, got_t[1:])))
+    # every row sorted, adjacent rows of one lane not overlapping in time
+    if not row_sorted.all():
+        return None
+    if len(streams) > 1:
+        same = slots[1:] == slots[:-1]
+        if not bool(np.all(~same | (row_last[:-1] <= row_first[1:]))):
+            return None
+    if not bool((row_n == counts).all()):
+        return None  # count/decode disagreement
+    pad_lane_tails_native(out_t, out_v, lane_counts)
+    return out_t, out_v, lane_counts

@@ -86,6 +86,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import m3_tpu_torch.entry, chip_smoke\n"
         "import m3_tpu_torch.aggregator.aggregator, m3_tpu_torch.ops.m3tsz_encode\n"
         "import m3_tpu_torch.storage.shard, m3_tpu_torch.utils.native\n"
+        "import m3_tpu_torch.storage.database, m3_tpu_torch.storage.tiles\n"
+        "import m3_tpu_torch.cache, m3_tpu_torch.observe, m3_tpu_torch.ops.tiles\n"
         "bad = [m for m in sys.modules if m in ('jax', 'm3_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib', 'm3_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -94,8 +96,8 @@ def test_port_imports_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # every module was imported: the read, query and write slices
-    assert int(res.stdout.strip()) >= 35
+    # every module was imported: the read, query and write slices, storage
+    assert int(res.stdout.strip()) >= 60
 
 
 def test_default_device_never_falls_back_to_cpu(monkeypatch):
