@@ -1,5 +1,5 @@
 """Chip smoke test: the PyTorch/CUDA port's read, query (PromQL and Graphite),
-write and storage paths on one NVIDIA GPU.
+write and storage paths, and their series-sharded forms, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
@@ -106,7 +106,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    and checked against numpy (``storage_main``); then T1 alone at
    1,000,000 lanes x 720 points, 1m and 5m tiles, beside its plain
    version, its bound and K3 + ``index_add_``/``scatter_reduce_``;
-13. report — one JSON line listing the kernels, then the result line.
+13. mesh — the series-sharded paths on one card with 8 virtual shards
+   (MK1 and QK4's sqdev against their plain versions with the parity
+   phases, bit for bit, twice): the north-star read on a 4x2 mesh through
+   ``decode_downsample_sharded`` (MEAN; per_lane against
+   ``decode_downsample`` bit for bit, the fleet against numpy at rtol
+   1e-12, both consolidation schedules the same bits), after the read main;
+   BASELINE config 4 repacked over 8 shards (``shard_repack``) through
+   ``device_rate_sharded``, ``device_grouped_sharded`` (sum, stddev, min,
+   quantile(0.9)) and ``device_expr_pipeline_sharded`` (the grouped-rate
+   ratio, topk(10, ..), histogram_quantile(0.99, ..)), each against the
+   unsharded pipeline on the same data, then the ratio and the grouped sum
+   again over an NCCL group of world size 1 (the same bits), then MK1 and
+   sqdev timed, after the graphite phase; the encode configuration through
+   ``encode_rollup_sharded`` on 8x1 and 4x2 (words/nbits against
+   ``encode_batched`` bit for bit, total_bytes exact), after the encode;
+14. report — one JSON line listing the kernels, then the result line.
 
 The script imports nothing of JAX.  It exits non-zero without a result
 when no CUDA device is present.
@@ -115,28 +130,36 @@ when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from m3_tpu_torch import metrics
 from m3_tpu_torch.aggregator import Aggregator, ElemPool, elems
 from m3_tpu_torch.models import corpus
+from m3_tpu_torch.models import ingest_pipeline as ing
 from m3_tpu_torch.models import query_pipeline as qp
+from m3_tpu_torch.models import read_pipeline as rp
 from m3_tpu_torch.models.read_pipeline import _SIMPLE_AGGS, decode_downsample, inputs_from_numpy
 from m3_tpu_torch.ops import _build, graphite, histo_quantile, lane_topk, m3tsz_scalar, tiles
-from m3_tpu_torch.ops import query_grouped
+from m3_tpu_torch.ops import mesh_reduce, query_grouped
 from m3_tpu_torch.ops import query_merge, query_temporal
 from m3_tpu_torch.ops import consolidate as cons
 from m3_tpu_torch.ops import downsample as ds
 from m3_tpu_torch.ops import m3tsz_decode as dec
 from m3_tpu_torch.ops import m3tsz_encode as enc
 from m3_tpu_torch.ops.bitstream import pack_streams, unpack_stream
+from m3_tpu_torch.parallel import mesh as pmesh
+from m3_tpu_torch.parallel.repack import shard_repack
 from m3_tpu_torch.storage import shard
 from m3_tpu_torch.utils import native
 
@@ -2714,6 +2737,397 @@ def tiles_kernel_times(unique_streams, b0: int, rows):
     torch.cuda.empty_cache()
 
 
+# --- phase 14: the mesh paths (series-sharded read, ingest and query) -------
+
+MESH_SHARDS = 8  # virtual shards on the one card
+
+
+def _mesh_probe_stack(n_shards: int, n: int, seed: int) -> torch.Tensor:
+    """[n_shards, n] partials of NaN, +-Inf, +-0.0, +-DBL_MAX-scale and plain
+    values, with columns of alternating signed zeros, all NaN and all -0.0."""
+    rng = np.random.default_rng(seed)
+    pool = np.asarray([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -2.25, 1e308, -1e308, 3.0, 1e-3])
+    x = pool[rng.integers(0, len(pool), (n_shards, n))]
+    x[:, 0] = np.where(np.arange(n_shards) % 2, -0.0, 0.0)
+    x[:, 1] = np.where(np.arange(n_shards) % 2, 0.0, -0.0)
+    x[:, 2] = np.nan
+    x[:, 3] = -0.0
+    return torch.from_numpy(x).to(DEVICE)
+
+
+def _sqdev_probes():
+    """(matrix, segments, n_segments, center) cases for QK4's sqdev: probe
+    matrices with NaN cells, all-NaN lanes, +-Inf and +-0.0, split over 1-8
+    shards into segments of at most 32 lanes (folded in lane order, so bit
+    for bit), a lane outside every group; and the served rate of the query
+    probe corpus split over 2 shards."""
+    rng = np.random.default_rng(77)
+    cases = []
+    for L, S, n_groups, spr in ((32, 24, 3, 4), (64, 40, 5, 8), (56, 355, 2, 7), (16, 7, 1, 1)):
+        out = rng.standard_normal((L, S)) * 10
+        out[rng.random(out.shape) < 0.3] = np.nan
+        out[3] = np.nan
+        out[5, :4] = [np.inf, -np.inf, 0.0, -0.0]
+        groups = rng.integers(0, n_groups, L)
+        groups[7] = n_groups  # no group
+        cases.append((out, groups, n_groups, spr, rng.standard_normal((n_groups, S))))
+    b = corpus.query_probe_corpus()
+    rate, _, _ = qp.device_rate_pipeline(b.words, b.nbits, b.slots, b.steps, b.n_lanes, b.n_cap,
+                                         b.range_nanos, n_dp=b.n_dp, device="cpu")
+    rate = rate.numpy()
+    L = rate.shape[0] - rate.shape[0] % 2
+    cases.append((rate[:L], np.arange(L) % 3, 3, 2, rng.standard_normal((3, rate.shape[1]))))
+    for out, groups, n_groups, spr, center in cases:
+        L = out.shape[0]
+        seg = np.where(groups < n_groups, (np.arange(L) // (L // spr)) * n_groups + groups, -1)
+        yield (torch.from_numpy(out).to(DEVICE), seg, spr * n_groups,
+               torch.from_numpy(center).to(DEVICE))
+
+
+def compare_mesh_kernels():
+    """MK1 (sum, min and max; f64 and i64; at 1, 7 and 8 shards; with and
+    without an owned range) and QK4's sqdev against their plain versions on
+    the card, bit for bit, twice."""
+    n_mk1 = 0
+    for n_shards in (1, 7, 8):
+        for n in (60, 4097):
+            x = _mesh_probe_stack(n_shards, n, seed=31 * n_shards + n)
+            xi = torch.from_numpy(np.random.default_rng(n).integers(
+                -2**60, 2**60, (n_shards, n))).to(DEVICE)
+            for op in mesh_reduce.OPS:
+                for lo, hi in ((None, None), (n // 3, n // 3 + n // 2)):
+                    for t in (x, xi):
+                        tag = f"mesh parity MK1 {op} {t.dtype} {n_shards}x{n} [{lo}, {hi})"
+                        got = twice(lambda: mesh_reduce.mesh_reduce(t, op, lo, hi), tag)
+                        _record("mesh_reduce", same_bits(
+                            got, mesh_reduce.mesh_reduce_plain(t, op, lo, hi), tag))
+                        n_mk1 += 1
+    n_sq = 0
+    for out, seg, n_seg, center in _sqdev_probes():
+        tag = f"mesh parity sqdev {tuple(out.shape)} over {n_seg} segments"
+        got = twice(lambda: query_grouped.grouped_reduce(out, seg, n_seg, "sqdev", None, 0.0,
+                                                         center), tag)
+        _record("query_sqdev", same_bits(got, query_grouped.grouped_reduce_plain(
+            out, torch.from_numpy(seg).to(DEVICE), n_seg, "sqdev", 0.0, center), tag))
+        n_sq += 1
+    torch.cuda.synchronize()
+    log(f"mesh parity: MK1 bit for bit on {n_mk1} cases, QK4 sqdev on {n_sq} probe sets "
+        f"(segments of <= 32 lanes), twice each")
+
+
+def _drive_mesh(name: str, fn, want):
+    """fn() with the launch counts reset just before and read just after."""
+    _build.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for kernel in want:
+        check(launches.get(kernel, 0) > 0, f"mesh {name}: {kernel} not launched")
+    return res, launches
+
+
+def _mesh_timed(name: str, sharded, unsharded, launches, checked: str, results: dict):
+    ms = time_ms(sharded, reps=7)
+    ms_u = time_ms(unsharded, reps=7)
+    results[name] = {"launches": launches, "ms": ms, "unsharded_ms": ms_u}
+    log(f"mesh {name}: launches {launches}; {ms:.3f} ms device sharded over {MESH_SHARDS} "
+        f"shards vs {ms_u:.3f} ms unsharded (medians of 7); {checked}")
+
+
+def mesh_read_main(walks, results: dict):
+    """The north-star read (1,000,000 series x 360 points, window 6) on a
+    4x2 mesh through decode_downsample_sharded for MEAN: per_lane against
+    decode_downsample bit for bit, the fleet against a float64 numpy sum of
+    nan_to_num(per_lane) at rtol 1e-12, the two schedules bit for bit."""
+    reps = N_SERIES // N_UNIQUE
+    uw, un = pack_streams(walks)
+    mesh = pmesh.make_mesh(4, 2, device=DEVICE)
+    check(pmesh.supports_f64_reduce_scatter(mesh), "the card takes the scatter schedule")
+    words, nbits = rp.shard_inputs(mesh, np.tile(uw, (reps, 1)), np.tile(un, reps))
+    agg = ds.AggregationType.MEAN
+    step = rp.decode_downsample_sharded(mesh, N_DP, WINDOW, agg)
+    (per_lane, fleet), launches = _drive_mesh(
+        "read", lambda: step(words, nbits),
+        ["decode_downsample_fused", "query_grouped", "mesh_reduce"])
+    single, _, _ = decode_downsample(words, nbits, N_DP, WINDOW, agg)
+    same_bits(per_lane, single, "mesh read: per_lane vs decode_downsample")
+    want = np.nan_to_num(single.cpu().numpy()).sum(axis=0)
+    err = close(fleet.cpu(), torch.from_numpy(want), 1e-12, "mesh read: fleet vs numpy")
+    # the step's scatter schedule against the all-reduce one on the same partials
+    local = pmesh.shard_reduce(mesh, torch.nan_to_num(per_lane))
+    partial = pmesh.psum(mesh, local, pmesh.SERIES_AXIS)
+    same_bits(fleet, pmesh.consolidate_windows(mesh, partial, pmesh.WINDOW_AXIS, False)[0],
+              "mesh read: scatter vs all-reduce schedule")
+    _mesh_timed("read", lambda: step(words, nbits),
+                lambda: decode_downsample(words, nbits, N_DP, WINDOW, agg), launches,
+                f"per_lane bit for bit, fleet vs numpy max abs err {err} (rtol 1e-12), "
+                f"both schedules the same bits", results)
+    for name, fn in (
+            ("per-shard sums (QK4)", lambda: pmesh.shard_reduce(mesh, per_lane)),
+            ("scatter schedule (MK1)", lambda: pmesh.consolidate_windows(
+                mesh, partial, pmesh.WINDOW_AXIS, True)),
+            ("all-reduce schedule (MK1)", lambda: pmesh.consolidate_windows(
+                mesh, partial, pmesh.WINDOW_AXIS, False))):
+        results["read"][name] = time_ms(fn, reps=7)
+        log(f"time mesh read's {name}: {results['read'][name]:.3f} ms")
+
+
+def mesh_ingest_main(results: dict):
+    """The encode configuration (250,000 series x 360 points, window 6)
+    through encode_rollup_sharded on 8x1 and 4x2: words/nbits against
+    encode_batched's bit for bit, total_bytes exact, rolled and the fleet
+    against numpy at rtol 1e-12."""
+    ts_u, vs_u = corpus.gen_grids(N_UNIQUE, N_DP)
+    reps = ENC_SERIES // N_UNIQUE
+    ts, vs = np.tile(ts_u, (reps, 1)), np.tile(vs_u, (reps, 1))
+    start = np.full(ENC_SERIES, corpus.START, dtype=np.int64)
+    n_valid = np.full(ENC_SERIES, N_DP, dtype=np.int32)
+    cb, cn, pb, pn = native.prepare_value_fields_native(vs, n_valid)
+    ref_words, ref_nbits = enc.encode_batched(ts, vs, start, n_valid, device=DEVICE)
+    want_total = int(((ref_nbits.cpu().numpy().astype(np.int64) + 7) // 8).sum())
+    rolled_np = vs.reshape(ENC_SERIES, N_DP // WINDOW, WINDOW).mean(axis=2)
+    for shape in ((8, 1), (4, 2)):
+        mesh = pmesh.make_mesh(*shape, device=DEVICE)
+        step = ing.encode_rollup_sharded(mesh, N_DP, WINDOW)
+        args = ing.shard_ingest_inputs(mesh, ts, start, n_valid, cb, cn, pb, pn, vs)
+        (words, nbits, rolled, fleet, total), launches = _drive_mesh(
+            f"ingest {shape}", lambda: step(*args), ["pack_encode", "query_grouped", "mesh_reduce"])
+        same_bits(_words_bits(words), _words_bits(ref_words), f"mesh ingest {shape}: words")
+        same_bits(nbits, ref_nbits, f"mesh ingest {shape}: nbits")
+        check(total.dtype == torch.int64 and int(total) == want_total,
+              f"mesh ingest {shape}: total_bytes {int(total)} != {want_total}")
+        close(rolled.cpu(), torch.from_numpy(rolled_np), 1e-12, f"mesh ingest {shape}: rolled")
+        err = close(fleet.cpu(), torch.from_numpy(rolled_np.sum(axis=0)), 1e-12,
+                    f"mesh ingest {shape}: fleet")
+        _mesh_timed(f"ingest {shape[0]}x{shape[1]}", lambda: step(*args),
+                    lambda: enc.pack_encode(*args[:7]), launches,
+                    f"words/nbits bit for bit with encode_batched, total_bytes {int(total)} "
+                    f"exact, fleet max abs err {err} (rtol 1e-12); unsharded = E1 alone on the "
+                    f"same fields", results)
+        del words, nbits, rolled, args
+    torch.cuda.empty_cache()
+
+
+def _shard_even_leaf(eb: corpus.ExprPlanBuilder, idx: int) -> int:
+    rows = len(eb.leaves[idx]["nbits"])
+    eb.shard_even(idx, MESH_SHARDS)
+    lf = eb.leaves[idx]
+    log(f"mesh leaf {idx}: {rows} stream rows -> {len(lf['nbits'])} shard-even rows "
+        f"({len(lf['nbits']) // MESH_SHARDS} a shard) over {len(lf['valid'])} lanes "
+        f"({int(lf['valid'].sum())} real)")
+    return idx
+
+
+def mesh_query_main(fc: corpus.FanoutCorpus, results: dict, rows: dict):
+    """BASELINE config 4 repacked into 8 shards (shard_repack): rate,
+    grouped sum/stddev/min/quantile(0.9), and the ratio, topk(10) and
+    histogram_quantile(0.99) plans through device_expr_pipeline_sharded,
+    each against the unsharded pipeline on the same data; then the same
+    ratio and grouped sum over an NCCL group of world size 1; then MK1 and
+    sqdev timed at the group-by's shapes."""
+    b = fc.batch
+    n, S, r = b.n_lanes, len(b.steps), b.range_nanos
+    mesh = pmesh.make_mesh(MESH_SHARDS, device=DEVICE)
+    pk = shard_repack({"words": b.words, "nbits": b.nbits, "slots": b.slots, "tiers": None,
+                       "n_streams": len(b.slots), "lanes_pad": n}, MESH_SHARDS)
+    L = pk["lanes_pad"]
+    log(f"mesh query data: {n} lanes repacked to {L} over {MESH_SHARDS} shards, "
+        f"{len(pk['nbits'])} stream rows ({len(b.slots)} real)")
+    w, nb, sl = (pmesh.series_sharding(mesh, pk[k]) for k in ("words", "nbits", "slots"))
+    real = torch.from_numpy(pk["real_rows"]).to(DEVICE)
+    steps = pmesh.replicated(mesh, b.steps)
+    words, nbits, slots, _, _ = qp._inputs(b.words, b.nbits, b.slots, b.steps, None, DEVICE)
+    kw = dict(n_cap=b.n_cap, range_nanos=r, n_dp=b.n_dp)
+    front = ["decode_batched", "query_merge", "query_rate"]
+
+    def sharded_rate():
+        return qp.device_rate_sharded(mesh, w, nb, sl, steps, L, **kw)
+
+    def unsharded_rate():
+        return qp.device_rate_pipeline(words, nbits, slots, steps, n_lanes=n, **kw)
+
+    (rate, fleet, err), launches = _drive_mesh("rate", sharded_rate,
+                                               front + ["query_grouped", "mesh_reduce"])
+    check(not bool(err[real].any()), "mesh rate: error flags on real streams")
+    u_rate, u_fleet, _ = unsharded_rate()
+    same_bits(rate[:n], u_rate, "mesh rate: per lane vs device_rate_pipeline")
+    check(bool(torch.isnan(rate[n:]).all()), "mesh rate: padding lanes not NaN")
+    e = close(fleet, u_fleet, 1e-12, "mesh rate: fleet vs device_rate_pipeline")
+    _mesh_timed("rate", sharded_rate, unsharded_rate, launches,
+                f"per lane bit for bit, fleet max abs err {e} (rtol 1e-12)", results)
+    del u_rate
+
+    groups = np.zeros(L, dtype=np.int64)  # padding lanes (all NaN) parked on group 0
+    groups[:n] = b.groups
+    grouped = {}
+    for agg, rtol, want in (("sum", 1e-12, ["query_grouped", "mesh_reduce"]),
+                            ("stddev", 1e-9, ["query_grouped", "query_sqdev", "mesh_reduce"]),
+                            ("min", 0.0, ["query_grouped", "mesh_reduce"]),
+                            ("max", 0.0, ["query_grouped", "mesh_reduce"]),
+                            ("quantile", 0.0, ["query_quantile"])):
+        def sharded(agg=agg):
+            return qp.device_grouped_sharded(mesh, w, nb, sl, steps, groups, L, b.n_groups,
+                                             fn="rate", agg=agg, phi=0.9, **kw)
+
+        def unsharded(agg=agg):
+            return qp.device_grouped_pipeline(words, nbits, slots, steps, b.groups, n_lanes=n,
+                                              n_groups=b.n_groups, fn="rate", agg=agg, phi=0.9,
+                                              **kw)
+
+        (out, err), launches = _drive_mesh(f"{agg} by (g)", sharded, front + want)
+        check(not bool(err[real].any()), f"mesh {agg}: error flags on real streams")
+        u_out, _ = unsharded()
+        if rtol:
+            e = close(out, u_out, rtol, f"mesh {agg} by (g) vs device_grouped_pipeline")
+            how = f"max abs err {e} (rtol {rtol})"
+        else:
+            same_bits(out, u_out, f"mesh {agg} by (g) vs device_grouped_pipeline")
+            how = "bit for bit"
+        grouped[agg] = out
+        _mesh_timed(f"{agg}_by_rate" if agg != "quantile" else "quantile(0.9)_by_rate",
+                    sharded, unsharded, launches,
+                    f"vs device_grouped_pipeline {how}", results)
+
+    # the interpreter: the ratio of bench.py:1768, topk(10, ..), histogram_quantile(0.99, ..)
+    plans = {}
+    eb = corpus.ExprPlanBuilder(b.steps)
+    half = n // 2
+    aggs = []
+    for lo in (0, half):
+        ws, nbs, sls = _words_slice(b, lo, lo + half)
+        labels = [{"job": "j%02d" % (i % N_JOBS_RATIO), "host": "h%06d" % i} for i in range(half)]
+        idx = _shard_even_leaf(eb, eb.words_leaf(ws, nbs, sls, labels, b.n_dp, b.n_cap, r))
+        aggs.append(eb.agg("sum", eb.leaf(idx, "rate"), ("job",)))
+    plans["ratio"] = (eb, eb.vv("/", *aggs, on=("job",)),
+                      front + ["query_grouped", "mesh_reduce"], 1e-12)
+    eb = corpus.ExprPlanBuilder(b.steps)
+    job_labels = [{"job": "j%03d" % (i % N_JOBS), "instance": "i%06d" % i} for i in range(n)]
+    idx = _shard_even_leaf(eb, eb.words_leaf(b.words, b.nbits, b.slots, job_labels, b.n_dp,
+                                             b.n_cap, r))
+    plans["topk"] = (eb, eb.topk("topk", 10, eb.leaf(idx, "rate")), front + ["query_topk"], 0.0)
+    eb_orig = corpus.ExprPlanBuilder(b.steps)  # the same plan on the engine's unsharded layout
+    root_orig = eb_orig.topk("topk", 10, eb_orig.leaf(eb_orig.words_leaf(
+        b.words, b.nbits, b.slots, job_labels, b.n_dp, b.n_cap, r), "rate"))
+    hf = corpus.histogram_fleet(N_HIST, N_JOBS, HIST_UNIQUE, fc=fc)
+    eb = corpus.ExprPlanBuilder(b.steps)
+    idx = _shard_even_leaf(eb, eb.words_leaf(hf.words, hf.nbits, hf.slots, hf.labels, hf.n_dp,
+                                             hf.n_cap, r))
+    plans["histogram_quantile"] = (
+        eb, eb.hq(0.99, eb.agg("sum", eb.leaf(idx, "rate"), ("job", "le"))),
+        front + ["query_grouped", "mesh_reduce", "histo_quantile"], 1e-12)
+    del hf
+    expr_inputs = {}
+    for name, (eb, root, want, rtol) in plans.items():
+        leaves, params, st = eb.inputs()
+        s_in = qp.shard_expr_inputs(root.plan, mesh, leaves, params, st)
+        u_in = corpus.expr_inputs_from_numpy(corpus.global_slots(leaves, MESH_SHARDS), params,
+                                             st, DEVICE)
+        expr_inputs[name] = (root.plan, s_in)
+
+        def sharded(plan=root.plan, s_in=s_in):
+            return qp.device_expr_pipeline_sharded(plan, mesh, *s_in)
+
+        def unsharded(plan=root.plan, u_in=u_in):
+            return qp.device_expr_pipeline(plan, *u_in)
+
+        (out, aux, errs), launches = _drive_mesh(name, sharded, want)
+        u_out, u_aux, u_errs = unsharded()
+        for e_s, e_u in zip(errs, u_errs):
+            same_bits(e_s, e_u, f"mesh {name}: error flags vs device_expr_pipeline")
+        if rtol:
+            e = close(out, u_out, rtol, f"mesh {name} vs device_expr_pipeline")
+            how = f"max abs err {e} (rtol {rtol})"
+        else:
+            same_bits(out, u_out, f"mesh {name} vs device_expr_pipeline")
+            for a_s, a_u in zip(aux, u_aux):
+                same_bits(a_s, a_u, f"mesh {name}: aux vs device_expr_pipeline")
+            how = "out and aux bit for bit"
+        check(bool(torch.isfinite(out).any()), f"mesh {name}: no finite value")
+        if name == "ratio":
+            ratio_out = out
+        if name == "topk":
+            o_in = corpus.expr_inputs_from_numpy(*eb_orig.inputs(), DEVICE)
+            same_bits(qp.device_expr_pipeline(root_orig.plan, *o_in)[0], out,
+                      "mesh topk vs the unsharded layout")
+            layout_ms = time_ms(lambda: qp.device_expr_pipeline(root_orig.plan, *o_in), reps=7)
+            log(f"mesh topk on the unsharded layout (no repack): {layout_ms:.3f} ms device "
+                f"(median of 7)")
+            del o_in
+        _mesh_timed(name, sharded, unsharded, launches, f"vs device_expr_pipeline {how}",
+                    results)
+        if name == "topk":
+            results[name]["unsharded_layout_ms"] = layout_ms
+        del u_in, u_out
+    torch.cuda.empty_cache()
+
+    # NCCL at world size 1: the same queries through a mesh on the group
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(DEVICE.index or 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            gmesh = pmesh.make_mesh(MESH_SHARDS, device=DEVICE, group=dist.group.WORLD)
+            check(gmesh.world == 1 and gmesh.shards_per_rank == MESH_SHARDS, "NCCL mesh layout")
+            plan, s_in = expr_inputs["ratio"]
+            (g_ratio, _, _), launches = _drive_mesh(
+                "ratio [nccl]", lambda: qp.device_expr_pipeline_sharded(plan, gmesh, *s_in),
+                ["query_grouped", "mesh_reduce"])
+            same_bits(g_ratio, ratio_out, "mesh ratio: NCCL group vs no group")
+            ratio_ms = time_ms(lambda: qp.device_expr_pipeline_sharded(plan, gmesh, *s_in), 7)
+            (g_sum, _), _ = _drive_mesh("sum by (g) [nccl]", lambda: qp.device_grouped_sharded(
+                gmesh, w, nb, sl, steps, groups, L, b.n_groups, fn="rate", agg="sum", **kw),
+                ["query_grouped", "mesh_reduce"])
+            same_bits(g_sum, grouped["sum"], "mesh sum by (g): NCCL group vs no group")
+            stack = torch.randn((MESH_SHARDS, b.n_groups * S), dtype=torch.float64, device=DEVICE)
+            gather_ms = time_ms(lambda: gmesh.gather_rows(stack), reps=7)
+            results["nccl"] = {"launches": launches, "ratio_ms": ratio_ms,
+                               "all_gather_into_tensor_ms": gather_ms}
+            log(f"mesh nccl (world size 1, FileStore): ratio and sum by (g) the same bits as "
+                f"without a group; ratio {ratio_ms:.3f} ms device (median of 7); "
+                f"all_gather_into_tensor of f64{tuple(stack.shape)} {gather_ms:.3f} ms "
+                f"(no link crossed at world size 1)")
+        finally:
+            dist.destroy_process_group()
+
+    # MK1 and sqdev at the group-by's shapes: each shard's partial sums of
+    # sum by (g) (rate), [8, 100 * 355]; sqdev over the rate lanes
+    seg = pmesh.shard_segments(mesh, L, groups, b.n_groups)
+    n_seg = MESH_SHARDS * b.n_groups
+    part = query_grouped.grouped_reduce(rate, seg, n_seg, "sum", None, 0.0).reshape(
+        MESH_SHARDS, -1)
+    N = part.shape[1]
+    for op, lib_fn in (("sum", torch.sum), ("min", torch.amin), ("max", torch.amax)):
+        fn = lambda: mesh_reduce.mesh_reduce(part, op)  # noqa: E731
+        same_bits(fn(), mesh_reduce.mesh_reduce_plain(part, op), f"time MK1 {op}")
+        row(f"mesh_reduce[{op}]", rows, time_ms(fn, reps=7),
+            time_ms(lambda: mesh_reduce.mesh_reduce_plain(part, op), reps=7),
+            (MESH_SHARDS + 1) * N * 8, MESH_SHARDS * N / FP64_OPS_PER_S * 1e3,
+            time_ms(lambda: lib_fn(part, dim=0), reps=7), f"torch.{lib_fn.__name__} over dim 0")
+    counts = mesh_reduce.mesh_reduce(query_grouped.grouped_reduce(
+        rate, seg, n_seg, "count", None, 0.0).reshape(MESH_SHARDS, -1), "sum").reshape(-1, S)
+    center = (mesh_reduce.mesh_reduce(part, "sum").reshape(-1, S)
+              / torch.clamp(counts, min=1.0)).contiguous()
+    seg_t = torch.from_numpy(seg).to(DEVICE)
+    index = query_grouped.group_index(seg, n_seg, DEVICE)
+    fn = lambda: query_grouped.grouped_reduce(rate, seg, n_seg, "sqdev", index, 0.0,  # noqa
+                                              center)
+    _record("query_sqdev", close(fn(), query_grouped.grouped_reduce_plain(
+        rate, seg_t, n_seg, "sqdev", 0.0, center), 1e-12,
+        "time sqdev (segments of ~63 lanes: warp chains)"))
+    d = torch.where(torch.isnan(rate), 0.0, rate - center[seg_t.clamp(min=0) % b.n_groups])
+    d2 = d * d
+    row("query_sqdev", rows, time_ms(fn, reps=7),
+        time_ms(lambda: query_grouped.grouped_reduce_plain(rate, seg_t, n_seg, "sqdev", 0.0,
+                                                           center), reps=3),
+        L * S * 8 + L * 8 + b.n_groups * S * 8 + n_seg * S * 8, L * S * 3 / FP64_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.zeros((n_seg, S), dtype=torch.float64, device=DEVICE).index_add_(
+            0, seg_t, d2), reps=7), "index_add_ (of d * d computed ahead)")
+    del rate, part, d, d2, w, nb, sl, words, nbits, slots
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2761,6 +3175,7 @@ def main() -> int:
     compare_elems(corpus.elem_probe_batches(n=4096, n_batches=3, seed=6), "dense")
     compare_padded_quantiles()
     compare_tiles(walks)
+    compare_mesh_kernels()
     log(f"parity phases done at {time.time() - t_start:.1f} s")
 
     words, nbits, results = main_path(walks)
@@ -2769,6 +3184,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"read main phase done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
+    m_results, rows_m = {}, {}
+    mesh_read_main(walks, m_results)
+    torch.cuda.empty_cache()
+    log(f"mesh read phase done at {time.time() - t_start:.1f} s")
     fc, q_inputs, q_results = query_main(Q_SERIES)
     rows_q = query_kernel_times(fc.batch, q_inputs)
     del q_inputs
@@ -2793,6 +3212,9 @@ def main() -> int:
         for kernel, n in r["launches"].items():
             g_launch[kernel] = g_launch.get(kernel, 0) + n
     x_results.update(g_results)
+    mesh_query_main(fc, m_results, rows_m)
+    log(f"mesh query phase done at {time.time() - t_start:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
     del g_shapes, fc
     torch.cuda.empty_cache()
     log(f"expr main phase done at {time.time() - t_start:.1f} s; peak device memory "
@@ -2820,6 +3242,15 @@ def main() -> int:
     r_timer = timer_main(rows_w)
     r_agg = aggregator_main()
     r_enc = encode_main(rows_w)
+    mesh_ingest_main(m_results)
+    log(f"mesh ingest phase done at {time.time() - t_start:.1f} s")
+    log(json.dumps({"mesh_end_to_end": {name: {k: v for k, v in r.items() if k != "launches"}
+                                        for name, r in m_results.items()},
+                    "card": name_power}))
+    m_launch = {}
+    for r in m_results.values():
+        for kernel, n in r["launches"].items():
+            m_launch[kernel] = m_launch.get(kernel, 0) + n
     log(f"write phases done at {time.time() - t_start:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
     r_store, unique_streams, b0 = storage_main()
@@ -2954,6 +3385,14 @@ def main() -> int:
         dict(name="aggregate_tiles", source=src + "m3tsz_decode.cu",
              replaces="m3_tpu/ops/tiles.py:34", launches=t1,
              max_abs_err=ERRORS["aggregate_tiles"], **rows_w["aggregate_tiles[5m]"]),
+        # MK1 at the sharded group-by's sum stack (its min/max times are printed)
+        dict(name="mesh_reduce", source=src + "mesh_reduce.cu",
+             replaces="m3_tpu/parallel/mesh.py:72", launches=m_launch.get("mesh_reduce", 0),
+             max_abs_err=ERRORS["mesh_reduce"], **rows_m["mesh_reduce[sum]"]),
+        # QK4's sqdev op code: the sharded stddev/stdvar's second pass
+        dict(name="query_sqdev", source=src + "query_grouped.cu", replaces=qsrc + "814",
+             launches=m_launch.get("query_sqdev", 0), max_abs_err=ERRORS["query_sqdev"],
+             **rows_m["query_sqdev"]),
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -19,7 +19,10 @@ Layout mirrors the reference so each module's counterpart is easy to find:
     ops/        kernels' wrappers + plain versions, host oracles, the
                 batched encoder
     models/     end-to-end pipelines (read path: decode + downsample;
-                query path: decode -> merge -> rate/reduce -> group-by)
+                query path: decode -> merge -> rate/reduce -> group-by;
+                the sharded ingest step), single-device and sharded
+    parallel/   the device mesh and its ordered collectives, the
+                shard-even repack
     aggregator/ the write side's rollups: ElemPool (device slot state)
                 and Aggregator
     storage/    the storage node: database, shards (the seal's batched

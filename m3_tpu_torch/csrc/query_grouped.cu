@@ -7,6 +7,11 @@
 //       reference's two passes: the mean, then sum((x - mean)^2));
 //   the fleet sum jnp.nansum(rate, axis=0) of device_rate_pipeline (:806):
 //       the one-group case, with 0.0 in place of NaN;
+//   the second pass of _grouped_reduce_sharded (:814) for stddev/stdvar
+//       (op code sqdev): sum((x - center[seg % n_center, s])^2) over each
+//       segment's present cells, 0.0 where none is present, with `center` the
+//       [n_groups, S] global mean read by global group id, so that one launch
+//       covers every (shard, group) segment (seg = shard * n_groups + group);
 //   _graphite_grouped_reduce (:1216) but for count_series, median and
 //       percentile: graphite's numpy NaN-reductions, the ops above (stddev
 //       the population one) with multiply (the product of the present
@@ -44,7 +49,7 @@ constexpr int kTile = 32;      // steps per block
 constexpr int kMaxWarps = 32;  // warps per block at most
 
 enum Agg : int { kSum = 0, kAvg = 1, kCount = 2, kMin = 3, kMax = 4, kGroup = 5, kStddev = 6,
-                 kStdvar = 7, kMultiply = 8, kRange = 9, kDiff = 10, kLast = 11 };
+                 kStdvar = 7, kMultiply = 8, kRange = 9, kDiff = 10, kLast = 11, kSqdev = 12 };
 
 __device__ __forceinline__ double min_ieee(double a, double b) {  // non-NaN operands
   if (a < b) return a;
@@ -80,7 +85,8 @@ __device__ __forceinline__ Pair pair_fold(int agg, Pair p, Pair q) {
 __global__ void __launch_bounds__(kTile * kMaxWarps) grouped_kernel(
     const double* __restrict__ x, long long S, const long long* __restrict__ members,
     const long long* __restrict__ offsets, const long long* __restrict__ group_ids,
-    long long n_tiles, int agg, double empty_value, double* __restrict__ out) {
+    long long n_tiles, int agg, double empty_value, const double* __restrict__ center,
+    long long n_center, double* __restrict__ out) {
   extern __shared__ double part[];  // four [warps][kTile] arrays
   __shared__ double mean_of[kTile];
   const int warps = blockDim.x >> 5;
@@ -97,13 +103,20 @@ __global__ void __launch_bounds__(kTile * kMaxWarps) grouped_kernel(
 
   double sum = 0.0, cnt = 0.0;
   Pair p = pair_init(agg);
+  // sqdev: the cell's deviation from its group's center, d = x - c, then d * d
+  const double c = agg == kSqdev && live ? center[(g % n_center) * S + s] : 0.0;
   if (live) {
 #pragma unroll 4
     for (long long k = lo + warp; k < hi; k += warps) {
       const long long lane = members != nullptr ? members[k] : k;
       const double v = x[lane * S + s];
       const bool m = !isnan(v);
-      sum += m ? v : 0.0;
+      if (agg == kSqdev) {
+        const double d = m ? v - c : 0.0;
+        sum += d * d;
+      } else {
+        sum += m ? v : 0.0;
+      }
       cnt += m ? 1.0 : 0.0;
       if (m) p = pair_fold(agg, p, {v, agg == kLast ? (double)lane : v});
     }
@@ -164,6 +177,7 @@ __global__ void __launch_bounds__(kTile * kMaxWarps) grouped_kernel(
       r = 2.0 * (isnan(v0) ? 0.0 : v0) - sum;
       break;
     }
+    case kSqdev: r = sum; break;
     default: r = p.a; break;  // kLast
   }
   out[g * S + s] = cnt == 0.0 ? empty_value : r;
@@ -179,19 +193,39 @@ extern "C" {
 // the n_groups groups listed in group_ids (null: groups 0..n_groups-1),
 // with `warps` (1, 2, 4, ..., 32) warps a block.  Launches on `stream` and
 // returns cudaGetLastError().
-int m3_query_grouped(const double* x, long long S, const long long* members,
-                     const long long* offsets, const long long* group_ids, int n_groups,
-                     int agg, double empty_value, int warps, double* out, void* stream) {
-  if (agg < kSum || agg > kLast || n_groups < 0 || warps < 1 || warps > kMaxWarps ||
-      (warps & (warps - 1)) != 0)
+static int launch(const double* x, long long S, const long long* members,
+                  const long long* offsets, const long long* group_ids, int n_groups, int agg,
+                  double empty_value, const double* center, long long n_center, int warps,
+                  double* out, void* stream) {
+  if (n_groups < 0 || warps < 1 || warps > kMaxWarps || (warps & (warps - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (n_groups == 0 || S <= 0) return (int)cudaSuccess;
   const long long n_tiles = (S + kTile - 1) / kTile;
   if (n_tiles * n_groups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = 4 * (size_t)warps * kTile * sizeof(double);
   grouped_kernel<<<(unsigned)(n_tiles * n_groups), warps * 32, smem, (cudaStream_t)stream>>>(
-      x, S, members, offsets, group_ids, n_tiles, agg, empty_value, out);
+      x, S, members, offsets, group_ids, n_tiles, agg, empty_value, center, n_center, out);
   return (int)cudaGetLastError();
+}
+
+int m3_query_grouped(const double* x, long long S, const long long* members,
+                     const long long* offsets, const long long* group_ids, int n_groups,
+                     int agg, double empty_value, int warps, double* out, void* stream) {
+  if (agg < kSum || agg > kLast) return (int)cudaErrorInvalidValue;
+  return launch(x, S, members, offsets, group_ids, n_groups, agg, empty_value, nullptr, 1,
+                warps, out, stream);
+}
+
+// The sqdev op code: as m3_query_grouped with `center` f64[n_center, S] (the
+// group of segment g is g % n_center) and 0.0 where a segment has no present
+// cell.
+int m3_query_sqdev(const double* x, long long S, const long long* members,
+                   const long long* offsets, const long long* group_ids, int n_groups,
+                   const double* center, long long n_center, int warps, double* out,
+                   void* stream) {
+  if (center == nullptr || n_center < 1) return (int)cudaErrorInvalidValue;
+  return launch(x, S, members, offsets, group_ids, n_groups, kSqdev, 0.0, center, n_center,
+                warps, out, stream);
 }
 
 const char* m3_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -64,6 +64,17 @@ Storage and tiles:
   1 ns around them for a block start off the second grid, a sum whose
   value depends on its order).
 
+The mesh paths (the cases of the reference's own mesh tests):
+- ``sharded_query_streams``: lanes of ``blocks_per`` blocks of counter
+  samples, slot-grouped (``tests/test_query_pipeline_device.py:24``; 16
+  lanes, 2 blocks of 30 for 8 shards); ``sharded_read_batch``: integer walk
+  lanes (``tests/test_read_pipeline.py:23``); ``ingest_grid``: the sharded
+  encoder's grids (``tests/test_ingest_pipeline.py:22``);
+  ``mesh_expr_plan``: one interpreter plan per collective site of the
+  sharded interpreter over a small labelled fleet, its words leaves laid
+  out shard-even (``ExprPlanBuilder.shard_even``); ``global_slots`` undoes
+  the local slots for the unsharded interpreter.
+
 Everything is built from a seed with the scalar encoder, so the same
 bytes feed the JAX package and the port.
 """
@@ -80,6 +91,7 @@ import torch
 from m3_tpu_torch.models.query_pipeline import expr_inputs_from_numpy  # noqa: F401
 from m3_tpu_torch.ops import m3tsz_scalar as tsz
 from m3_tpu_torch.ops.bitstream import pack_streams
+from m3_tpu_torch.parallel.repack import shard_repack
 from m3_tpu_torch.utils import xtime
 
 SEC = xtime.SECOND
@@ -938,6 +950,25 @@ class ExprPlanBuilder:
         return PlanNode(("gcall", fn, (self.n_steps,) + tuple(statics), pidx, child.plan),
                         child.labels if labels is None else list(labels), child.rows_pad)
 
+    def shard_even(self, idx: int, n_shards: int) -> None:
+        """Re-lay words leaf ``idx`` shard-even for a series-sharded run, as
+        the reference's engine does (``parallel/repack.shard_repack``: equal
+        lanes and stream rows a shard, slots LOCAL to their shard); the
+        plan nodes built from it afterwards take the new lane and row
+        counts."""
+        lf = self.leaves[idx]
+        kind, statics = self._statics[idx]
+        n_real = int((lf["slots"] < lf["valid"].sum()).sum())
+        pk = shard_repack({"words": lf["words"], "nbits": lf["nbits"], "slots": lf["slots"],
+                           "tiers": lf["tiers"], "n_streams": n_real,
+                           "lanes_pad": statics[0]}, n_shards)
+        lanes_pad = pk["lanes_pad"]
+        self.leaves[idx] = {**lf, "words": pk["words"], "nbits": pk["nbits"],
+                            "slots": pk["slots"], "tiers": pk["tiers"],
+                            "valid": np.arange(lanes_pad) < int(lf["valid"].sum())}
+        self._statics[idx] = (kind, (lanes_pad, statics[1], statics[2], 1, len(pk["nbits"]),
+                                     pk["words"].shape[1], statics[6]))
+
     def inputs(self):
         return self.leaves, tuple(self.params), self.steps
 
@@ -1218,3 +1249,149 @@ def megabatch_query(seed: int, n_jobs: int = 8, n_inst: int = 64):
     root = b.vv("/", b.agg("sum", b.leaf(lf, "sum_over_time"), ("job",)),
                 b.agg("sum", b.leaf(lf, "count_over_time"), ("job",)))
     return root.plan, b.inputs()
+
+
+# --- the mesh paths' small corpora -----------------------------------------
+
+
+def sharded_query_streams(n_lanes: int, blocks_per: int, dp: int, seed: int = 9):
+    """``blocks_per`` streams of ``dp`` cumulative-sum counter samples at
+    10s per lane, in lane order (the reference's ``_mk_streams``).  Returns
+    (streams, slots i64[M], fragments [(lane, times, values)])."""
+    rng = np.random.default_rng(seed)
+    streams, slots, frags = [], [], []
+    for lane in range(n_lanes):
+        for b in range(blocks_per):
+            base = START + b * dp * 10 * SEC
+            t = base + (np.arange(dp) + 1) * 10 * SEC
+            v = np.cumsum(rng.random(dp) * 3)
+            enc = tsz.Encoder(base)
+            for ti, vi in zip(t, v):
+                enc.encode(int(ti), float(vi))
+            streams.append(enc.finalize())
+            slots.append(lane)
+            frags.append((lane, t, v))
+    return streams, np.asarray(slots, dtype=np.int64), frags
+
+
+def sharded_read_batch(n_lanes: int, n_dp: int = 36, seed: int = 0):
+    """Integer random-walk lanes at 10s (the reference read tests'
+    ``make_batch``).  Returns (words, nbits, values f64[n_lanes, n_dp])."""
+    rng = random.Random(seed)
+    streams, grids = [], []
+    for _ in range(n_lanes):
+        t, v = START, float(rng.randint(0, 100))
+        ts, vs = [], []
+        for _ in range(n_dp):
+            t += 10 * SEC
+            v = max(0.0, v + rng.choice([-1.0, 0.0, 1.0]))
+            ts.append(t)
+            vs.append(v)
+        streams.append(tsz.encode_series(ts, vs, START))
+        grids.append(vs)
+    words, nbits = pack_streams(streams)
+    return words, nbits, np.asarray(grids)
+
+
+def ingest_grid(n_lanes: int, n_dp: int, seed: int = 3):
+    """The sharded encoder's inputs (the reference ingest tests' ``_inputs``):
+    (ts i64[L, T] at 10s, starts i64[L], n_valid i32[L], values f64[L, T] of
+    whole numbers below 40)."""
+    rng = np.random.default_rng(seed)
+    vs = np.round(rng.random((n_lanes, n_dp)) * 40)
+    ts = START + 10 * SEC * (1 + np.arange(n_dp, dtype=np.int64))[None, :]
+    ts = np.broadcast_to(ts, (n_lanes, n_dp)).copy()
+    starts = np.full(n_lanes, START, dtype=np.int64)
+    nv = np.full(n_lanes, n_dp, dtype=np.int32)
+    return ts, starts, nv, vs
+
+
+MESH_PLANS = ("sum_by", "stddev_by", "quantile_by", "topk", "histogram_quantile", "absent",
+              "ratio", "arrays_max_by")
+
+
+def _mesh_fleet(n_dp: int = 60):
+    """Two counters (16 series each, jobs a..d, one with a gap of NaN) and
+    three histograms of four buckets: (labels, series) per metric."""
+    rng = np.random.default_rng(23)
+    t = START + (np.arange(n_dp) + 1) * 10 * SEC
+    out = {}
+    for metric in ("req", "lim"):
+        labels, series = [], []
+        for i in range(16):
+            v = np.round(np.cumsum(rng.random(n_dp) * 3), 2)
+            if metric == "req" and i == 3:
+                v[10:30] = np.nan
+            labels.append({"job": "abcd"[i % 4], "i": str(i)})
+            series.append((t, v))
+        out[metric] = (labels, series)
+    labels, series = [], []
+    for h in range(3):
+        base = np.round(np.cumsum(rng.random(n_dp) * 4), 2)
+        for j, le in enumerate(("0.5", "1", "5", "+Inf")):
+            labels.append({"job": "h%d" % h, "le": le})
+            series.append((t, np.round(base * (j + 1) / 4, 2)))
+    out["bucket"] = (labels, series)
+    return out
+
+
+def mesh_expr_plan(name: str, n_shards: int = 8):
+    """One plan of ``MESH_PLANS`` over rate(..[5m]) of a small fleet, words
+    leaves shard-even over ``n_shards``: sum / stddev / quantile(0.9) by
+    job, topk(3), histogram_quantile(0.9), absent(rate > 1e9), the ratio
+    req / on(i) lim (a vector-vector match over sharded children), and max
+    by job of max_over_time over an arrays-kind leaf (decoded lanes, 64 of
+    them: a multiple of the shard count).  Returns (plan, leaves, params,
+    steps)."""
+    steps = np.arange(START + 10 * xtime.MINUTE, START + 20 * xtime.MINUTE + 1, xtime.MINUTE,
+                      dtype=np.int64)
+    b = ExprPlanBuilder(steps)
+    fleet = _mesh_fleet()
+
+    def leaf(metric):  # every leaf of the inputs is read by the plan
+        labels, series = fleet[metric]
+        idx = b.words_leaf_from_series(series, labels, 5 * xtime.MINUTE)
+        b.shard_even(idx, n_shards)
+        return b.leaf(idx, "rate")
+
+    if name == "arrays_max_by":
+        labels, series = fleet["lim"]
+        times = np.stack([t for t, _ in series])
+        values = np.stack([v for _, v in series])
+        root = b.agg("max", b.leaf(b.arrays_leaf(times, values, labels, 5 * xtime.MINUTE),
+                                   "max_over_time"), by=("job",))
+        leaves, params, st = b.inputs()
+        return root.plan, leaves, params, st
+    req = None if name == "histogram_quantile" else leaf("req")
+    if name == "sum_by":
+        root = b.agg("sum", req, by=("job",))
+    elif name == "stddev_by":
+        root = b.agg("stddev", req, by=("job",))
+    elif name == "quantile_by":
+        root = b.agg("quantile", req, by=("job",), phi=0.9)
+    elif name == "topk":
+        root = b.topk("topk", 3, req)
+    elif name == "histogram_quantile":
+        root = b.hq(0.9, leaf("bucket"))
+    elif name == "absent":
+        root = b.absent(b.vs(">", req, 1e9))
+    elif name == "ratio":
+        root = b.vv("/", req, leaf("lim"), on=("i",))
+    else:
+        raise ValueError(f"no mesh plan {name!r}")
+    leaves, params, st = b.inputs()
+    return root.plan, leaves, params, st
+
+
+def global_slots(leaves, n_shards: int):
+    """Shard-even words leaves with their LOCAL slots made global again (the
+    same lanes and rows), for the unsharded interpreter."""
+    out = []
+    for lf in leaves:
+        lf = dict(lf)
+        if "words" in lf:
+            local = len(lf["valid"]) // n_shards
+            per_m = len(lf["slots"]) // n_shards
+            lf["slots"] = lf["slots"] + (np.arange(len(lf["slots"])) // per_m) * local
+        out.append(lf)
+    return out

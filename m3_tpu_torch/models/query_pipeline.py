@@ -2,13 +2,17 @@
 -> group-by, with only the [series or groups, steps] result leaving the
 card.
 
-Port of the serving pipelines of ``m3_tpu/models/query_pipeline.py``
-(single device), with the same arguments and the same result tuples:
-the per-node ``device_rate_pipeline``, ``device_reduce_pipeline`` and
+Port of the serving pipelines of ``m3_tpu/models/query_pipeline.py``,
+with the same arguments and the same result tuples: the per-node
+``device_rate_pipeline``, ``device_reduce_pipeline`` and
 ``device_grouped_pipeline``, and the fused expression interpreter
 ``device_expr_pipeline`` / ``device_expr_pipeline_batched`` for every
-node form, PromQL's and Graphite's (see ``_expr_eval``).  Each stage is a hand-written
-CUDA kernel on the card:
+node form, PromQL's and Graphite's (see ``_expr_eval``); and their
+series-sharded forms over a mesh (``parallel/mesh.py``):
+``device_rate_sharded``, ``device_temporal_sharded``,
+``device_grouped_sharded`` and ``device_expr_pipeline_sharded`` (see
+"Series-sharded serving" below).  Each stage is a hand-written CUDA kernel
+on the card:
 
 - decode: ``ops/m3tsz_decode.decode_batched`` (K3) at stream width with
   truncation flagged;
@@ -37,6 +41,19 @@ the card.
 On CPU tensors (``device="cpu"``) every stage runs its plain PyTorch
 version.
 
+Series-sharded serving: lanes split into contiguous blocks over the
+mesh's series shards (the mesh has one window shard), and so do their
+stream rows (equal rows a shard, slots LOCAL to their shard, as
+``parallel/repack.shard_repack`` lays them out).  Each entry point takes
+the rank's rows (``parallel.mesh.series_sharding``; ``shard_expr_inputs``
+for the interpreter) and runs the decode, the merge and the windowed
+function in one launch each over the rank's lanes, the slots made
+rank-global; per-lane results and error flags come back as the rank's rows.
+Group ids stay GLOBAL: a grouped reduce (``_grouped_reduce_sharded``)
+reduces each shard's lanes into segments ``shard * n_groups + group``
+(QK4), then combines the shards with the mesh's ordered collectives (MK1);
+the quantile gathers the lanes and runs QK6 on them, as the reference does.
+
 Error contract (``_decode_merge``): a stream is flagged when its decode
 failed, it did not reach its end within ``n_dp`` records, its lane
 overflowed ``n_cap``, or its merged lane is not time-ascending.  Padding
@@ -54,6 +71,8 @@ from m3_tpu_torch.ops import graphite, histo_quantile, ieee, lane_topk, query_gr
 from m3_tpu_torch.ops import query_merge
 from m3_tpu_torch.ops import query_temporal
 from m3_tpu_torch.ops.m3tsz_decode import decode_batched
+from m3_tpu_torch.parallel.mesh import (SERIES_AXIS, WINDOW_AXIS, Mesh, pmax, pmin, psum,
+                                        shard_reduce, shard_segments)
 from m3_tpu_torch.utils import xtime
 from m3_tpu_torch.utils.device import resolve_device
 
@@ -286,18 +305,45 @@ def _host_scalars(p) -> tuple:
     return tuple(float(x) for x in p)
 
 
-def _expr_eval(plan, leaves, params, steps, errors: dict):
-    """The fused-query interpreter body (single device).  ``leaves`` hold
-    device tensors (``expr_inputs_from_numpy``), ``params`` host
-    tensors: index maps and bounds are moved to the device by the node
-    that reads them (non-blocking copies), group ids stay on the host for
-    the kernels' CSR.  Returns (out, aux): aux is (present, rank) when the
-    root is a topk node, else ().  Nothing is read back to the host."""
+def _plan_sharded(node) -> bool:
+    """Whether a plan node's output is still series-sharded under a mesh:
+    leaves and the per-lane ops above them (call/vs/subq/gcall) stay
+    sharded; a grouped reduce, topk, histogram_quantile, absent,
+    vector-vector match or graphite row gather (gsel, gagg) gives a
+    replicated result (a reduce or a lane gather at that node)."""
+    tag = node[0]
+    if tag == "leaf":
+        return True
+    if tag in ("call", "vs", "subq", "gcall"):
+        return _plan_sharded(node[-1])
+    return False
+
+
+def _expr_eval(plan, leaves, params, steps, errors: dict, mesh: Mesh | None = None):
+    """The fused-query interpreter body.  ``leaves`` hold device tensors
+    (``expr_inputs_from_numpy``), ``params`` host tensors: index maps and
+    bounds are moved to the device by the node that reads them
+    (non-blocking copies), group ids stay on the host for the kernels' CSR.
+    Returns (out, aux): aux is (present, rank) when the root is a topk node,
+    else ().  Nothing is read back to the host.
+
+    With ``mesh``, the leaves and params are the rank's (``shard_expr_inputs``):
+    leaves decode the rank's ``lanes_pad // n_shards`` lanes a shard, and
+    each replicating node over a sharded child inserts its collective: the
+    grouped reduce over shards for ``agg``, a presence count over shards
+    for ``absent``, a lane gather ahead of topk, histogram_quantile,
+    vector-vector matches, ``gsel`` and ``gagg`` (their index maps are
+    global)."""
     aux = ()
     dev = steps.device
 
     def on_dev(x):
         return x.to(dev, non_blocking=True)
+
+    def gather(vals, valid, node):
+        if mesh is not None and _plan_sharded(node):
+            return mesh.gather_rows(vals), _gather_mask(mesh, valid)
+        return vals, valid
 
     def ev(node, steps_cur):
         nonlocal aux
@@ -307,8 +353,11 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
              _m_pad, _w_pad, _s_pad, hw_sf, hw_tf) = node
             lf = leaves[i]
             if kind == "words":
+                slots, n_lanes = lf["slots"], lanes_pad
+                if mesh is not None:
+                    slots, n_lanes = _rank_slots(mesh, slots, lanes_pad)
                 times, values, err = _decode_merge(
-                    lf["words"], lf["nbits"], lf["slots"], lanes_pad, n_cap, n_dp,
+                    lf["words"], lf["nbits"], slots, n_lanes, n_cap, n_dp,
                     xtime.SECOND, lf["tiers"], n_tiers)
                 errors[i] = err
             else:
@@ -321,7 +370,10 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
             _, op, g_pad, pidx, child = node
             cv, _cvalid = ev(child, steps_cur)
             groups, gvalid, phi = params[pidx]
-            out = _grouped_reduce(cv, groups, g_pad, op, float(phi))
+            if mesh is not None and _plan_sharded(child):
+                out = _grouped_reduce_sharded(mesh, cv, groups, g_pad, op, float(phi))
+            else:
+                out = _grouped_reduce(cv, groups, g_pad, op, float(phi))
             gvalid = on_dev(gvalid)
             return torch.where(gvalid[:, None], out, torch.nan), gvalid
         if tag == "call":
@@ -349,8 +401,8 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
             return torch.where(cvalid[:, None], out, torch.nan), cvalid
         if tag == "vv":
             _, op, bool_mod, _out_pad, pidx, lhs, rhs = node
-            lv, _lvalid = ev(lhs, steps_cur)
-            rv, _rvalid = ev(rhs, steps_cur)
+            lv, _lvalid = gather(*ev(lhs, steps_cur), lhs)
+            rv, _rvalid = gather(*ev(rhs, steps_cur), rhs)
             lidx, ridx, valid = (on_dev(x) for x in params[pidx])
             a, b = lv[lidx], rv[ridx]  # the matched operand rows
             nanmask = torch.isnan(a) | torch.isnan(b)
@@ -365,14 +417,14 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
             return torch.where(valid[:, None], out, torch.nan), valid
         if tag == "topk":
             _, op, k, g_pad, pidx, child = node
-            cv, cvalid = ev(child, steps_cur)
+            cv, cvalid = gather(*ev(child, steps_cur), child)
             (groups,) = params[pidx]
             out, present, rank = lane_topk.masked_topk(cv, groups, g_pad, k, op == "bottomk")
             aux = (present, rank)
             return torch.where(cvalid[:, None], out, torch.nan), cvalid
         if tag == "hq":
             _, _g_pad, _b_pad, pidx, child = node
-            cv, _cvalid = ev(child, steps_cur)
+            cv, _cvalid = gather(*ev(child, steps_cur), child)
             rows_idx, ubs, caps, gvalid, phi = params[pidx]
             out = histo_quantile.bucket_quantile(cv, rows_idx, ubs, caps, float(phi))
             gvalid = on_dev(gvalid)
@@ -391,12 +443,12 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
         if tag == "gsel":
             # graphite row selection: a gather by host-computed indices
             _, _out_pad, pidx, child = node
-            cv, _cvalid = ev(child, steps_cur)
+            cv, _cvalid = gather(*ev(child, steps_cur), child)
             idx, valid = (on_dev(x) for x in params[pidx])
             return torch.where(valid[:, None], cv[idx], torch.nan), valid
         if tag == "gagg":
             _, op, extra, g_pad, pidx, child = node
-            cv, _cvalid = ev(child, steps_cur)
+            cv, _cvalid = gather(*ev(child, steps_cur), child)
             groups, gvalid, tval = params[pidx]
             out = graphite.grouped_reduce(cv, groups, g_pad, op, extra, float(tval))
             gvalid = on_dev(gvalid)
@@ -410,7 +462,13 @@ def _expr_eval(plan, leaves, params, steps, errors: dict):
             _, pidx, child = node
             cv, _cvalid = ev(child, steps_cur)
             avalid = on_dev(params[pidx][0])
-            present = (~torch.isnan(cv)).any(dim=0)
+            if mesh is not None and _plan_sharded(child):
+                # presence is an OR across shards: each shard's count of
+                # present cells (QK4), summed over the shards (MK1)
+                counts = psum(mesh, shard_reduce(mesh, cv, "count"), SERIES_AXIS)[0]
+                present = counts > 0
+            else:
+                present = (~torch.isnan(cv)).any(dim=0)
             row0 = torch.where(present, torch.nan, 1.0).to(cv.dtype)
             first = torch.arange(avalid.shape[0], device=dev)[:, None] == 0
             return torch.where(first, row0[None, :], torch.nan), avalid
@@ -513,3 +571,206 @@ def device_expr_pipeline_batched(plan, leaves, params, steps, device=None):
     aux = tuple(torch.stack(a) for a in zip(*(r[1] for r in results)))
     errors = tuple(torch.stack(e) for e in zip(*(r[2] for r in results)))
     return out, aux, errors
+
+
+# --- series-sharded serving over a mesh --------------------------------------
+
+
+def _local_lanes(mesh: Mesh, n_lanes: int) -> int:
+    if mesh.shape[WINDOW_AXIS] != 1:
+        raise ValueError("the query pipelines shard lanes over the series axis only: "
+                         "build the mesh with n_window_shards=1")
+    n_s = mesh.shape[SERIES_AXIS]
+    if n_lanes % n_s:
+        raise ValueError(f"{n_lanes} lanes do not split over {n_s} series shards")
+    return n_lanes // n_s
+
+
+def _rank_slots(mesh: Mesh, slots: torch.Tensor, n_lanes: int):
+    """The rank's stream rows' LOCAL slots (equal rows a shard) made
+    rank-global, and the rank's lane count, for ``n_lanes`` lanes in all."""
+    local = _local_lanes(mesh, n_lanes)
+    spr = mesh.shards_per_rank
+    if slots.shape[0] % spr:
+        raise ValueError(f"{slots.shape[0]} stream rows do not split over {spr} shards")
+    per_m = max(slots.shape[0] // spr, 1)
+    shard = torch.arange(slots.shape[0], device=slots.device) // per_m
+    return slots + shard * local, local * spr
+
+
+def _gather_mask(mesh: Mesh, m: torch.Tensor) -> torch.Tensor:
+    """A bool vector of the rank's rows -> every rank's (as uint8 on a group)."""
+    if mesh.group is None:
+        return m
+    return mesh.gather_rows(m.to(torch.uint8)).bool()
+
+
+def _gather_ids(mesh: Mesh, groups) -> np.ndarray:
+    """Host group ids of the rank's lanes -> every rank's."""
+    ids = query_grouped.host_ids(groups)
+    if mesh.group is None:
+        return ids
+    return mesh.gather_rows(torch.from_numpy(ids).to(mesh.device)).cpu().numpy()
+
+
+def _grouped_reduce_sharded(mesh: Mesh, out, groups_l, n_groups: int, agg: str, phi=0.5):
+    """Sharded counterpart of ``_grouped_reduce`` (the reference's
+    ``_grouped_reduce_sharded:814``): ``out`` is the rank's [lanes, S],
+    ``groups_l`` their GLOBAL group ids; the result [n_groups, S] is
+    replicated.  Each shard's lanes reduce into segments ``shard * n_groups
+    + group`` in one QK4 launch a statistic; the shards combine in MK1.
+    Every agg takes the counts; sum/avg add the sums, min/max their own
+    order statistic, stddev/stdvar the sums and a second pass (the global
+    mean, then each shard's sum of squared deviations from it, QK4's
+    ``sqdev``).  quantile gathers the lanes and runs QK6 on them.  NaN
+    where a group-step has no present cell."""
+    _check_agg(agg)
+    if agg == "quantile":
+        return query_grouped.grouped_quantile(mesh.gather_rows(out), _gather_ids(mesh, groups_l),
+                                              n_groups, phi)
+    spr = mesh.shards_per_rank
+    S = out.shape[1]
+    n_seg = spr * n_groups
+    seg = shard_segments(mesh, out.shape[0], query_grouped.host_ids(groups_l), n_groups)
+    index = query_grouped.group_index(seg, n_seg, out.device) if out.is_cuda else None
+
+    def per_shard(op: str, empty: float, center=None) -> torch.Tensor:
+        part = query_grouped.grouped_reduce(out, seg, n_seg, op, index, empty, center)
+        return part.reshape(spr, n_groups * S)
+
+    def whole(collective, part) -> torch.Tensor:
+        return collective(mesh, part, SERIES_AXIS)[0].reshape(n_groups, S)
+
+    counts = whole(psum, per_shard("count", 0.0))
+    if agg in ("sum", "avg", "stddev", "stdvar"):
+        sums = whole(psum, per_shard("sum", 0.0))
+        denom = torch.clamp(counts, min=1.0)
+    if agg == "sum":
+        g = sums
+    elif agg == "count":
+        g = counts
+    elif agg == "avg":
+        g = sums / denom
+    elif agg == "min":
+        g = whole(pmin, per_shard("min", torch.inf))
+    elif agg == "max":
+        g = whole(pmax, per_shard("max", -torch.inf))
+    elif agg == "group":
+        g = torch.ones_like(counts)
+    else:  # stddev, stdvar
+        var = whole(psum, per_shard("sqdev", 0.0, center=sums / denom)) / denom
+        g = ieee.sqrt(var) if agg == "stddev" else var
+    return torch.where(counts == 0, torch.nan, g)
+
+
+def device_temporal_sharded(mesh: Mesh, words, nbits, slots, steps, n_lanes: int, n_cap: int,
+                            range_nanos: int, fn: str = "rate", unit_nanos: int = xtime.SECOND,
+                            n_dp: int | None = None, tiers=None, n_tiers: int = 1, horizon=0.0,
+                            hw_sf: float = 0.5, hw_tf: float = 0.5, phi=0.5):
+    """Any temporal function series-sharded over ``mesh``: the rank's stream
+    rows (equal rows a shard, slots LOCAL) decode, merge and window in one
+    launch each; no collective (per-series results are independent).
+    ``n_lanes`` counts every shard's lanes.  Returns (out f64[rank lanes,
+    S], error bool[rank rows])."""
+    _check_fn(fn)
+    words, nbits, slots, steps, tiers = _inputs(words, nbits, slots, steps, tiers, mesh.device)
+    slots, rank_lanes = _rank_slots(mesh, slots, n_lanes)
+    times, values, error = _decode_merge(words, nbits, slots, rank_lanes, n_cap, n_dp,
+                                         unit_nanos, tiers, n_tiers)
+    out = _temporal_eval(fn, times, values, steps, int(range_nanos), horizon, hw_sf, hw_tf, phi)
+    return out, error
+
+
+def device_grouped_sharded(mesh: Mesh, words, nbits, slots, steps, groups, n_lanes: int,
+                           n_groups: int, n_cap: int, range_nanos: int, fn: str = "rate",
+                           agg: str = "sum", unit_nanos: int = xtime.SECOND,
+                           n_dp: int | None = None, tiers=None, n_tiers: int = 1, phi=0.5):
+    """``agg by (g) (fn(x[range]))`` series-sharded over ``mesh``: the
+    rank's stream rows as ``device_temporal_sharded``, ``groups`` the GLOBAL
+    group ids of the rank's lanes (host), combined over the shards by
+    ``_grouped_reduce_sharded``.  Returns (out f64[n_groups, S] replicated,
+    error bool[rank rows])."""
+    if fn in ("predict_linear", "holt_winters", "quantile_over_time"):
+        raise ValueError(f"no grouped device form for {fn}")
+    _check_agg(agg)
+    out, error = device_temporal_sharded(mesh, words, nbits, slots, steps, n_lanes, n_cap,
+                                         range_nanos, fn, unit_nanos, n_dp, tiers, n_tiers)
+    return _grouped_reduce_sharded(mesh, out, groups, n_groups, agg, phi), error
+
+
+def device_rate_sharded(mesh: Mesh, words, nbits, slots, steps, n_lanes: int, n_cap: int,
+                        range_nanos: int, is_counter: bool = True, is_rate: bool = True,
+                        unit_nanos: int = xtime.SECOND, n_dp: int | None = None):
+    """``device_rate_pipeline`` series-sharded over ``mesh`` (inputs as
+    ``device_temporal_sharded``'s): the fleet sum is each shard's
+    NaN-skipping sum (QK4) summed over the shards (MK1).  Returns (rate
+    f64[rank lanes, S], fleet f64[S] replicated, error bool[rank rows])."""
+    words, nbits, slots, steps, _ = _inputs(words, nbits, slots, steps, None, mesh.device)
+    slots, rank_lanes = _rank_slots(mesh, slots, n_lanes)
+    times, values, error = _decode_merge(words, nbits, slots, rank_lanes, n_cap, n_dp,
+                                         unit_nanos)
+    rate = query_temporal.rate(times, values, steps, int(range_nanos), is_counter, is_rate)
+    fleet = psum(mesh, shard_reduce(mesh, rate), SERIES_AXIS)[0]
+    return rate, fleet, error
+
+
+def _split_params(plan) -> set:
+    """The params whose first entry splits with the lanes under a mesh: a
+    grouped reduce's group ids over a still-sharded child.  Everything else
+    replicates."""
+    split = set()
+
+    def walk(node):
+        tag = node[0]
+        if tag == "leaf":
+            return
+        if tag == "agg":
+            if _plan_sharded(node[4]):
+                split.add(node[3])
+            walk(node[4])
+        elif tag == "vv":
+            walk(node[5])
+            walk(node[6])
+        else:  # the child is the last element of every other node
+            walk(node[-1])
+
+    walk(plan)
+    return split
+
+
+def shard_expr_inputs(plan, mesh: Mesh, leaves, params, steps):
+    """The rank's part of a sharded query's inputs, on the mesh's device.
+    The rule of the reference's ``_leaf_in_spec:1762`` and
+    ``_sharded_param_specs:1773``: a leaf's words, nbits, slots and tiers
+    split by stream row, its times, values and valid by lane; its steps and
+    ``rng`` replicate; a grouped reduce's group ids over a sharded child
+    split by lane; every other param replicates.  Words leaves come
+    shard-even (``parallel/repack.shard_repack``); arrays leaves pad lanes to
+    a multiple of the shard count."""
+    split = _split_params(plan)
+
+    def cut(x):
+        return x[mesh.rows(len(x))]
+
+    leaves = [{k: v if k in ("steps", "rng") else cut(v) for k, v in lf.items()}
+              for lf in leaves]
+    params = tuple(tuple(cut(x) if i in split and j == 0 else x for j, x in enumerate(p))
+                   for i, p in enumerate(params))
+    return _expr_inputs(leaves, params, steps, mesh.device)
+
+
+def device_expr_pipeline_sharded(plan, mesh: Mesh, leaves, params, steps):
+    """The fused expression interpreter series-sharded over ``mesh``:
+    decode, stitch, consolidation and every per-lane subtree run over the
+    rank's lanes; the only communication is the collective each replicating
+    node inserts (``_expr_eval``).  ``leaves``/``params``/``steps`` are the
+    rank's (``shard_expr_inputs``).  Returns the single-device contract
+    (out, aux, errors): out and aux replicated (a still-sharded root is
+    gathered), each error vector gathered back to global stream-row
+    order."""
+    leaves, params, steps = _expr_inputs(leaves, params, steps, mesh.device)
+    errors = {}
+    out, aux = _expr_eval(plan, leaves, params, steps, errors, mesh)
+    if _plan_sharded(plan):
+        out = mesh.gather_rows(out)
+    return out, aux, tuple(_gather_mask(mesh, errors[i]) for i in sorted(errors))

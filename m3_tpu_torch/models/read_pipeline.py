@@ -1,6 +1,9 @@
 """Flagship read-path pipeline: compressed blocks -> decode -> downsample.
 
-Port of ``m3_tpu/models/read_pipeline.py`` (single-device entry).  Simple
+Port of ``m3_tpu/models/read_pipeline.py``: ``decode_downsample`` on one
+device, and ``decode_downsample_sharded`` over a (series x window) mesh
+(``parallel/mesh.py``) with the fleet-wide sum consolidated by the mesh's
+collectives.  Simple
 and moment-based aggregates ride the fused decode+downsample kernel (no
 [L, n_steps] grid in device memory); quantile types decode the raw grid
 and run the window-quantile kernel on it.
@@ -18,6 +21,9 @@ import torch
 
 from m3_tpu_torch.ops import downsample as ds
 from m3_tpu_torch.ops.m3tsz_decode import decode_batched, decode_downsample_fused
+from m3_tpu_torch.parallel.mesh import (SERIES_AXIS, WINDOW_AXIS, Mesh, consolidate_windows,
+                                        psum, series_sharding, shard_reduce,
+                                        supports_f64_reduce_scatter)
 from m3_tpu_torch.utils import xtime
 from m3_tpu_torch.utils.device import resolve_device
 
@@ -81,3 +87,44 @@ def decode_downsample(
     )
     out = ds.value_of(agg, agg_type)
     return out, count, error
+
+
+def decode_downsample_sharded(
+    mesh: Mesh,
+    n_steps: int,
+    window: int,
+    agg_type: ds.AggregationType = ds.AggregationType.MEAN,
+    unit_nanos: int = xtime.SECOND,
+):
+    """The distributed read step for ``mesh``.
+
+    Returns ``step(words, nbits) -> (per_lane f64[lanes, n_windows],
+    fleet f64[n_windows])``: ``words`` [lanes, W] / ``nbits`` [lanes] are
+    the rank's lanes (``shard_inputs``), split evenly over its shards (lanes
+    are sharded over BOTH mesh axes: every shard decodes a distinct slice);
+    ``per_lane`` is ``decode_downsample`` of those lanes (one launch over
+    all of them), ``fleet`` the fleet-wide sum, replicated: each shard's
+    ``nan_to_num(per_lane).sum(0)`` (QK4), a ``psum`` over the series axis
+    and ``consolidate_windows`` over the window axis (MK1), with the scatter
+    schedule where ``supports_f64_reduce_scatter``."""
+    use_scatter = supports_f64_reduce_scatter(mesh)
+    n_windows = n_steps // window
+
+    def step(words, nbits):
+        per_lane, _, _ = decode_downsample(words, nbits, n_steps, window, agg_type, unit_nanos,
+                                           device=mesh.device)
+        # jnp.nan_to_num: NaN -> 0.0 and +-Inf -> +-DBL_MAX, then QK4's sum
+        local_sum = shard_reduce(mesh, torch.nan_to_num(per_lane))
+        partial = psum(mesh, local_sum, SERIES_AXIS)
+        fleet = consolidate_windows(mesh, partial, WINDOW_AXIS, use_scatter)[0]
+        if fleet.shape != (n_windows,):
+            raise RuntimeError(f"fleet of shape {tuple(fleet.shape)}, want ({n_windows},)")
+        return per_lane, fleet
+
+    return step
+
+
+def shard_inputs(mesh: Mesh, words, nbits):
+    """The rank's lanes of host (or device) arrays on the mesh's device,
+    lanes split evenly over every shard of the mesh in shard order."""
+    return series_sharding(mesh, words), series_sharding(mesh, nbits)

@@ -20,6 +20,13 @@ nothing as ``empty_value``) and of ``_grouped_quantile`` (QK6,
 - On a CPU tensor they run the plain versions (segment sums by
   ``index_add_``, as the reference's ``segment_sum``).
 
+The op code ``sqdev`` is the second pass of the reference's sharded
+stddev/stdvar (``_grouped_reduce_sharded:814``): the sum of ``(x -
+center[seg % n_center])^2`` over each segment's present cells, 0.0 where
+none is present (the caller's ``empty_value``).  ``parallel`` reduces each
+shard's lanes into segments ``shard * n_groups + group`` and reads the global
+mean as ``center``.
+
 Lanes whose row is all NaN (padding lanes) contribute nothing to any
 group, so callers may park them on any group id.  For the quantile they
 count in their group's size but never in its present cells, as in the
@@ -41,7 +48,7 @@ F64 = torch.float64
 AGGS = ("sum", "avg", "count", "min", "max", "group", "stddev", "stdvar")  # PromQL's
 # enum Agg of csrc/query_grouped.cu: PromQL's, then graphite's further ops
 # (diff and last answer for a grouping whose lane 0 lies in group 0)
-OPS = AGGS + ("multiply", "range", "diff", "last")
+OPS = AGGS + ("multiply", "range", "diff", "last", "sqdev")
 MAX_WARPS = 32  # kMaxWarps of the kernel
 # Largest padded group (pairs) that csrc/query_select.cu sorts in shared
 # memory (48 KB); larger groups sort in a global scratch buffer.
@@ -52,6 +59,15 @@ SELECT_QUANTILE, SELECT_TOPK, SELECT_BOTTOMK = 0, 1, 2  # enum Mode of the kerne
 def _check_agg(agg: str) -> None:
     if agg not in OPS:
         raise ValueError(f"no device form for aggregation {agg}")
+
+
+def _check_center(agg: str, center, steps_shape) -> None:
+    if agg != "sqdev":
+        return
+    if center is None or center.dim() != 2 or center.shape[0] < 1 \
+            or tuple(center.shape[1:]) != tuple(steps_shape):
+        raise ValueError(f"sqdev needs a [n_center >= 1, S] center, got "
+                         f"{None if center is None else tuple(center.shape)}")
 
 
 # --- plain versions ------------------------------------------------------
@@ -77,10 +93,31 @@ def _segment_extreme(x: torch.Tensor, seg: torch.Tensor, n: int, is_max: bool) -
     return torch.where(r == 0, signed, r)
 
 
+def _segment_fold(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Each segment's rows summed from 0.0 in ascending row order (the
+    kernel's order for a segment of at most 32 rows): one ``index_add_`` per
+    rank within the segment, so that no add has two rows of one segment and
+    the order is the same on every device."""
+    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    if not seg.numel():
+        return out
+    order = torch.argsort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(seg)
+    rank[order] = torch.arange(seg.numel(), device=seg.device) - starts[seg[order]]
+    for r in range(int(counts.max())):
+        sel = rank == r
+        out.index_add_(0, seg[sel], x[sel])
+    return out
+
+
 def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int, agg: str,
-                         empty_value: float = float("nan")):
+                         empty_value: float = float("nan"),
+                         center: torch.Tensor | None = None):
     """Plain version of ``grouped_reduce`` (same arguments)."""
     _check_agg(agg)
+    _check_center(agg, center, out.shape[1:])
     groups = groups.to(out.device, I64)
     inside = (groups >= 0) & (groups < n_groups)
     seg, rows = groups[inside], out[inside]
@@ -112,6 +149,10 @@ def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int,
         g = torch.gather(out.to(F64), 0, top.clamp(min=0))
     elif agg == "group":
         g = torch.ones_like(sums)
+    elif agg == "sqdev":
+        c = center.to(out.device, F64)[seg % center.shape[0]]
+        d = torch.where(m, rows - c, 0.0)
+        g = _segment_fold(d * d, seg, n_groups)
     else:
         mean = sums / torch.clamp(counts, min=1.0)
         d = torch.where(m, rows - mean[seg], 0.0)
@@ -174,6 +215,8 @@ def grouped_quantile_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: in
 _SIGNATURES = {
     "m3_query_grouped": [_build.P, _build.LL, _build.P, _build.P, _build.P, _build.I,
                          _build.I, _build.D, _build.I, _build.P, _build.P],
+    "m3_query_sqdev": [_build.P, _build.LL, _build.P, _build.P, _build.P, _build.I, _build.P,
+                       _build.LL, _build.I, _build.P, _build.P],
 }
 _SELECT_SIGNATURES = {
     "m3_query_select": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I, _build.D,
@@ -216,7 +259,8 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None or not t.numel() else t.data_ptr()
 
 
-def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float):
+def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float,
+            center: torch.Tensor | None = None):
     if x.dim() != 2:
         raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
     n_groups = len(index.sizes)
@@ -239,32 +283,44 @@ def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float):
         launches = [(torch.from_numpy(np.flatnonzero(sel)).to(dev, non_blocking=True),
                      int(sel.sum()), w) for sel, w in ((~large, small_warps), (large, MAX_WARPS))]
     lib = _build.library("query_grouped", _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     for ids, n, warps in launches:
-        rc = lib.m3_query_grouped(
-            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), _ptr(ids), n,
-            OPS.index(agg), float(empty_value), warps, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, rc, "query_grouped")
-        _build.count_launch("query_grouped")
+        if agg == "sqdev":  # the sharded stddev's second pass, counted apart
+            if empty_value != 0.0:
+                raise ValueError("sqdev gives 0.0 where a segment has no present cell")
+            cc = center.to(dev, F64).contiguous()
+            rc = lib.m3_query_sqdev(
+                xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), _ptr(ids), n,
+                cc.data_ptr(), cc.shape[0], warps, out.data_ptr(), stream)
+        else:
+            rc = lib.m3_query_grouped(
+                xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), _ptr(ids), n,
+                OPS.index(agg), float(empty_value), warps, out.data_ptr(), stream)
+        kernel = "query_sqdev" if agg == "sqdev" else "query_grouped"
+        _build.check(lib, rc, kernel)
+        _build.count_launch(kernel)
     return out
 
 
 def grouped_reduce(out: torch.Tensor, groups, n_groups: int, agg: str,
                    index: GroupIndex | None = None,
-                   empty_value: float = float("nan")) -> torch.Tensor:
+                   empty_value: float = float("nan"),
+                   center: torch.Tensor | None = None) -> torch.Tensor:
     """``agg`` (one of ``OPS``) of each group's lanes per step: [L, S] ->
     f64[n_groups, S].  ``groups`` gives each lane's group id (tensor or
     numpy); ``index`` may pass ``group_index(groups, n_groups, out.device)``
-    built ahead; a group-step with no present cell gets ``empty_value``."""
+    built ahead; a group-step with no present cell gets ``empty_value``;
+    ``center`` [n_center, S] is sqdev's (on ``out``'s device)."""
     _check_agg(agg)
+    _check_center(agg, center, out.shape[1:])
     if out.device.type == "cpu":
         groups = groups if isinstance(groups, torch.Tensor) else torch.from_numpy(
             np.asarray(groups, dtype=np.int64))
-        return grouped_reduce_plain(out, groups, n_groups, agg, empty_value)
+        return grouped_reduce_plain(out, groups, n_groups, agg, empty_value, center)
     if not out.is_cuda:
         raise ValueError(f"unsupported device {out.device}")
     index = index if index is not None else group_index(groups, n_groups, out.device)
-    return _launch(out, index, agg, empty_value)
+    return _launch(out, index, agg, empty_value, center)
 
 
 def fleet_nansum(x: torch.Tensor) -> torch.Tensor:
