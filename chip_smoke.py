@@ -554,6 +554,65 @@ def compare_query(b: corpus.QueryBatch, tag: str):
         f"QK1 bit for bit, QK2/QK3 bounds bit for bit, every kernel repeatable")
 
 
+def _chunk_probe(sizes, S: int, seed: int):
+    """A matrix of the lanes of groups of `sizes` lanes (shuffled), with
+    NaN holes, +-Inf, +-0.0 and ties, and 7 all-NaN padding lanes parked on
+    group 0; the multiply form keeps the zeros, NaN and infinities and puts
+    the other cells near 1 (no overflow, so its NaN pattern does not depend
+    on the order)."""
+    rng = np.random.default_rng(seed)
+    groups = np.repeat(np.arange(len(sizes)), sizes)
+    rng.shuffle(groups)
+    x = rng.integers(-40, 40, (len(groups), S)).astype(np.float64) * 0.25
+    x[rng.random(x.shape) < 0.15] = np.nan
+    x[rng.random(x.shape) < 0.01] = np.inf
+    x[rng.random(x.shape) < 0.01] = -np.inf
+    x[x == 0] = -0.0
+    x[rng.random(x.shape) < 0.05] = 0.0
+    x = np.concatenate([x, np.full((7, S), np.nan)])
+    groups = np.concatenate([groups, np.zeros(7, dtype=np.int64)])
+    near_one = np.where(np.isfinite(x) & (x != 0), 1.0 + x / 400.0, x)
+    return torch.from_numpy(x).to(DEVICE), torch.from_numpy(near_one).to(DEVICE), groups
+
+
+def compare_grouped_chunks():
+    """QK4 against its plain version on groups across its chunk boundaries
+    (CHUNK - 1, CHUNK and CHUNK + 1 lanes), groups of several chunks, one-
+    lane and empty groups: every op code, twice.  count/min/max/group/range
+    /last bit for bit; the sums at rtol 1e-12 (the plain version's
+    `index_add_` adds with atomics on the card), stddev/stdvar 1e-9."""
+    C = query_grouped.CHUNK
+    n = 0
+    for sizes, S, seed in (([1, 3, 0, C - 1, C, C + 1, 3 * C + 17, 40], 70, 1),
+                           ([1] * 300 + [0] * 20 + [2 * C + 5], 33, 2),
+                           ([8 * C], 512, 3)):
+        x, near_one, groups = _chunk_probe(sizes, S, seed)
+        G = len(sizes)
+        gt = torch.from_numpy(groups).to(DEVICE)
+        index = query_grouped.group_index(groups, G, DEVICE)
+        center = torch.from_numpy(np.random.default_rng(seed).normal(size=(3, S))).to(DEVICE)
+        for agg in query_grouped.OPS:
+            v = near_one if agg == "multiply" else x
+            empty = 0.0 if agg == "sqdev" else float("nan")
+            c = center if agg == "sqdev" else None
+            tag = f"chunks {sizes[:8]} S={S} {agg}"
+            out = twice(lambda: query_grouped.grouped_reduce(v, groups, G, agg, index, empty, c),
+                        tag)
+            want = query_grouped.grouped_reduce_plain(v, gt, G, agg, empty, c)
+            kernel = "query_sqdev" if agg == "sqdev" else "query_grouped"
+            if agg in BIT_EXACT_AGGS + ("range", "last"):
+                _record(kernel, same_bits(out, want, tag))
+            else:
+                rtol = 1e-9 if agg in ("stddev", "stdvar") else 1e-12
+                _record(kernel, close(out, want, rtol, tag))
+            n += 1
+    torch.cuda.synchronize()
+    log(f"query parity QK4 chunks: {n} cases (every op code; groups of 1, 3, {C - 1}, {C}, "
+        f"{C + 1}, {2 * C + 5}, {3 * C + 17} and {8 * C} lanes, empty groups, padding on group 0; "
+        f"NaN, +-Inf, +-0.0): count/min/max/group/range/last bit for bit, sums within rtol "
+        f"1e-12, stddev/stdvar 1e-9, each twice bit for bit")
+
+
 def compare_long_lanes(n_cap: int = 32768):
     """QK2/QK3 against their plain versions on lanes of n_cap samples (the
     engine's cap for a raw 10s lane of more than 2.2 days)."""
@@ -767,7 +826,9 @@ def query_kernel_times(b: corpus.QueryBatch, inputs):
 
 EXPR_RANGES = (93 * SEC, 600 * SEC)
 SELECT_PHIS = (0.0, 0.25, 0.5, 0.9, 1.0)
-TOPK_CASES = ((1, False), (3, False), (3, True), (10, True), (30, False))
+# k up to query_grouped.K_MAX (32) runs QK7's selection, a larger k its sort
+TOPK_CASES = ((1, False), (3, False), (3, True), (10, True), (30, False), (32, True),
+              (32, False), (33, False), (40, True))
 HQ_PHIS = (0.0, 0.5, 0.9, 0.99, 1.0, -0.5, 1.5, float("nan"))
 
 
@@ -815,10 +876,29 @@ def compare_expr_kernels():
     gb = np.zeros(len(big), dtype=np.int64)
     gb[:3], gb[3:5000] = 2, 1  # groups of 15,000 (global scratch), 4,997 and 3 lanes
     _compare_select(torch.from_numpy(big).to(DEVICE), gb, 3, "large groups")
+    # QK7's chunks: ties whose equal keys fall in different chunks (a group of
+    # 2 * CHUNK + 3 lanes of 7 distinct values), a group with fewer than k
+    # present lanes, groups of exactly 10 and 32 lanes (k = the group's size)
+    C = query_grouped.CHUNK
+    sizes = [2 * C + 3, 50, 10, 32, C + 1, 1]
+    tg = np.repeat(np.arange(len(sizes)), sizes)
+    rng.shuffle(tg)
+    tv = rng.integers(-3, 4, (len(tg), 40)).astype(np.float64)
+    tv[tv == 0] = -0.0
+    tv[rng.random(tv.shape) < 0.05] = 0.0
+    tv[rng.random(tv.shape) < 0.1] = np.nan
+    tv[rng.random(tv.shape) < 0.02] = np.inf
+    tv[(tg == 1)[:, None] & (rng.random(tv.shape) < 0.9)] = np.nan
+    tv = np.concatenate([tv, np.full((40, 40), np.nan)])  # the trash group's padding
+    tg = np.concatenate([tg, np.full(40, len(sizes))])
+    _compare_select(torch.from_numpy(tv).to(DEVICE), tg, len(sizes) + 1, "chunk ties")
     torch.cuda.synchronize()
     log("expr parity quantile/topk/bottomk (QK6/QK7): probe groups of 1-25 lanes (ties, "
-        "+-0.0, NaN, +-Inf, padding on the trash group) and groups of 3, 4,997 and 15,000 "
-        "lanes (shared memory and global scratch), phi 0-1, k 1-30: bit for bit, twice")
+        "+-0.0, NaN, +-Inf, padding on the trash group), groups of 3, 4,997 and 15,000 "
+        "lanes (shared memory and global scratch) and chunk ties (groups of "
+        f"{2 * C + 3} and {C + 1} lanes of 7 values, one of 50 lanes with 90% NaN, groups of "
+        "10 and 32 lanes), phi 0-1, k 1-32 (the selection) and 33-40 (the sort): out, "
+        "present and rank bit for bit, twice")
     cv, ri, ubs, caps = corpus.histogram_probes()
     cvd = torch.from_numpy(cv).to(DEVICE)
     rid, ubd, capd = (torch.from_numpy(x).to(DEVICE) for x in (ri, ubs, caps))
@@ -1291,10 +1371,14 @@ def expr_kernel_times(b: corpus.QueryBatch, shapes: dict):
             _record(kernel, same_bits(fn(), plain(), "main quantile by (job)"))
             out_bytes = n_groups * S * 8
         else:
-            fn = lambda: query_grouped.launch_select(rate, index, mode, k=10)  # noqa: E731
+            fn = lambda: query_grouped.launch_topk(rate, index, mode, 10)  # noqa: E731
             plain = lambda: lane_topk.masked_topk_plain(rate, gt, n_groups, 10, False)  # noqa
-            for kt, pt in zip(fn(), plain()):
+            sort = lambda: query_grouped.launch_select(rate, index, mode, k=10)  # noqa: E731
+            want = plain()
+            for kt, st, pt in zip(fn(), sort(), want):
                 _record(kernel, same_bits(kt, pt, "main topk"))
+                same_bits(st, pt, "main topk, the sort path")
+            del want
             out_bytes = L * S * 8 + L * 9
         # what the function needs, not the kernel's sort network: a linear
         # selection per (group, step), one 64-bit compare (two INT32
@@ -1302,10 +1386,18 @@ def expr_kernel_times(b: corpus.QueryBatch, shapes: dict):
         # floor(h) and ceil(h); topk's k-th key)
         ops_ms = int(sizes.sum()) * S * 2 * (2 if mode == query_grouped.SELECT_QUANTILE
                                              else 1) / INT32_OPS_PER_S * 1e3
+        sort_ms = time_ms(lambda: torch.sort(rate, dim=0, stable=True), reps=5)
+        if mode == query_grouped.SELECT_QUANTILE:
+            lib_ms, lib = sort_ms, "torch.sort along the lanes"
+        else:
+            lib_ms, lib = (time_ms(lambda: torch.topk(rate, 10, dim=0), reps=5),
+                           "torch.topk(k=10) along the lanes")
         row(kernel, rows, time_ms(fn, reps=5), time_ms(plain, reps=3),
-            L * S * 8 + L * 8 + out_bytes, ops_ms,
-            time_ms(lambda: torch.sort(rate, dim=0, stable=True), reps=5),
-            "torch.sort along the lanes")
+            L * S * 8 + L * 8 + out_bytes, ops_ms, lib_ms, lib)
+        if mode != query_grouped.SELECT_QUANTILE:
+            log(f"time query_topk beside the sort: torch.sort along the lanes {sort_ms:.3f} ms; "
+                f"the select kernel's bitonic sort at the same k=10 (the path of k > "
+                f"{query_grouped.K_MAX}) {time_ms(sort, reps=5):.3f} ms")
 
     cv, rows_idx, ubs, caps = shapes["hq"]
     G, B = rows_idx.shape
@@ -1837,11 +1929,14 @@ def graphite_kernel_times(shapes: dict):
     plain = lambda: query_grouped.grouped_reduce_plain(  # noqa: E731
         x, torch.from_numpy(ids), L, "sum", 0.0)
     _record("query_grouped[graphite]", same_bits(fn(), plain(), "main groupByNode sum"))
-    bound_ms = (2 * cell_bytes + L * 16) / HBM_BYTES_PER_S * 1e3
-    log(f"time query_grouped[groupByNode, {n} one-lane groups of {L}, the padding lanes on "
-        f"group 0]: kernel "
-        f"{time_ms(fn, reps=7):.3f} ms, plain {time_ms(plain, reps=3):.3f} ms, bound "
-        f"{bound_ms:.3f} ms by bytes")
+    log(f"groupByNode: {n} one-lane groups of {L}, the padding lanes on group 0")
+    ids_t = torch.from_numpy(ids).to(DEVICE)
+    vz = torch.nan_to_num(x, nan=0.0)
+    row("query_grouped[groupByNode]", rows, time_ms(fn, reps=7), time_ms(plain, reps=3),
+        2 * cell_bytes + L * 16, L * S / FP64_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.zeros((L, S), dtype=torch.float64, device=DEVICE).index_add_(
+            0, ids_t, vz), reps=7), "index_add_ (of nan_to_num(x) computed ahead)")
+    del vz
 
     qf = g.percentile_fraction(95.0)
     fn = lambda: g.percentile_columns(x, qf)  # noqa: E731
@@ -3161,6 +3256,7 @@ def main() -> int:
     compare_query(corpus.query_probe_corpus(), "probes")
     compare_query(corpus.query_probe_corpus(tiered=True), "two-tier")
     compare_query(corpus.query_probe_corpus(n_real=61, n_lanes=67, seed=5), "67 lanes")
+    compare_grouped_chunks()
     compare_long_lanes()
     compare_expr_kernels()
     compare_family_kernels()

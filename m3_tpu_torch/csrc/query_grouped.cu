@@ -22,22 +22,34 @@
 //
 // The JAX program uses segment_sum/segment_min, which are scatters with a
 // combiner.  Here there are no floating-point atomics, so the result is the
-// same on every run: the host hands in a stable CSR of each group's lanes
-// (ascending lane order), and one block owns one (group, tile of 32 steps).
-// Its warps stride over the group's lanes, lane w of a warp on step w of
-// the tile (a coalesced 256-byte row segment per load); each warp folds its
-// lanes in ascending order, and the warps' partials are combined in warp
-// order.  The host launches the groups of more than 32 lanes with 32 warps
-// a block, and the others apart with as many warps as the largest of them
-// has lanes (rounded up to a power of two: one warp for one-lane groups),
-// so a group of at most 32 lanes is folded strictly in lane order and a
-// larger one always in the same 32 chains, whatever the other groups are.
-// min/max exclude NaN with +-inf fill and order -0.0 below +0.0, as XLA's
-// min/max do.  The grid is one-dimensional (group-major), so it takes more
-// than 65,535 groups.
+// same on every run.  The host hands in a stable CSR of each group's lanes
+// (ascending lane order) and a chunk table built from the group sizes alone
+// (ops/query_grouped.py:chunk_plan): each group is cut into chunks of at most
+// CHUNK (256) consecutive members, an empty group being one empty chunk.  The
+// unit of work is a (chunk, tile of 32 steps), taken by one warp: lane w on
+// step w of the tile, so each load is a coalesced 256-byte row segment; the
+// chunk's member ids are loaded 32 at a time and shuffled (a one-lane chunk's
+// lane comes with the chunk), and kRows rows are loaded ahead of the fold.  A
+// block holds kWarps units, so small groups go kWarps to a block, and a group
+// of n lanes spreads over ceil(n / CHUNK) warps per tile.
+//
+// Order.  A warp folds its chunk from 0.0 in ascending lane order.  A group
+// of one chunk writes its result directly: a group of at most CHUNK lanes is
+// folded strictly in lane order.  A group of several chunks writes per-chunk
+// partials (the sum, the count, and the min/max, product or last pair) to a
+// scratch, and fold_kernel, a second launch, folds each (group, step)'s
+// partials from 0.0 in ascending chunk order.  The order depends on the
+// group's own size only, never on the other groups, the grid or the card.
+// stddev/stdvar: a one-chunk group's warp sweeps its lanes twice (the sum and
+// count, then (x - mean)^2); for a group of several chunks the first fold
+// writes the mean into `out`, a second chunk pass sums (x - mean)^2 per chunk
+// (the sqdev form, `out` as the center) and a second fold adds those in chunk
+// order.  min/max exclude NaN with +-inf fill and order -0.0 below +0.0, as
+// XLA's min/max do.
 //
 // What bounds it on an H100: bytes (each cell of the [L, S] input read once,
-// twice for stddev/stdvar; one f64 written per (group, step)).
+// twice for stddev/stdvar; one f64 written per (group, step)); the partials
+// are 32 bytes per (chunk, step) against the chunk's 8 * CHUNK.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,11 +57,16 @@
 
 namespace {
 
-constexpr int kTile = 32;      // steps per block
-constexpr int kMaxWarps = 32;  // warps per block at most
+constexpr int kTile = 32;    // steps per unit of work (a warp's lanes)
+constexpr int kWarps = 8;    // units per block
+constexpr int kRows = 8;     // rows loaded ahead of the fold
+constexpr int kFoldBatch = 16;  // partials loaded ahead of the fold
+constexpr int kFoldThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Agg : int { kSum = 0, kAvg = 1, kCount = 2, kMin = 3, kMax = 4, kGroup = 5, kStddev = 6,
-                 kStdvar = 7, kMultiply = 8, kRange = 9, kDiff = 10, kLast = 11, kSqdev = 12 };
+                 kStdvar = 7, kMultiply = 8, kRange = 9, kDiff = 10, kLast = 11, kSqdev = 12,
+                 kMean = 13 };  // kMean: the first fold of a multi-chunk stddev/stdvar
 
 __device__ __forceinline__ double min_ieee(double a, double b) {  // non-NaN operands
   if (a < b) return a;
@@ -69,163 +86,218 @@ struct Pair {
   double a, b;
 };
 
+__device__ __forceinline__ bool uses_pair(int agg) {
+  return agg == kMin || agg == kMax || agg == kRange || agg == kMultiply || agg == kLast;
+}
+
 __device__ __forceinline__ Pair pair_init(int agg) {
   if (agg == kMultiply) return {1.0, 0.0};
   if (agg == kLast) return {__longlong_as_double(0x7ff8000000000000LL), -1.0};
   return {INFINITY, -INFINITY};
 }
 
-// Folds q (a cell, or a later warp's partial) into p.
+// Folds q (a cell, or a later chunk's partial) into p.
 __device__ __forceinline__ Pair pair_fold(int agg, Pair p, Pair q) {
   if (agg == kMultiply) return {p.a * q.a, 0.0};
   if (agg == kLast) return q.b > p.b ? q : p;
   return {min_ieee(p.a, q.a), max_ieee(p.b, q.b)};
 }
 
-__global__ void __launch_bounds__(kTile * kMaxWarps) grouped_kernel(
-    const double* __restrict__ x, long long S, const long long* __restrict__ members,
-    const long long* __restrict__ offsets, const long long* __restrict__ group_ids,
-    long long n_tiles, int agg, double empty_value, const double* __restrict__ center,
-    long long n_center, double* __restrict__ out) {
-  extern __shared__ double part[];  // four [warps][kTile] arrays
-  __shared__ double mean_of[kTile];
-  const int warps = blockDim.x >> 5;
-  double* part_s = part;
-  double* part_n = part + warps * kTile;
-  double* part_a = part + 2 * warps * kTile;
-  double* part_b = part + 3 * warps * kTile;
-  const int col = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long g = group_ids != nullptr ? group_ids[blockIdx.x / n_tiles]
-                                           : blockIdx.x / n_tiles;
-  const long long s = (blockIdx.x % n_tiles) * kTile + col;
-  const bool live = s < S;
-  const long long lo = offsets[g], hi = offsets[g + 1];
+struct Acc {
+  double sum, cnt;
+  Pair p;
+};
 
-  double sum = 0.0, cnt = 0.0;
-  Pair p = pair_init(agg);
-  // sqdev: the cell's deviation from its group's center, d = x - c, then d * d
-  const double c = agg == kSqdev && live ? center[(g % n_center) * S + s] : 0.0;
-  if (live) {
-#pragma unroll 4
-    for (long long k = lo + warp; k < hi; k += warps) {
-      const long long lane = members != nullptr ? members[k] : k;
-      const double v = x[lane * S + s];
-      const bool m = !isnan(v);
-      if (agg == kSqdev) {
-        const double d = m ? v - c : 0.0;
-        sum += d * d;
-      } else {
-        sum += m ? v : 0.0;
+// The fold of members [lo, hi) at step s, from 0.0 in ascending order; with
+// agg kSqdev it sums (x - c)^2 over the present cells.  Every lane of the
+// warp calls it (the shuffles); a step past S reads nothing.  `first` is the
+// lane of member lo, which a one-lane chunk reads without the member list.
+__device__ Acc sweep(const double* __restrict__ x, long long S,
+                     const long long* __restrict__ members, long long lo, long long hi,
+                     long long first, long long s, int agg, double c) {
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  const int col = threadIdx.x & 31;
+  Acc acc{0.0, 0.0, pair_init(agg)};
+  for (long long base = lo; base < hi; base += 32) {
+    const int n = hi - base < 32 ? (int)(hi - base) : 32;
+    const long long mine = col >= n ? 0 : members == nullptr ? base + col
+                           : hi - lo == 1 ? first : members[base + col];
+    for (int j0 = 0; j0 < n; j0 += kRows) {
+      double v[kRows];
+      long long lane[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        lane[u] = __shfl_sync(kFull, mine, j0 + u);
+        v[u] = s < S && j0 + u < n ? x[lane[u] * S + s] : nan;  // NaN: absent
       }
-      cnt += m ? 1.0 : 0.0;
-      if (m) p = pair_fold(agg, p, {v, agg == kLast ? (double)lane : v});
-    }
-  }
-  const int at = warp * kTile + col;
-  part_s[at] = sum;
-  part_n[at] = cnt;
-  part_a[at] = p.a;
-  part_b[at] = p.b;
-  __syncthreads();
-  // the total of each step, combined in warp order (0.0 + p0 + p1 + ...)
-  sum = 0.0;
-  cnt = 0.0;
-  p = pair_init(agg);
-  for (int w = 0; w < warps; ++w) {
-    const int i = w * kTile + col;
-    sum += part_s[i];
-    cnt += part_n[i];
-    p = pair_fold(agg, p, {part_a[i], part_b[i]});
-  }
-  const double denom = cnt > 1.0 ? cnt : 1.0;
-  double var = 0.0;
-  if (agg == kStddev || agg == kStdvar) {
-    if (warp == 0) mean_of[col] = sum / denom;
-    __syncthreads();
-    const double mean = mean_of[col];
-    double ss = 0.0;
-    if (live) {
-#pragma unroll 4
-      for (long long k = lo + warp; k < hi; k += warps) {
-        const long long lane = members != nullptr ? members[k] : k;
-        const double v = x[lane * S + s];
-        const double d = isnan(v) ? 0.0 : v - mean;
-        ss += d * d;
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const bool m = !isnan(v[u]);
+        if (agg == kSqdev) {
+          const double d = m ? v[u] - c : 0.0;
+          acc.sum += d * d;
+        } else {
+          acc.sum += m ? v[u] : 0.0;
+        }
+        acc.cnt += m ? 1.0 : 0.0;
+        if (m) acc.p = pair_fold(agg, acc.p, {v[u], agg == kLast ? (double)lane[u] : v[u]});
       }
     }
-    part_s[at] = ss;
-    __syncthreads();
-    ss = 0.0;
-    for (int w = 0; w < warps; ++w) ss += part_s[w * kTile + col];
-    var = ss / denom;
   }
-  if (warp != 0 || !live) return;
+  return acc;
+}
+
+// A (group, step)'s result from its folded sum, count and pair (`var`:
+// stddev/stdvar's sum((x - mean)^2) / max(count, 1)).
+__device__ __forceinline__ double finish(int agg, const Acc& a, double var,
+                                         const double* __restrict__ x, long long s,
+                                         double empty_value) {
+  const double denom = a.cnt > 1.0 ? a.cnt : 1.0;
   double r;
   switch (agg) {
-    case kSum: r = sum; break;
-    case kAvg: r = sum / denom; break;
-    case kCount: r = cnt; break;
-    case kMin: r = p.a; break;
-    case kMax: r = p.b; break;
+    case kSum: r = a.sum; break;
+    case kAvg: r = a.sum / denom; break;
+    case kCount: r = a.cnt; break;
+    case kMin: r = a.p.a; break;
+    case kMax: r = a.p.b; break;
     case kGroup: r = 1.0; break;
     case kStddev: r = sqrt(var); break;
     case kStdvar: r = var; break;
-    case kMultiply: r = p.a; break;
-    case kRange: r = p.b - p.a; break;
+    case kMultiply: r = a.p.a; break;
+    case kRange: r = a.p.b - a.p.a; break;
     case kDiff: {
       const double v0 = x[s];  // lane 0 at this step, the minuend
-      r = 2.0 * (isnan(v0) ? 0.0 : v0) - sum;
+      r = 2.0 * (isnan(v0) ? 0.0 : v0) - a.sum;
       break;
     }
-    case kSqdev: r = sum; break;
-    default: r = p.a; break;  // kLast
+    case kSqdev: r = a.sum; break;
+    case kMean: return a.sum / denom;
+    default: r = a.p.a; break;  // kLast
   }
-  out[g * S + s] = cnt == 0.0 ? empty_value : r;
+  return a.cnt == 0.0 ? empty_value : r;
+}
+
+// The units (chunk, tile of 32 steps) of chunks [0, n_work), one a warp:
+// the fold of the chunk's lanes at the tile's steps, written to the partials
+// (a chunk of a group of several: chunk i < n_partial writes partial slot i)
+// or finished into `out`.
+__global__ void __launch_bounds__(kWarps * 32) chunk_kernel(
+    const double* __restrict__ x, long long S, const long long* __restrict__ members,
+    const long long* __restrict__ chunks, long long n_table, long long n_work,
+    long long n_partial, long long n_tiles, int agg, double empty_value,
+    const double* __restrict__ center, long long n_center, double* __restrict__ partials,
+    double* __restrict__ out) {
+  const long long unit = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (unit >= n_work * n_tiles) return;  // warp-uniform
+  const long long ch = unit / n_tiles;
+  const long long s = (unit % n_tiles) * kTile + (threadIdx.x & 31);
+  const long long lo = chunks[ch], hi = chunks[n_table + ch], g = chunks[2 * n_table + ch];
+  const long long first = chunks[4 * n_table + ch];
+  const double c = agg == kSqdev && s < S ? center[(g % n_center) * S + s] : 0.0;
+  const Acc a = sweep(x, S, members, lo, hi, first, s, agg, c);
+  if (ch < n_partial) {  // a chunk of a group of several: its partials
+    if (s >= S) return;
+    const long long at = ch * S + s, part = n_partial * S;
+    partials[at] = a.sum;
+    partials[part + at] = a.cnt;
+    if (uses_pair(agg)) {
+      partials[2 * part + at] = a.p.a;
+      partials[3 * part + at] = a.p.b;
+    }
+    return;
+  }
+  double var = 0.0;
+  if (agg == kStddev || agg == kStdvar) {
+    const double denom = a.cnt > 1.0 ? a.cnt : 1.0;
+    var = sweep(x, S, members, lo, hi, first, s, kSqdev, a.sum / denom).sum / denom;
+  }
+  if (s < S) out[g * S + s] = finish(agg, a, var, x, s, empty_value);
+}
+
+// folds i64[3, n_folds]: rows group, first chunk, number of chunks.  One
+// thread per (group of several chunks, step) folds its partials from 0.0 in
+// ascending chunk order.  For stddev/stdvar the partial sums are the
+// (x - mean)^2 sums of the second chunk pass.
+__global__ void __launch_bounds__(kFoldThreads) fold_kernel(
+    const double* __restrict__ x, long long S, const long long* __restrict__ folds,
+    long long n_folds, long long n_partial, int agg, double empty_value,
+    const double* __restrict__ partials, double* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kFoldThreads + threadIdx.x;
+  if (i >= n_folds * S) return;
+  const long long f = i / S, s = i % S;
+  const long long g = folds[f], first = folds[n_folds + f], end = first + folds[2 * n_folds + f];
+  const long long part = n_partial * S;
+  const bool pair = uses_pair(agg);
+  const Pair init = pair_init(agg);
+  Acc a{0.0, 0.0, init};
+  for (long long c0 = first; c0 < end; c0 += kFoldBatch) {
+    double ps[kFoldBatch], pn[kFoldBatch], pa[kFoldBatch], pb[kFoldBatch];
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) {
+      const bool in = c0 + u < end;
+      const long long at = (c0 + u) * S + s;
+      ps[u] = in ? partials[at] : 0.0;
+      pn[u] = in ? partials[part + at] : 0.0;
+      pa[u] = in && pair ? partials[2 * part + at] : init.a;
+      pb[u] = in && pair ? partials[3 * part + at] : init.b;
+    }
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) {
+      if (c0 + u < end) {
+        a.sum += ps[u];
+        a.cnt += pn[u];
+        if (pair) a.p = pair_fold(agg, a.p, {pa[u], pb[u]});
+      }
+    }
+  }
+  const double var = a.sum / (a.cnt > 1.0 ? a.cnt : 1.0);  // read by stddev/stdvar only
+  out[g * S + s] = finish(agg, a, var, x, s, empty_value);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x f64[L, S]; members i64[offsets[G]] (lane ids, ascending within a group)
-// or null for lanes 0..offsets[G]-1; offsets i64[G + 1] -> out f64[G, S].
-// A group-step with no present cell gets `empty_value`.  The launch covers
-// the n_groups groups listed in group_ids (null: groups 0..n_groups-1),
-// with `warps` (1, 2, 4, ..., 32) warps a block.  Launches on `stream` and
+// x f64[L, S]; members i64[K] (lane ids, ascending within a group) or null
+// for lanes 0..K-1 in order; chunks i64[5, n_chunks] and folds i64[3, n_folds]
+// as above (ops/query_grouped.py:chunk_plan); partials f64[4, n_partial, S]
+// (null if n_partial is 0) -> out f64[n_groups, S].  A group-step with no
+// present cell gets `empty_value`.  agg kSqdev reads center f64[n_center, S]
+// (row g % n_center for group g; null otherwise).  Launches on `stream` (one
+// kernel; two with a group of several chunks, four for stddev/stdvar) and
 // returns cudaGetLastError().
-static int launch(const double* x, long long S, const long long* members,
-                  const long long* offsets, const long long* group_ids, int n_groups, int agg,
-                  double empty_value, const double* center, long long n_center, int warps,
-                  double* out, void* stream) {
-  if (n_groups < 0 || warps < 1 || warps > kMaxWarps || (warps & (warps - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  if (n_groups == 0 || S <= 0) return (int)cudaSuccess;
-  const long long n_tiles = (S + kTile - 1) / kTile;
-  if (n_tiles * n_groups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = 4 * (size_t)warps * kTile * sizeof(double);
-  grouped_kernel<<<(unsigned)(n_tiles * n_groups), warps * 32, smem, (cudaStream_t)stream>>>(
-      x, S, members, offsets, group_ids, n_tiles, agg, empty_value, center, n_center, out);
-  return (int)cudaGetLastError();
-}
-
 int m3_query_grouped(const double* x, long long S, const long long* members,
-                     const long long* offsets, const long long* group_ids, int n_groups,
-                     int agg, double empty_value, int warps, double* out, void* stream) {
-  if (agg < kSum || agg > kLast) return (int)cudaErrorInvalidValue;
-  return launch(x, S, members, offsets, group_ids, n_groups, agg, empty_value, nullptr, 1,
-                warps, out, stream);
-}
-
-// The sqdev op code: as m3_query_grouped with `center` f64[n_center, S] (the
-// group of segment g is g % n_center) and 0.0 where a segment has no present
-// cell.
-int m3_query_sqdev(const double* x, long long S, const long long* members,
-                   const long long* offsets, const long long* group_ids, int n_groups,
-                   const double* center, long long n_center, int warps, double* out,
-                   void* stream) {
-  if (center == nullptr || n_center < 1) return (int)cudaErrorInvalidValue;
-  return launch(x, S, members, offsets, group_ids, n_groups, kSqdev, 0.0, center, n_center,
-                warps, out, stream);
+                     const long long* chunks, long long n_chunks, long long n_partial,
+                     const long long* folds, long long n_folds, long long n_groups, int agg,
+                     double empty_value, const double* center, long long n_center,
+                     double* partials, double* out, void* stream) {
+  if (agg < kSum || agg > kSqdev || n_chunks < 0 || n_partial < 0 || n_partial > n_chunks ||
+      n_folds < 0 || (n_partial > 0 && (partials == nullptr || n_folds == 0)) ||
+      (agg == kSqdev && (center == nullptr || n_center < 1)))
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0 || S <= 0) return (int)cudaSuccess;
+  const long long n_tiles = (S + kTile - 1) / kTile;
+  const long long blocks = (n_chunks * n_tiles + kWarps - 1) / kWarps;
+  const long long fold_blocks = (n_folds * S + kFoldThreads - 1) / kFoldThreads;
+  if (blocks > 0x7fffffffLL || fold_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  chunk_kernel<<<(unsigned)blocks, kWarps * 32, 0, st>>>(
+      x, S, members, chunks, n_chunks, n_chunks, n_partial, n_tiles, agg, empty_value, center,
+      n_center, partials, out);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess || n_folds == 0) return (int)rc;
+  if (agg == kStddev || agg == kStdvar) {
+    fold_kernel<<<(unsigned)fold_blocks, kFoldThreads, 0, st>>>(
+        x, S, folds, n_folds, n_partial, kMean, 0.0, partials, out);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+    chunk_kernel<<<(unsigned)((n_partial * n_tiles + kWarps - 1) / kWarps), kWarps * 32, 0, st>>>(
+        x, S, members, chunks, n_chunks, n_partial, n_partial, n_tiles, kSqdev, 0.0, out,
+        n_groups, partials, out);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  }
+  fold_kernel<<<(unsigned)fold_blocks, kFoldThreads, 0, st>>>(
+      x, S, folds, n_folds, n_partial, agg, empty_value, partials, out);
+  return (int)cudaGetLastError();
 }
 
 const char* m3_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

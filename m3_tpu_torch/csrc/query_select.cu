@@ -15,32 +15,52 @@
 // one lax.sort (stable: equal keys keep lane order; -0.0 equals +0.0 and
 // NaN keys sort last) and finds each group's run from segment counts.
 // Here the host hands in a stable CSR of each group's lanes (ascending
-// lane order) and one block owns one (group, step) at a time, taking them
-// in turn: it loads the group's cells of that step, builds (order key,
-// member position) pairs and sorts them ascending with a bitonic network.
-// Member positions are distinct and ascend with the lane, so the order is
-// total and the same as the reference's stable one.  A group whose padded
-// size P is at most p_smem pairs (the caller's shared-memory limit,
+// lane order).  Keys: quantile sorts v with NaN -> +inf; topk sorts -v with
+// NaN -> -inf before the negation (so NaN lanes come last, still selectable
+// once the real values run out); bottomk sorts v with NaN -> +inf.  The
+// order key maps -0.0 to +0.0, as the reference's comparator compares them.
+// A lane's member position breaks ties: positions are distinct and ascend
+// with the lane, so (order key, position) is a total order and the same as
+// the reference's stable one.
+//
+// QK7 for k <= kKMax is a selection (topk_chunk_kernel, topk_merge_kernel
+// below): no sort of the group.  The host's chunk table (the one QK4 takes,
+// ops/query_grouped.py:chunk_plan) cuts each group into chunks of at most
+// CHUNK (256) members, and one warp takes a (chunk, tile of 32 steps): lane w on
+// step w, coalesced 256-byte row loads, each lane keeping the k least
+// (key, position) pairs of its step sorted in shared memory.  Positions
+// ascend along the sweep, so a cell enters only with a key strictly below
+// the list's k-th, and after the first rows most cells fail that one
+// compare.  A group of one chunk then has its k best and sweeps its rows
+// again: a cell is kept exactly when its (key, position) is not after the
+// k-th pair, so the write needs no scatter and no sort, and `present` comes
+// from a warp ballot (every writer stores the same 1).  The chunks of a
+// group of several write their lists to a scratch; topk_merge_kernel, one
+// thread per (group, step), merges them in ascending chunk order (reading a
+// list only while its entries beat the running k-th; the order is total, so
+// the result does not depend on the merge order) and writes the k-th pair;
+// a last chunk pass writes the cells against it.  Ranks: whoever holds a
+// group's final list at the last step writes each kept lane's position
+// (the caller fills 2^62 first).  Bytes: about two reads of [L, S] and one
+// write.
+//
+// QK6, and QK7 for k > kKMax: one block owns one (group, step) at a time
+// (select_kernel), taking them in turn: it loads the group's cells of that
+// step, builds (order key, member position) pairs and sorts them ascending
+// with a bitonic network.  A group whose padded size P is at most p_smem
+// pairs (the caller's shared-memory limit,
 // ops/query_grouped.py:SELECT_SMEM_MAX_P) sorts in dynamic shared memory; a
 // larger one sorts in the block's slice of a global scratch buffer, so
-// groups have no size limit (the 50,000-lane topk of the serving shape
-// takes that path).
+// groups have no size limit.  QK6 then reads the keys at positions floor(h)
+// and ceil(h) and interpolates in the reference's order of operations (the
+// file is built with --fmad=false).  QK7 writes every member's cell of the
+// step (kept or NaN), sets present[lane] = 1 for kept lanes, and at the last
+// step writes each member's rank: its position if kept, else 2^62.
 //
-// Keys: quantile sorts v with NaN -> +inf; topk sorts -v with NaN -> -inf
-// before the negation (so NaN lanes come last, still selectable once the
-// real values run out); bottomk sorts v with NaN -> +inf.  The order key
-// maps -0.0 to +0.0, as the reference's comparator compares them.
-//
-// QK6 then reads the keys at positions floor(h) and ceil(h) and
-// interpolates in the reference's order of operations (the file is built
-// with --fmad=false).  QK7 writes every member's cell of the step (kept or
-// NaN), sets present[lane] = 1 for kept lanes (every writer stores the same
-// 1, so the result does not depend on the order), and at the last step
-// writes each member's rank: its position if kept, else 2^62.
-//
-// What bounds it on an H100: operations for large groups (the network's
-// P log2(P)^2 / 4 compare-exchanges per (group, step)), bytes for small
-// ones (each cell read once, gathered by lane; QK7 writes each cell once).
+// What bounds it on an H100: bytes for the selection and for small groups
+// (each cell read once, or twice by the selection; QK7 writes each cell
+// once); for the sorts of large groups, operations (the network's
+// P log2(P)^2 / 4 compare-exchanges per (group, step)).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -181,6 +201,178 @@ __global__ void select_kernel(const double* __restrict__ x, long long S,
     }
     __syncthreads();  // the pairs are rewritten by the next item
   }
+}
+
+constexpr int kKMax = 32;    // the selection's largest k (ops/query_grouped.py:K_MAX)
+constexpr int kSelWarps = 8;
+constexpr int kSelBatch = 8;
+constexpr int kMergeThreads = 64;
+constexpr unsigned long long kNone = ~0ull;  // no entry: after every key
+constexpr long long kNoPos = 0x7fffffffffffffffLL;
+
+__device__ __forceinline__ bool before(unsigned long long ka, long long pa,
+                                       unsigned long long kb, long long pb) {
+  return ka < kb || (ka == kb && pa < pb);
+}
+
+// Writes the cells of members [lo, hi) at step s: a cell is kept when its
+// (key, position) is not after (tk, tp); present[lane] = 1 where a lane is
+// kept at any step of the warp's tile.  Every lane of the warp calls it.
+__device__ void write_sweep(const double* __restrict__ x, long long S,
+                            const long long* __restrict__ members, long long lo, long long hi,
+                            long long s, bool live, int mode, unsigned long long tk, long long tp,
+                            double* __restrict__ out, int* __restrict__ present) {
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  const int col = threadIdx.x & 31;
+  for (long long base = lo; base < hi; base += 32) {
+    const int n = hi - base < 32 ? (int)(hi - base) : 32;
+    const long long mine = col < n ? members[base + col] : 0;
+    for (int j0 = 0; j0 < n; j0 += kSelBatch) {
+      double v[kSelBatch];
+      long long lane[kSelBatch];
+#pragma unroll
+      for (int u = 0; u < kSelBatch; ++u) {
+        lane[u] = __shfl_sync(0xffffffffu, mine, j0 + u);
+        v[u] = live && j0 + u < n ? x[lane[u] * S + s] : nan;
+      }
+#pragma unroll
+      for (int u = 0; u < kSelBatch; ++u) {
+        if (j0 + u < n) {  // warp-uniform
+          const bool kept =
+              live && !before(tk, tp, order_key(sort_value(v[u], mode)), base + j0 + u);
+          if (live) out[lane[u] * S + s] = kept ? v[u] : nan;
+          if (__ballot_sync(0xffffffffu, kept) != 0u && col == 0) present[lane[u]] = 1;
+        }
+      }
+    }
+  }
+}
+
+// chunks i64[5, n_table] as QK4's: rows lo, hi, group, fold index (-1 for a
+// group of one chunk), first lane; chunk i < n_partial belongs to a group of
+// several.  pass 0 takes the units of chunks [0, n_work): each lane's k least pairs,
+// then the write (a group of one chunk) or the list to the scratch
+// cand_{keys,pos}[chunk][k][S] (padded with kNone).  pass 1 takes the chunks
+// of groups of several and writes their cells against the merged k-th pair
+// thr_{keys,pos}[fold][S].
+__global__ void __launch_bounds__(kSelWarps * 32) topk_chunk_kernel(
+    const double* __restrict__ x, long long S, const long long* __restrict__ members,
+    const long long* __restrict__ chunks, long long n_table, long long n_work,
+    long long n_partial, long long n_tiles, int mode, int k, int pass,
+    unsigned long long* __restrict__ cand_keys, long long* __restrict__ cand_pos,
+    const unsigned long long* __restrict__ thr_keys, const long long* __restrict__ thr_pos,
+    double* __restrict__ out, int* __restrict__ present, long long* __restrict__ rank) {
+  extern __shared__ unsigned long long lists[];  // per warp: keys [k][32], positions [k][32]
+  const int warp = threadIdx.x >> 5, col = threadIdx.x & 31;
+  const long long unit = (long long)blockIdx.x * kSelWarps + warp;
+  if (unit >= n_work * n_tiles) return;  // warp-uniform
+  const long long ch = unit / n_tiles;
+  const long long s = (unit % n_tiles) * 32 + col;
+  const bool live = s < S;
+  const long long lo = chunks[ch], hi = chunks[n_table + ch], f = chunks[3 * n_table + ch];
+  if (pass == 1) {
+    write_sweep(x, S, members, lo, hi, s, live, mode, live ? thr_keys[f * S + s] : kNone,
+                live ? thr_pos[f * S + s] : kNoPos, out, present);
+    return;
+  }
+  unsigned long long* lk = lists + (long long)warp * 2 * k * 32 + col;
+  long long* lp = (long long*)(lk + k * 32);
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  int held = 0;  // entries of this lane's list, ascending by (key, position)
+  for (long long base = lo; base < hi; base += 32) {
+    const int n = hi - base < 32 ? (int)(hi - base) : 32;
+    const long long mine = col < n ? members[base + col] : 0;
+    for (int j0 = 0; j0 < n; j0 += kSelBatch) {
+      double v[kSelBatch];
+#pragma unroll
+      for (int u = 0; u < kSelBatch; ++u) {
+        const long long lane = __shfl_sync(0xffffffffu, mine, j0 + u);
+        v[u] = live && j0 + u < n ? x[lane * S + s] : nan;
+      }
+#pragma unroll
+      for (int u = 0; u < kSelBatch; ++u) {
+        if (!live || j0 + u >= n) continue;
+        const unsigned long long key = order_key(sort_value(v[u], mode));
+        // a later position never beats an equal key
+        if (held == k && key >= lk[(k - 1) * 32]) continue;
+        int j = held < k ? held++ : k - 1;
+        for (; j > 0 && lk[(j - 1) * 32] > key; --j) {
+          lk[j * 32] = lk[(j - 1) * 32];
+          lp[j * 32] = lp[(j - 1) * 32];
+        }
+        lk[j * 32] = key;
+        lp[j * 32] = base + j0 + u;
+      }
+    }
+  }
+  if (ch < n_partial) {  // warp-uniform
+    for (int j = 0; live && j < k; ++j) {
+      const long long at = (ch * k + j) * S + s;
+      cand_keys[at] = j < held ? lk[j * 32] : kNone;
+      cand_pos[at] = j < held ? lp[j * 32] : kNoPos;
+    }
+    return;
+  }
+  // a group of one chunk: its list is the group's
+  if (live && s == S - 1)
+    for (int j = 0; j < held; ++j) rank[members[lp[j * 32]]] = j;
+  const unsigned long long tk = held == k ? lk[(k - 1) * 32] : kNone;
+  const long long tp = held == k ? lp[(k - 1) * 32] : kNoPos;
+  write_sweep(x, S, members, lo, hi, s, live, mode, tk, tp, out, present);
+}
+
+// folds i64[3, n_folds]: rows group, first chunk, number of chunks.  One
+// thread per (group of several chunks, step) merges its chunks' lists into
+// the group's k least pairs, writes the k-th (kNone if the group has fewer
+// than k lanes) and, at the last step, the kept lanes' ranks.
+__global__ void __launch_bounds__(kMergeThreads) topk_merge_kernel(
+    const long long* __restrict__ members, long long S, const long long* __restrict__ folds,
+    long long n_folds, int k, const unsigned long long* __restrict__ cand_keys,
+    const long long* __restrict__ cand_pos, unsigned long long* __restrict__ thr_keys,
+    long long* __restrict__ thr_pos, long long* __restrict__ rank) {
+  extern __shared__ unsigned long long mlists[];  // keys [k][threads], positions alike
+  const long long i = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
+  if (i >= n_folds * S) return;
+  const long long f = i / S, s = i % S;
+  const long long first = folds[n_folds + f], end = first + folds[2 * n_folds + f];
+  unsigned long long* lk = mlists + threadIdx.x;
+  long long* lp = (long long*)(mlists + k * kMergeThreads) + threadIdx.x;
+  int held = 0;
+  for (long long c0 = first; c0 < end; c0 += kSelBatch) {
+    unsigned long long hk[kSelBatch];
+    long long hp[kSelBatch];
+#pragma unroll
+    for (int u = 0; u < kSelBatch; ++u) {  // the lists' heads, loaded ahead
+      const bool in = c0 + u < end;
+      hk[u] = in ? cand_keys[(c0 + u) * k * S + s] : kNone;
+      hp[u] = in ? cand_pos[(c0 + u) * k * S + s] : kNoPos;
+    }
+#pragma unroll
+    for (int u = 0; u < kSelBatch; ++u) {
+      for (int e = 0; e < k; ++e) {
+        const long long at = ((c0 + u) * k + e) * S + s;
+        const unsigned long long key = e == 0 ? hk[u] : cand_keys[at];
+        const long long pos = e == 0 ? hp[u] : cand_pos[at];
+        // the list ran out, or its entries are all after the k-th from here
+        if (key == kNone ||
+            (held == k && !before(key, pos, lk[(k - 1) * kMergeThreads],
+                                  lp[(k - 1) * kMergeThreads])))
+          break;
+        int j = held < k ? held++ : k - 1;
+        for (; j > 0 && before(key, pos, lk[(j - 1) * kMergeThreads],
+                               lp[(j - 1) * kMergeThreads]); --j) {
+          lk[j * kMergeThreads] = lk[(j - 1) * kMergeThreads];
+          lp[j * kMergeThreads] = lp[(j - 1) * kMergeThreads];
+        }
+        lk[j * kMergeThreads] = key;
+        lp[j * kMergeThreads] = pos;
+      }
+    }
+  }
+  thr_keys[f * S + s] = held == k ? lk[(k - 1) * kMergeThreads] : kNone;
+  thr_pos[f * S + s] = held == k ? lp[(k - 1) * kMergeThreads] : kNoPos;
+  if (s == S - 1)
+    for (int j = 0; j < held; ++j) rank[members[lp[j * kMergeThreads]]] = j;
 }
 
 // jnp.searchsorted(t, q, side="right") as JAX computes it: a fixed number
@@ -458,6 +650,51 @@ int m3_query_select(const double* x, long long S, const long long* members,
   select_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       x, S, members, offsets, n_groups, mode, phi, k, p_smem, p_scratch, scratch_keys, scratch_pos,
       out, present, rank);
+  return (int)cudaGetLastError();
+}
+
+// QK7's selection, topk (mode 1) or bottomk (mode 2) of 1 <= k <= kKMax:
+// x f64[L, S]; members i64[K] (lane ids, ascending within a group; every
+// lane in exactly one group); chunks i64[5, n_chunks] and folds i64[3,
+// n_folds] (ops/query_grouped.py:chunk_plan); scratch
+// cand_keys u64[n_partial, k, S], cand_pos i64 alike, thr_keys u64[n_folds,
+// S], thr_pos i64 alike (null when n_partial is 0) -> out f64[L, S], present
+// i32[L] (zeroed by the caller), rank i64[L] (filled with 2^62 by the
+// caller).  Launches on `stream` (one or three kernels) and returns
+// cudaGetLastError().
+int m3_query_topk(const double* x, long long S, const long long* members,
+                  const long long* chunks, long long n_chunks, long long n_partial,
+                  const long long* folds, long long n_folds, int mode, int k,
+                  unsigned long long* cand_keys, long long* cand_pos,
+                  unsigned long long* thr_keys, long long* thr_pos, double* out, int* present,
+                  long long* rank, void* stream) {
+  if (mode < kTopk || mode > kBottomk || k < 1 || k > kKMax || n_chunks < 0 || n_partial < 0 ||
+      n_partial > n_chunks || n_folds < 0 ||
+      (n_partial > 0 && (n_folds == 0 || cand_keys == nullptr || cand_pos == nullptr ||
+                         thr_keys == nullptr || thr_pos == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0 || S <= 0) return (int)cudaSuccess;
+  const long long n_tiles = (S + 31) / 32;
+  const long long blocks = (n_chunks * n_tiles + kSelWarps - 1) / kSelWarps;
+  const long long merge_blocks = (n_folds * S + kMergeThreads - 1) / kMergeThreads;
+  if (blocks > 0x7fffffffLL || merge_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kSelWarps * 2 * k * 32 * sizeof(unsigned long long);
+  cudaError_t rc = cudaFuncSetAttribute(topk_chunk_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  topk_chunk_kernel<<<(unsigned)blocks, kSelWarps * 32, smem, st>>>(
+      x, S, members, chunks, n_chunks, n_chunks, n_partial, n_tiles, mode, k, 0, cand_keys,
+      cand_pos, thr_keys, thr_pos, out, present, rank);
+  if ((rc = cudaGetLastError()) != cudaSuccess || n_folds == 0) return (int)rc;
+  topk_merge_kernel<<<(unsigned)merge_blocks, kMergeThreads,
+                      (size_t)2 * k * kMergeThreads * sizeof(unsigned long long), st>>>(
+      members, S, folds, n_folds, k, cand_keys, cand_pos, thr_keys, thr_pos, rank);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  topk_chunk_kernel<<<(unsigned)((n_partial * n_tiles + kSelWarps - 1) / kSelWarps),
+                      kSelWarps * 32, smem, st>>>(
+      x, S, members, chunks, n_chunks, n_partial, n_partial, n_tiles, mode, k, 1, cand_keys,
+      cand_pos, thr_keys, thr_pos, out, present, rank);
   return (int)cudaGetLastError();
 }
 

@@ -15,10 +15,13 @@ never displace a real lane in an under-full group).
   in its group at the last step, ``_NO_RANK`` where it was not kept there
   (the host orders the root's rows by it).
 
-- On a CUDA tensor ``masked_topk`` launches ``csrc/query_select.cu`` in
-  its topk mode (one block per (group, step), a bitonic sort of (key,
-  member position) pairs, shared memory or a global scratch slice) or
-  raises.  The group CSR is host glue built from the host group ids.
+- On a CUDA tensor ``masked_topk`` launches ``csrc/query_select.cu`` or
+  raises: for k <= ``query_grouped.K_MAX`` its selection (each chunk's k
+  best (key, member position) pairs per step, merged per (group, step),
+  then a write against the k-th pair), for a larger k its select kernel's
+  topk mode (one block per (group, step), a bitonic sort of the pairs).
+  The group CSR and chunk table are host glue built from the host group
+  ids.
 - On a CPU tensor it runs ``masked_topk_plain``, the reference's
   formulation: one stable sort per step by (group, key), the inverse
   permutation, position in group < k.
@@ -35,7 +38,7 @@ from m3_tpu_torch.ops import query_grouped
 
 I64 = torch.int64
 F64 = torch.float64
-_NO_RANK = 2**62  # the reference's rank of a lane not kept at the last step
+_NO_RANK = query_grouped.NO_RANK
 
 
 def _check(groups: np.ndarray, n_groups: int, k: int) -> None:
@@ -84,6 +87,14 @@ def masked_topk(values: torch.Tensor, groups, n_groups: int, k: int, bottom: boo
         raise ValueError(f"unsupported device {values.device}")
     ids = query_grouped.host_ids(groups)
     _check(ids, n_groups, k)
+    return _launch(values, ids, n_groups, k, bottom)
+
+
+def _launch(values: torch.Tensor, ids: np.ndarray, n_groups: int, k: int, bottom: bool):
+    """The kernel for k: the selection up to ``query_grouped.K_MAX``, the
+    select kernel's sort above it."""
     mode = query_grouped.SELECT_BOTTOMK if bottom else query_grouped.SELECT_TOPK
-    return query_grouped.launch_select(
-        values, query_grouped.group_index(ids, n_groups, values.device), mode, k=k)
+    index = query_grouped.group_index(ids, n_groups, values.device)
+    if k <= query_grouped.K_MAX:
+        return query_grouped.launch_topk(values, index, mode, k)
+    return query_grouped.launch_select(values, index, mode, k=k)

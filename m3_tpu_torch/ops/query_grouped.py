@@ -14,9 +14,10 @@ nothing as ``empty_value``) and of ``_grouped_quantile`` (QK6,
 
 - On a CUDA tensor ``grouped_reduce`` and ``fleet_nansum`` launch
   ``csrc/query_grouped.cu`` or raise.  The kernel takes a stable CSR of
-  each group's lanes, built on the host from the group ids (glue): lanes
-  with a group id outside ``[0, n_groups)`` belong to no group, as in the
-  reference's segment ops.
+  each group's lanes and a chunk table (``chunk_plan``: each group cut into
+  chunks of at most ``CHUNK`` lanes), both built on the host from the group
+  ids (glue): lanes with a group id outside ``[0, n_groups)`` belong to no
+  group, as in the reference's segment ops.
 - On a CPU tensor they run the plain versions (segment sums by
   ``index_add_``, as the reference's ``segment_sum``).
 
@@ -35,6 +36,7 @@ reference.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -49,11 +51,17 @@ AGGS = ("sum", "avg", "count", "min", "max", "group", "stddev", "stdvar")  # Pro
 # enum Agg of csrc/query_grouped.cu: PromQL's, then graphite's further ops
 # (diff and last answer for a grouping whose lane 0 lies in group 0)
 OPS = AGGS + ("multiply", "range", "diff", "last", "sqdev")
-MAX_WARPS = 32  # kMaxWarps of the kernel
+# Lanes per chunk of ``chunk_plan``: QK4 and QK7 give a warp one chunk for 32
+# steps, and fold or merge a larger group's chunks in a second pass.
+CHUNK = 256
+# Largest k of the topk/bottomk selection (kKMax of csrc/query_select.cu);
+# a larger k sorts each group (the select kernel's topk mode).
+K_MAX = 32
 # Largest padded group (pairs) that csrc/query_select.cu sorts in shared
 # memory (48 KB); larger groups sort in a global scratch buffer.
 SELECT_SMEM_MAX_P = 4096
 SELECT_QUANTILE, SELECT_TOPK, SELECT_BOTTOMK = 0, 1, 2  # enum Mode of the kernel
+NO_RANK = 2**62  # the reference's rank of a lane not kept at the last step
 
 
 def _check_agg(agg: str) -> None:
@@ -213,15 +221,17 @@ def grouped_quantile_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: in
 # --- wrappers: CUDA tensor -> kernel, CPU tensor -> plain version --------
 
 _SIGNATURES = {
-    "m3_query_grouped": [_build.P, _build.LL, _build.P, _build.P, _build.P, _build.I,
-                         _build.I, _build.D, _build.I, _build.P, _build.P],
-    "m3_query_sqdev": [_build.P, _build.LL, _build.P, _build.P, _build.P, _build.I, _build.P,
-                       _build.LL, _build.I, _build.P, _build.P],
+    "m3_query_grouped": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.LL, _build.P,
+                         _build.LL, _build.LL, _build.I, _build.D, _build.P, _build.LL, _build.P,
+                         _build.P, _build.P],
 }
 _SELECT_SIGNATURES = {
     "m3_query_select": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I, _build.D,
                         _build.LL, _build.I, _build.LL, _build.P, _build.P, _build.I, _build.I,
                         _build.P, _build.P, _build.P, _build.P],
+    "m3_query_topk": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.LL, _build.P,
+                      _build.LL, _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
+                      _build.P, _build.P, _build.P, _build.P],
 }
 
 
@@ -237,22 +247,71 @@ def group_csr(groups, n_groups: int):
     return members, offsets
 
 
+def chunk_plan(offsets: np.ndarray, members: np.ndarray | None = None):
+    """The kernels' chunk table of a grouping, from its CSR: each group cut
+    into chunks of at most ``CHUNK`` consecutive members (an empty group is
+    one empty chunk).  Returns (chunks i64[5, C]: rows lo, hi (CSR
+    positions), group, fold index, the lane of member lo (0 for an empty
+    chunk); folds i64[3, F]: rows group, first chunk, number of chunks).
+    The chunks of the F groups of several come first, in group order, with
+    their fold index; those of the groups of one follow, in group order,
+    with fold index -1.  ``members`` None means lanes 0..offsets[-1]-1."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    sizes = np.diff(offsets)
+    n = np.maximum(1, -(-sizes // CHUNK))
+    multi, single = np.flatnonzero(n > 1), np.flatnonzero(n == 1)
+    reps = n[multi]
+    first = np.cumsum(reps) - reps
+    grp = np.repeat(multi, reps)
+    lo = offsets[grp] + (np.arange(len(grp)) - np.repeat(first, reps)) * CHUNK
+    lo = np.concatenate([lo, offsets[single]])
+    hi = np.concatenate([np.minimum(lo[:len(grp)] + CHUNK, offsets[grp + 1]),
+                         offsets[single + 1]])
+    lane = lo if members is None else np.where(hi > lo, np.append(members, 0)[lo], 0)
+    chunks = np.stack([lo, hi, np.concatenate([grp, single]),
+                       np.concatenate([np.repeat(np.arange(len(multi)), reps),
+                                       np.full(len(single), -1)]), lane]).astype(np.int64)
+    return chunks, np.stack([multi, first, reps]).astype(np.int64)
+
+
 class GroupIndex(NamedTuple):
-    """The kernels' view of a grouping: ``group_csr`` on the device, and
-    the group sizes on the host (the select kernel sizes its sorts from
-    them).  ``members`` None means lanes 0..offsets[-1]-1 in order."""
+    """The kernels' view of a grouping: ``group_csr`` and ``chunk_plan`` on
+    the device, and the group sizes on the host (the select kernel sizes
+    its sorts from them).  ``members`` None means lanes 0..offsets[-1]-1 in
+    order; the first ``n_partial`` chunks are those of groups of several."""
 
     members: torch.Tensor | None  # i64[K] on the device
     offsets: torch.Tensor  # i64[G + 1] on the device
     sizes: np.ndarray  # i64[G] on the host
+    chunks: torch.Tensor  # i64[5, C] on the device
+    folds: torch.Tensor  # i64[3, F] on the device
+    n_partial: int
+
+
+def _index(members: np.ndarray | None, offsets: np.ndarray, device) -> GroupIndex:
+    """The index of a CSR moved to ``device`` (non-blocking copies: host
+    glue that never waits on the card)."""
+    chunks, folds = chunk_plan(offsets, members)
+    up = lambda a: torch.from_numpy(a).to(device, non_blocking=True)  # noqa: E731
+    return GroupIndex(None if members is None else up(members), up(offsets), np.diff(offsets),
+                      up(chunks), up(folds), int(folds[2].sum()))
 
 
 def group_index(groups, n_groups: int, device) -> GroupIndex:
-    """``group_csr`` moved to ``device`` (non-blocking copies: host glue
-    that never waits on the card)."""
+    """``group_csr`` and its chunk table on ``device``."""
     members, offsets = group_csr(groups, n_groups)
-    return GroupIndex(torch.from_numpy(members).to(device, non_blocking=True),
-                      torch.from_numpy(offsets).to(device, non_blocking=True), np.diff(offsets))
+    return _index(members, offsets, device)
+
+
+@functools.lru_cache(maxsize=32)
+def block_index(sizes: tuple[int, ...], device) -> GroupIndex:
+    """The index of groups that are consecutive lane blocks of ``sizes``
+    lanes, in order (lanes 0..sizes[0]-1 are group 0, and so on).  Built
+    once per (sizes, device): its tensors are only read, and the callers
+    (the fleet sum, a mesh's per-shard sums) repeat one shape per query."""
+    offsets = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    return _index(None, offsets, device)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -270,35 +329,21 @@ def _launch(x: torch.Tensor, index: GroupIndex, agg: str, empty_value: float,
     out = torch.empty((n_groups, S), dtype=F64, device=dev)
     if not (n_groups and S):
         return out
-    # groups of more than 32 lanes with 32 warps a block; the others with as
-    # many warps as the largest of them has lanes (one for one-lane groups);
-    # empty groups go with the large ones when no other group is small
-    large = index.sizes > MAX_WARPS
-    if not (index.sizes[~large] > 0).any():
-        large[:] = True
-    small_warps = min(MAX_WARPS, pow2(int(index.sizes[~large].max(initial=1))))
-    if large.all() or not large.any():
-        launches = [(None, n_groups, MAX_WARPS if large.all() else small_warps)]
-    else:
-        launches = [(torch.from_numpy(np.flatnonzero(sel)).to(dev, non_blocking=True),
-                     int(sel.sum()), w) for sel, w in ((~large, small_warps), (large, MAX_WARPS))]
+    cc = None
+    if agg == "sqdev":  # the sharded stddev's second pass, counted apart
+        if empty_value != 0.0:
+            raise ValueError("sqdev gives 0.0 where a segment has no present cell")
+        cc = center.to(dev, F64).contiguous()
+    partials = torch.empty((4, index.n_partial, S), dtype=F64, device=dev)
     lib = _build.library("query_grouped", _SIGNATURES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for ids, n, warps in launches:
-        if agg == "sqdev":  # the sharded stddev's second pass, counted apart
-            if empty_value != 0.0:
-                raise ValueError("sqdev gives 0.0 where a segment has no present cell")
-            cc = center.to(dev, F64).contiguous()
-            rc = lib.m3_query_sqdev(
-                xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), _ptr(ids), n,
-                cc.data_ptr(), cc.shape[0], warps, out.data_ptr(), stream)
-        else:
-            rc = lib.m3_query_grouped(
-                xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), _ptr(ids), n,
-                OPS.index(agg), float(empty_value), warps, out.data_ptr(), stream)
-        kernel = "query_sqdev" if agg == "sqdev" else "query_grouped"
-        _build.check(lib, rc, kernel)
-        _build.count_launch(kernel)
+    rc = lib.m3_query_grouped(
+        xc.data_ptr(), S, _ptr(index.members), _ptr(index.chunks), index.chunks.shape[1],
+        index.n_partial, _ptr(index.folds), index.folds.shape[1], n_groups, OPS.index(agg),
+        float(empty_value), _ptr(cc), 0 if cc is None else cc.shape[0], _ptr(partials),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernel = "query_sqdev" if agg == "sqdev" else "query_grouped"
+    _build.check(lib, rc, kernel)
+    _build.count_launch(kernel)
     return out
 
 
@@ -329,8 +374,7 @@ def fleet_nansum(x: torch.Tensor) -> torch.Tensor:
         return fleet_nansum_plain(x)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
-    offsets = torch.tensor([0, x.shape[0]], dtype=I64).to(x.device, non_blocking=True)
-    return _launch(x, GroupIndex(None, offsets, np.asarray([x.shape[0]])), "sum", 0.0)[0]
+    return _launch(x, block_index((x.shape[0],), x.device), "sum", 0.0)[0]
 
 
 def pow2(n: int) -> int:
@@ -367,10 +411,41 @@ def launch_select(x: torch.Tensor, index: GroupIndex, mode: int, phi: float = 0.
             float(phi), int(k), p_smem, p_scratch, _ptr(keys), _ptr(pos), grid, threads,
             out.data_ptr(), _ptr(present), _ptr(rank),
             torch.cuda.current_stream(dev).cuda_stream)
-        kernel = "query_quantile" if quantile else "query_topk"
+        kernel = "query_quantile" if quantile else "query_topk[sort]"
         _build.check(lib, rc, kernel)
         _build.count_launch(kernel)
     return out if quantile else (out, present.bool(), rank)
+
+
+def launch_topk(x: torch.Tensor, index: GroupIndex, mode: int, k: int):
+    """One call of ``csrc/query_select.cu``'s topk/bottomk selection (k <=
+    ``K_MAX``) over the groups of ``index`` on the CUDA matrix ``x`` [L, S]:
+    -> (f64[L, S], bool[L], i64[L]) as ``launch_select``."""
+    if x.dim() != 2:
+        raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"the selection takes 1 <= k <= {K_MAX}, got {k}")
+    dev = x.device
+    L, S = x.shape
+    xc = x.to(F64).contiguous()
+    out = torch.empty((L, S), dtype=F64, device=dev)
+    present = torch.zeros((L,), dtype=torch.int32, device=dev)
+    rank = torch.full((L,), NO_RANK, dtype=I64, device=dev)
+    n_folds = index.folds.shape[1]
+    cand_keys = torch.empty((index.n_partial, k, S), dtype=I64, device=dev)
+    cand_pos = torch.empty_like(cand_keys)
+    thr_keys = torch.empty((n_folds, S), dtype=I64, device=dev)
+    thr_pos = torch.empty_like(thr_keys)
+    if len(index.sizes) and S and L:
+        lib = _build.library("query_select", _SELECT_SIGNATURES)
+        rc = lib.m3_query_topk(
+            xc.data_ptr(), S, _ptr(index.members), _ptr(index.chunks),
+            index.chunks.shape[1], index.n_partial, _ptr(index.folds), n_folds, mode, int(k),
+            _ptr(cand_keys), _ptr(cand_pos), _ptr(thr_keys), _ptr(thr_pos), out.data_ptr(),
+            present.data_ptr(), rank.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "query_topk")
+        _build.count_launch("query_topk")
+    return out, present.bool(), rank
 
 
 def grouped_quantile(out: torch.Tensor, groups, n_groups: int, phi,

@@ -292,8 +292,5 @@ def shard_reduce(mesh: Mesh, x: torch.Tensor, agg: str = "sum",
         return query_grouped.grouped_reduce(x, shard_segments(mesh, x.shape[0]), spr, agg,
                                             empty_value=empty_value)
     # contiguous lane blocks: the kernel's index needs no member list
-    per = x.shape[0] // spr
-    offsets = torch.arange(spr + 1, dtype=torch.int64) * per
-    index = query_grouped.GroupIndex(None, offsets.to(x.device, non_blocking=True),
-                                     np.full(spr, per, dtype=np.int64))
+    index = query_grouped.block_index((x.shape[0] // spr,) * spr, x.device)
     return query_grouped.grouped_reduce(x, None, spr, agg, index, empty_value)

@@ -210,39 +210,60 @@ def test_unknown_forms_raise():
 
 
 class _FakeGrouped:
-    """Stands in for QK4's library: records each launch's groups and warps
-    (the wrapper's pointers are passed as the tensors themselves)."""
+    """Stands in for QK4's library: records each call's chunk table, fold
+    table and partial count (the wrapper's pointers are passed as the
+    tensors themselves)."""
 
     def __init__(self):
-        self.launches = []
+        self.calls = []
 
-    def m3_query_grouped(self, x, S, members, offsets, group_ids, n, agg, empty, warps, out,
-                         stream):
-        ids = None if group_ids is None else group_ids.tolist()
-        self.launches.append((ids, n, warps))
+    def m3_query_grouped(self, x, S, members, chunks, n_chunks, n_partial, folds, n_folds,
+                         n_groups, agg, empty, center, n_center, partials, out, stream):
+        assert chunks.shape == (5, n_chunks)
+        assert (n_folds == 0 and folds is None) or folds.shape == (3, n_folds)
+        assert partials is None if n_partial == 0 else partials.shape == (4, n_partial, S)
+        self.calls.append((chunks.numpy(), n_partial,
+                           [] if folds is None else folds.numpy().T.tolist()))
         return 0
 
 
+C = query_grouped.CHUNK
+
+
 @pytest.mark.parametrize("sizes,want", [
-    ([1] * 6, [(None, 6, 1)]),  # groupByNode: a warp a block
-    ([1, 2, 5, 0], [(None, 4, 8)]),  # small groups: lane order with 8 warps
-    ([40, 33], [(None, 2, 32)]),
-    ([20, 1, 1, 0], [(None, 4, 32)]),  # a group of 17-32 lanes takes 32 warps
-    ([40, 1, 1, 0, 2], [([1, 2, 3, 4], 4, 2), ([0], 1, 32)]),  # padding parked on group 0
-    ([40, 0, 0], [(None, 3, 32)]),  # sumSeries: one group and the empty padding groups
-    ([0, 0], [(None, 2, 32)]),
+    ([1] * 6, (6, 0, [])),  # groupByNode's one-lane groups: one chunk each
+    ([C - 1, C, C + 1], (4, 2, [[2, 0, 2]])),  # C + 1 lanes: two chunks, folded
+    ([65_536] + [0] * 7, (263, 256, [[0, 0, 256]])),  # sumSeries and its empty padding groups
+    ([0, 0], (2, 0, [])),  # an empty group is one empty chunk
+    ([40, 1, 1, 0, 2], (5, 0, [])),  # padding parked on group 0
+    ([2 * C + 5, 3, C + 1], (6, 5, [[0, 0, 3], [2, 3, 2]])),  # two groups of several
+    ([C + 40, 1, 1, 1], (5, 2, [[0, 0, 2]])),  # the padding takes group 0 past a chunk
 ])
 def test_grouped_launch_classes(monkeypatch, sizes, want):
-    """QK4's host side: groups of more than 32 lanes launch with 32 warps a
-    block, the others apart with the warps of the largest of them, so a
-    group's fold order never depends on the other groups."""
+    """QK4's host plan: one call whose chunk table cuts each group into runs
+    of at most CHUNK consecutive members, the groups of several first (each
+    with its fold: group, first chunk, chunks), so a group's fold order
+    depends only on its own size."""
     fake = _FakeGrouped()
     monkeypatch.setattr(_build, "library", lambda name, sig: fake)
-    monkeypatch.setattr(query_grouped, "_ptr", lambda t: None if t is None else t)
+    monkeypatch.setattr(query_grouped, "_ptr", lambda t: None if t is None or not t.numel() else t)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 0}))
     groups = np.repeat(np.arange(len(sizes)), sizes)
     index = query_grouped.group_index(groups, len(sizes), "cpu")
     x = torch.zeros((len(groups), 40), dtype=torch.float64)
     out = query_grouped._launch(x, index, "sum", 0.0)
     assert out.shape == (len(sizes), 40)
-    assert fake.launches == want
+    assert len(fake.calls) == 1
+    chunks, n_partial, folds = fake.calls[0]
+    assert (chunks.shape[1], n_partial, folds) == want
+    lo, hi, grp, fold, lane = chunks
+    assert ((hi - lo) <= C).all() and (hi >= lo).all()
+    members, _ = query_grouped.group_csr(groups, len(sizes))
+    assert (lane[hi > lo] == members[lo[hi > lo]]).all() and (lane[hi == lo] == 0).all()
+    assert (fold[:n_partial] >= 0).all() and (fold[n_partial:] == -1).all()
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    for g in range(len(sizes)):  # each group's members exactly once, in order
+        mine = np.flatnonzero(grp == g)
+        assert len(mine) == max(1, -(-sizes[g] // C))
+        assert lo[mine[0]] == offsets[g] and hi[mine[-1]] == offsets[g + 1]
+        assert (lo[mine[1:]] == hi[mine[:-1]]).all()

@@ -293,6 +293,46 @@ def test_grouped_reduce_matches_jax_padding_inert(agg):
         assert_close(got, want, 1e-9 if agg in ("stddev", "stdvar") else 1e-12, agg)
 
 
+def _past_a_chunk():
+    """[2 * CHUNK + 37, 6]: a group of CHUNK + 1 lanes, one of 3 and one of
+    the rest; NaN holes, +-Inf, +-0.0 and 1e9-offset values."""
+    rng = np.random.default_rng(11)
+    C = query_grouped.CHUNK
+    n = 2 * C + 37
+    mat = 1e9 + rng.normal(size=(n, 6)) * 50
+    small = rng.random(mat.shape) < 0.3
+    mat[small] = rng.normal(size=int(small.sum()))
+    mat[rng.random(mat.shape) < 0.2] = np.nan
+    mat[rng.random(mat.shape) < 0.01] = np.inf
+    mat[rng.random(mat.shape) < 0.01] = -0.0
+    groups = np.full(n, 2, dtype=np.int64)
+    groups[rng.permutation(n)[:C + 1]] = 0
+    groups[[4, 9, 100]] = 1
+    return mat, groups, 3
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_past_a_chunk() -> dict:
+    mat, groups, n_groups = _past_a_chunk()
+    run = jax.jit(lambda m, g: {agg: jq._grouped_reduce(m, g, n_groups, agg)
+                                for agg in tq.GROUP_AGGS if agg != "quantile"})
+    return jax.tree_util.tree_map(np.array, run(jnp.asarray(mat), jnp.asarray(groups)))
+
+
+@pytest.mark.parametrize("agg", query_grouped.AGGS)
+def test_grouped_reduce_matches_jax_past_a_chunk(agg):
+    """Groups larger than QK4's chunk at a narrow S (the plain version the
+    kernel is held to on the card)."""
+    mat, groups, n_groups = _past_a_chunk()
+    got = query_grouped.grouped_reduce(torch.from_numpy(mat), groups, n_groups, agg)
+    want = _jax_past_a_chunk()[agg]
+    if agg in BIT_EXACT_AGGS:
+        assert_same(got, want, agg)
+    else:
+        assert_close(got, want, 1e-9 if agg in ("stddev", "stdvar") else 1e-12, agg)
+    assert np.isfinite(want).any()
+
+
 def test_fleet_nansum_matches_jax():
     mat, _ = _served()
     got = query_grouped.fleet_nansum(torch.from_numpy(mat))

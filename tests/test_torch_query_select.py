@@ -37,7 +37,7 @@ from m3_tpu.models import query_pipeline as jq
 from m3_tpu.ops import histo_quantile as jhq
 from m3_tpu.ops import lane_topk as jtopk
 from m3_tpu_torch.models import corpus
-from m3_tpu_torch.ops import histo_quantile, lane_topk, query_grouped, query_temporal
+from m3_tpu_torch.ops import _build, histo_quantile, lane_topk, query_grouped, query_temporal
 
 from test_torch_m3tsz_decode import assert_same
 from test_torch_query_pipeline import assert_close
@@ -141,6 +141,92 @@ def test_masked_topk_refuses_ids_outside_the_groups():
     sv, groups, n_groups = corpus.select_probes()
     with pytest.raises(ValueError, match="group id"):
         lane_topk.masked_topk(torch.from_numpy(sv), groups, n_groups - 1, 3, False)
+
+
+def _past_a_chunk():
+    """[2 * CHUNK + 37, 6] of ties, NaN, +-Inf and +-0.0: a group of CHUNK +
+    1 lanes, one of 3, one of the rest and a trash group of padding."""
+    rng = np.random.default_rng(9)
+    C = query_grouped.CHUNK
+    n = 2 * C + 37
+    sv = rng.integers(-6, 6, (n, 6)).astype(np.float64)
+    sv[rng.random(sv.shape) < 0.2] = np.nan
+    sv[rng.random(sv.shape) < 0.02] = np.inf
+    sv[sv == 0] = -0.0
+    sv[rng.random(sv.shape) < 0.05] = 0.0
+    sv[-9:] = np.nan
+    groups = np.full(n, 2, dtype=np.int64)
+    groups[rng.permutation(n - 9)[:C + 1]] = 0
+    groups[[5, 7, 300]] = 1
+    groups[-9:] = 3
+    return sv, groups, 4
+
+
+PAST_A_CHUNK = ((10, False), (query_grouped.K_MAX, True), (query_grouped.K_MAX + 1, False))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_past_a_chunk() -> list:
+    sv, groups, n_groups = _past_a_chunk()
+    run = jax.jit(lambda sv, g: [jtopk.masked_topk(sv, g, n_groups, k, bottom)
+                                 for k, bottom in PAST_A_CHUNK])
+    return jax.tree_util.tree_map(np.array, run(jnp.asarray(sv), jnp.asarray(groups)))
+
+
+@pytest.mark.parametrize("k,bottom", PAST_A_CHUNK)
+def test_masked_topk_matches_jax_past_a_chunk(k, bottom):
+    """Groups larger than the kernels' chunk, at a narrow S, on both sides
+    of the selection's largest k."""
+    sv, groups, n_groups = _past_a_chunk()
+    got = lane_topk.masked_topk(torch.from_numpy(sv), groups, n_groups, k, bottom)
+    want = _jax_past_a_chunk()[PAST_A_CHUNK.index((k, bottom))]
+    for name, g, w in zip(("out", "present", "rank"), got, want):
+        assert_same(g, w, name)
+    assert (want[2] < query_grouped.CHUNK).sum() > k  # kept lanes of several groups
+
+
+class _FakeSelect:
+    """Stands in for ``csrc/query_select.cu``: records which entry ran."""
+
+    def __init__(self):
+        self.entries = []
+
+    def m3_query_topk(self, x, S, members, chunks, n_chunks, n_partial, folds, n_folds, mode,
+                      k, cand_keys, cand_pos, thr_keys, thr_pos, out, present, rank, stream):
+        assert cand_keys is None if n_partial == 0 else cand_keys.shape == (n_partial, k, S)
+        assert thr_keys is None if n_folds == 0 else thr_keys.shape == (n_folds, S)
+        self.entries.append(("m3_query_topk", k, n_partial, n_folds))
+        return 0
+
+    def m3_query_select(self, x, S, members, offsets, n_groups, mode, phi, k, p_smem, p_scratch,
+                        keys, pos, grid, threads, out, present, rank, stream):
+        self.entries.append(("m3_query_select", k, p_smem, p_scratch))
+        return 0
+
+
+@pytest.mark.parametrize("k,want", [
+    (1, ("m3_query_topk", 1, 2, 1)),
+    (10, ("m3_query_topk", 10, 2, 1)),
+    (query_grouped.K_MAX, ("m3_query_topk", query_grouped.K_MAX, 2, 1)),
+    (query_grouped.K_MAX + 1, ("m3_query_select", query_grouped.K_MAX + 1, 512, 0)),
+    (100, ("m3_query_select", 100, 512, 0)),
+])
+def test_masked_topk_dispatch_by_k(monkeypatch, k, want):
+    """QK7's host side: k <= K_MAX takes the selection entry, a larger k
+    the select kernel's sort; a group past a chunk gives the selection its
+    merge (two partial chunks, one fold)."""
+    fake = _FakeSelect()
+    monkeypatch.setattr(_build, "library", lambda name, sig: fake)
+    monkeypatch.setattr(query_grouped, "_ptr", lambda t: None if t is None or not t.numel() else t)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": 132}))
+    ids = np.zeros(query_grouped.CHUNK + 40, dtype=np.int64)
+    ids[-3:] = 1
+    out, present, rank = lane_topk._launch(torch.zeros((len(ids), 8), dtype=torch.float64), ids,
+                                           2, k, False)
+    assert fake.entries == [want]
+    assert out.shape == (len(ids), 8) and present.shape == rank.shape == (len(ids),)
 
 
 # --- QK8 ---------------------------------------------------------------------
