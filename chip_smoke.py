@@ -1660,33 +1660,72 @@ def family_kernel_times(fc: corpus.FanoutCorpus, shapes: dict):
 
 GRAPHITE_STEP = 60 * SEC
 GRAPHITE_QS = (-0.2, 0.0, 0.2, 0.5, 0.95, 1.0, 1.5)  # fractions for the column form
+# (fraction, midpoint) of the column form: the percentiles, then the median
+GRAPHITE_COLUMN_CASES = tuple((q, False) for q in GRAPHITE_QS) + ((0.5, True),)
 GRAPHITE_BIT_EXACT_OPS = ("count", "min", "max", "range", "last")  # independent of order
 
 
 def _graphite_probes():
-    """(tag, values f64[L, S], groups, real_S): the CPU tests' probe matrix
-    (NaN holes, +-Inf, +-0.0, all-NaN rows and columns, one-lane groups,
-    21 real steps of 64), 5,000 lanes in three groups (the column sort in
-    global scratch past 4,096 lanes) and 5 rows of 1,500 steps with 1,300
-    real (the row sort in global scratch past 512)."""
+    """(tag, values f64[L, S], groups, real_S, kernels): the CPU tests'
+    probe matrix (NaN holes, +-Inf, +-0.0, all-NaN rows and columns,
+    one-lane groups, 21 real steps of 64), 5,000 lanes in three groups, 5
+    rows of 1,500 steps with 1,300 real (the row sort in global scratch past
+    512), 300 lanes in groupByNode's layout, 70,000 lanes (GK2's column
+    selection over many chunks and buckets) and 64 rows of 1,024 steps
+    (GK3's staged tiles and window blocks).  `kernels`: those the probe
+    drives (the last two, built for one kernel each: a product over 14,000
+    lanes of values up to +-1,000 overflows, and whether it ends NaN or 0
+    depends on the fold order, which QK4 and its plain version's atomics do
+    not share)."""
+    ALL = {"QK4", "GK2 columns", "GK2 rows", "GK3"}
     v, groups, _ = corpus.graphite_probe_matrix(real_S=21)
-    yield "probes", v, groups, 21
+    yield "probes", v, groups, 21, ALL
     rng = np.random.default_rng(3)
     big = np.round(rng.uniform(-5, 5, (5000, 9)), 1)  # ties
     big[rng.random(big.shape) < 0.2] = np.nan
     big[:, 2] = np.where(rng.random(5000) < 0.5, -0.0, 0.0)
     big[7, 4], big[9, 4], big[:, 6] = np.inf, -np.inf, np.nan
-    yield "5,000 lanes", big, rng.integers(0, 3, 5000), 7
+    yield "5,000 lanes", big, rng.integers(0, 3, 5000), 7, ALL
     long = rng.uniform(-5, 5, (5, 1500))
     long[rng.random(long.shape) < 0.1] = np.nan
     long[1, ::7] = -0.0
-    yield "long rows", long, np.asarray([0, 1, 1, 2, 0]), 1300
+    yield "long rows", long, np.asarray([0, 1, 1, 2, 0]), 1300, ALL
     # groupByNode's layout: one-lane groups, the padding lanes parked on
     # group 0 (QK4 launches the large group and the small ones apart)
     parked = np.round(rng.uniform(-5, 5, (300, 40)), 1)
     parked[rng.random(parked.shape) < 0.2] = np.nan
     parked[200:] = np.nan
-    yield "parked padding", parked, np.where(np.arange(300) < 200, np.arange(300), 0), 33
+    yield "parked padding", parked, np.where(np.arange(300) < 200, np.arange(300), 0), 33, ALL
+    # GK2's selection past one chunk and across many buckets: 70,000 lanes
+    # (274 chunks of 256), heavy ties, ranks inside runs of mixed +-0.0
+    # (medians of columns 2 and 3), all-equal and all-NaN columns, +inf
+    # mixed with NaN, and keys that tie on their first 56 bits (the median of
+    # column 7 between two runs of 35,000 that differ in the last bit)
+    wide = np.round(rng.uniform(-1000, 1000, (70_000, 8)), 0)
+    wide[rng.random(wide.shape) < 0.1] = np.nan
+    wide[:, 1] = 7.25
+    wide[:, 2] = np.where(rng.random(70_000) < 0.5, -0.0, 0.0)
+    wide[:20_000, 2] = -1.0
+    wide[50_000:, 2] = 1.0
+    wide[:, 3] = np.where(rng.random(70_000) < 0.3, np.nan, -0.0)
+    wide[::5, 3] = 0.0
+    wide[:, 4] = np.nan
+    wide[:, 5] = np.where(rng.random(70_000) < 0.5, np.nan, np.inf)
+    wide[:100, 5] = -2.0
+    wide[:, 6] = 1.0 + rng.integers(0, 3, 70_000) * 2.0**-52
+    wide[:, 7] = np.where(np.arange(70_000) < 35_000, 1.0, np.nextafter(1.0, 2.0))
+    yield "70,000 lanes", wide, rng.integers(0, 5, 70_000), 8, {"GK2 columns"}
+    # GK3's tiles and window blocks: 64 rows of 1,024 steps, 901 real; NaN
+    # holes, +-Inf entering and leaving windows, runs of -0.0, a constant row
+    rows = np.round(rng.uniform(-50, 50, (64, 1024)), 2)
+    rows[rng.random(rows.shape) < 0.15] = np.nan
+    rows[1, rng.random(1024) < 0.02] = np.inf
+    rows[1, rng.random(1024) < 0.02] = -np.inf
+    rows[2, 300:340] = -0.0
+    rows[3] = 4.0
+    rows[4] = np.nan
+    rows[5, 17::33] = 1e9
+    yield "tiled rows", rows, np.arange(64) % 7, 901, {"GK3"}
 
 
 def compare_graphite_kernels():
@@ -1699,12 +1738,12 @@ def compare_graphite_kernels():
     1e-9, as QK4's PromQL ops)."""
     g = graphite
     n = 0
-    for tag, v, groups, real_S in _graphite_probes():
+    for tag, v, groups, real_S, kernels in _graphite_probes():
         x = torch.from_numpy(v).to(DEVICE)
         L, S = x.shape
         g_pad = corpus.bucket_pow2(int(groups.max()) + 1, 8)
         zeros = np.zeros(L, dtype=np.int64)
-        for op in g.GROUP_OPS:
+        for op in g.GROUP_OPS if "QK4" in kernels else ():
             grp, gp = (zeros, 8) if op in g.SINGLE_GROUP_OPS else (groups, g_pad)
             out = twice(lambda: g.grouped_reduce(x, grp, gp, op), f"graphite {tag} {op}")
             want = query_grouped.grouped_reduce_plain(x, torch.from_numpy(grp), gp, op,
@@ -1715,20 +1754,23 @@ def compare_graphite_kernels():
                 rtol = 1e-9 if op == "stddev" else 1e-12
                 _record("query_grouped[graphite]", close(out, want, rtol, f"graphite {tag} {op}"))
             n += 1
-        for qf in GRAPHITE_QS:
-            out = twice(lambda: g.percentile_columns(x, qf), f"graphite {tag} column {qf}")
-            _record("graphite_percentile", same_bits(out, g.percentile_columns_plain(x, qf),
-                                                     f"graphite {tag} column percentile {qf}"))
+        for qf, mid in GRAPHITE_COLUMN_CASES if "GK2 columns" in kernels else ():
+            out = twice(lambda: g.percentile_columns(x, qf, mid), f"graphite {tag} column {qf}")
+            _record("graphite_percentile", same_bits(out, g.percentile_columns_plain(x, qf, mid),
+                                                     f"graphite {tag} column {qf} midpoint={mid}"))
             n += 1
-        for fn in g.PERCENTILE_FNS:
+        for fn in g.PERCENTILE_FNS if "GK2 rows" in kernels else ():
             for q in (-20.0, 0.0, 37.0, 90.0, 100.0, 150.0):
                 out = twice(lambda: g.percentile_rows(x, q, real_S, fn), f"graphite {tag} {fn}")
                 _record("graphite_percentile_rows", same_bits(
                     out, g.percentile_rows_plain(x, q, real_S, fn), f"graphite {tag} {fn} {q}"))
                 n += 1
-        for fn in g.ROW_FNS:
+        for fn in g.ROW_FNS if "GK3" in kernels else ():
             ks = (1,) if fn in ("integral", "keepLastValue", "offsetToZero", "minMax") else (
                 1, 3, 7, S + 5)
+            if tag == "tiled rows" and len(ks) > 1:  # across a tile and GK3's window blocks
+                ks = ((1, 5, 15, 16, 17, 31, 32, 33, 60, 400, S + 5) if fn.startswith("moving")
+                      else (1, 15, 17, 33, S + 5))
             funcs = g.SUMMARIZE_FUNCS if fn == "summarize" else ("sum",)
             limits = (0.0, 2.0, float("inf")) if fn == "keepLastValue" else (float("inf"),)
             for k in ks:
@@ -1744,9 +1786,11 @@ def compare_graphite_kernels():
     log(f"graphite parity QK4 graphite ops, GK2, GK3: {n} cases (every op code, summarize "
         "func and percentile form; NaN, +-Inf, +-0.0, all-NaN rows and columns, one-lane "
         "groups, real steps < padded steps, k not dividing them, windows wider than them, "
-        "5,000-lane columns and 1,300-step rows in global scratch): bit for bit (QK4's "
-        "count/min/max/range/last, GK2, GK3; QK4's sum/avg/multiply/diff within rtol 1e-12, "
-        "stddev 1e-9), each kernel twice bit for bit")
+        "5,000- and 70,000-lane columns (ties, ranks in +-0.0 runs, all-equal, all-NaN, "
+        "+inf with NaN), 1,300-step rows in global scratch, windows and buckets of 1-400 "
+        "steps across 16-step tiles): bit for bit (QK4's count/min/max/range/last, GK2, "
+        "GK3; QK4's sum/avg/multiply/diff within rtol 1e-12, stddev 1e-9), each kernel "
+        "twice bit for bit")
 
 
 def _np_moving_average(x: np.ndarray, w: int) -> np.ndarray:
@@ -1904,9 +1948,10 @@ def graphite_kernel_times(shapes: dict):
     it), its bound, and one PyTorch call computing the same function where
     there is one.  QK4 at sumSeries' one group of every lane and at
     groupByNode's 50,000 one-lane groups (of 65,536, the padding lanes
-    parked on group 0); GK3's movingAverage also at the
-    dashboards' wide windows, 60 steps (an hour at 60 s) and 400 (wider
-    than the 355 real steps)."""
+    parked on group 0); GK3's integral, movingSum over 5 steps,
+    keepLastValue and movingAverage at the dashboards' wide windows, 60
+    steps (an hour at 60 s) and 400 (wider than the 355 real steps), each
+    in a row of its own beside its PyTorch call."""
     g = graphite
     x, real_S = shapes["x"], shapes["real_S"]
     L, S = x.shape
@@ -1957,34 +2002,31 @@ def graphite_kernel_times(shapes: dict):
         time_ms(lambda: torch.nanquantile(xr, qf, dim=1, interpolation="linear"), reps=5),
         'torch.nanquantile(dim=1, interpolation="linear") over the real steps')
 
-    fn = lambda: g.row_transform(x, "integral", real_S)  # noqa: E731
-    plain = lambda: g.row_transform_plain(x, "integral", real_S)  # noqa: E731
-    _record("graphite_row", same_bits(fn(), plain(), "main integral"))
-    row("graphite_row", rows, time_ms(fn, reps=7), time_ms(plain, reps=3), real_bytes + cell_bytes,
-        L * S / FP64_OPS_PER_S * 1e3, time_ms(lambda: torch.cumsum(x, dim=1), reps=7),
-        "torch.cumsum along the steps")
-    for fn_name, k, lib, lib_name in (
-            ("movingSum", 5, lambda: x.unfold(1, 5, 1).sum(dim=2), "unfold(1, 5, 1).sum"),
-            ("keepLastValue", 1, lambda: torch.cummax(x, dim=1), "torch.cummax along the steps"),
-            ("movingAverage", 60, lambda: x.unfold(1, 60, 1).mean(dim=2),
-             "unfold(1, 60, 1).mean"),
-            ("movingAverage", 400, lambda: x.unfold(1, 400, 1).mean(dim=2),
-             "unfold(1, 400, 1).mean")):
+    # GK3: each form beside its PyTorch call; the bound is the bytes (each
+    # real cell read once, each cell written once)
+    gk3_bytes = real_bytes + cell_bytes
+    gk3 = (("integral", 1, lambda: torch.cumsum(x, dim=1), "torch.cumsum along the steps"),
+           ("movingSum", 5, lambda: x.unfold(1, 5, 1).sum(dim=2), "unfold(1, 5, 1).sum"),
+           ("keepLastValue", 1, lambda: torch.cummax(x, dim=1), "torch.cummax along the steps"),
+           ("movingAverage", 60, lambda: x.unfold(1, 60, 1).mean(dim=2),
+            "unfold(1, 60, 1).mean"),
+           ("movingAverage", 400, lambda: x.unfold(1, 400, 1).mean(dim=2),
+            "unfold(1, 400, 1).mean"))
+    for fn_name, k, lib, lib_name in gk3:
         fn = lambda: g.row_transform(x, fn_name, real_S, k, limit=3.0)  # noqa: E731
         got = fn()
         want, plain_ms = time_once(lambda: g.row_transform_plain(x, fn_name, real_S, k,
                                                                  limit=3.0))
         _record("graphite_row", same_bits(got, want, f"main {fn_name} k={k}"))
         del got, want
-        # the bound is the bytes (a running window needs O(1) operations a
-        # cell); the kernel's direct form adds each window's w cells anew
-        bytes_ms = (real_bytes + cell_bytes) / HBM_BYTES_PER_S * 1e3
-        direct_ms = L * S * min(k, real_S) / FP64_OPS_PER_S * 1e3
-        what = f"{fn_name}, w={k}" if fn_name.startswith("moving") else fn_name
-        log(f"time graphite_row[{what}]: kernel {time_ms(fn, reps=7):.3f} ms, plain "
-            f"{plain_ms:.3f} ms (one run), bound {bytes_ms:.3f} ms by bytes (the direct "
-            f"windows' adds at the FP64 rate {direct_ms:.3f} ms), {lib_name} "
-            f"{time_ms(lib, reps=7):.3f} ms")
+        name = "graphite_row" + (f"[{fn_name}, w={k}]" if fn_name.startswith("moving") else
+                                 ("" if fn_name == "integral" else f"[{fn_name}]"))
+        row(name, rows, time_ms(fn, reps=7), plain_ms, gk3_bytes, L * S / FP64_OPS_PER_S * 1e3,
+            time_ms(lib, reps=7), lib_name)
+    w60 = rows["graphite_row[movingAverage, w=60]"]
+    w400 = rows["graphite_row[movingAverage, w=400]"]
+    log(f"graphite_row movingAverage w=400 / w=60: {w400['ms'] / w60['ms']:.3f} "
+        "(the block-wise windows' cost does not grow with w)")
     torch.cuda.synchronize()
     return rows
 

@@ -486,19 +486,50 @@ __global__ void __launch_bounds__(kQWarps * 32) quantile_window_kernel(
 // nothing is present.  Not QK6's v_lo + (v_hi - v_lo) * frac.
 //
 // jnp sorts with NaN last and -0.0 equal to +0.0; the values it reads lie
-// among the n present ones.  Here the (order key, position) pairs sort as
-// in QK6 (a present cell's key, a NaN cell keyed +inf, ties by position),
-// and the cells at positions low and high are read back (NaN as +inf: a NaN
-// cell tied with a real +inf reads as +inf).  The column form is one block
-// per step over the L lanes (shared memory up to p_smem pairs, else the
-// block's slice of a global scratch); the row form one warp per lane over
-// its real_S steps (QK11's layout), which then writes the lane's row:
-// mode 1 the percentile on each real step (NaN past them), mode 2 / 3 the
-// cells above / below it NaN.
+// among the n present ones, in the stable order of order_key (ties by
+// lane).  Ranks low and high < n never reach a NaN cell but for one tied
+// with a real +inf, which reads as +inf either way, so NaN cells are simply
+// left out.
 //
-// What bounds it on an H100: bytes (each cell read once; the row form
-// writes each once); the sorts' P log2(P)^2 / 4 compare-exchanges per step
-// or lane are far above that at the column form's 65,536 lanes.
+// The row form is one warp per lane over its real_S steps (QK11's layout):
+// (order key, position) pairs sorted as in QK6, the cells at positions low
+// and high read back; then it writes the lane's row: mode 1 the percentile
+// on each real step (NaN past them), mode 2 / 3 the cells above / below it
+// NaN.
+//
+// The column form (mode 0) is a selection of the two order statistics of
+// each step, an MSB-first radix select over the 64-bit order key: no sort.
+// Each pass reads x in coalesced units as QK4 and QK7 do, a warp per (chunk
+// of kColChunk lanes, tile of 32 steps), lane w on step w, one 256-byte row
+// per load, and a step of the tile does what its state asks:
+//   radix    count the next kDigitBits-bit digit of the cells that match the
+//            step's prefix: shared-memory integer atomics per block, then
+//            global integer atomics (integer sums are exact, so the counts
+//            do not depend on the order);
+//   compact  append the matching cells' keys to the step's list (few
+//            remain: at most kColCap);
+//   split    low is the greatest key of one bucket and high the least of the
+//            next non-empty one: a max and a min over the matching cells.
+// The block of each tile that arrives last then updates the tile's steps
+// (column_step): the first pass's counts give n and the ranks; a scan of
+// the digit counts picks the bucket holding low (and high = low or low + 1),
+// extends the prefix, or switches to compact or split.  After kColPasses
+// passes (64 bits) every step is listed or done; the finish kernel sorts a
+// listed step's keys in shared memory and reads them at the ranks.  Equal
+// keys hold equal values but for the zero key (+0.0 and -0.0): there the
+// value is the sign of the (rank within the key's cells)-th zero cell in
+// lane order, which the first pass's per-(chunk, step) zero counts and a
+// walk of the one chunk holding it settle (column_value).  Then out = lo *
+// lw + hi * hw, or (lo + hi) * 0.5 for the median (mode 4: jnp.nanmedian is
+// nanquantile's midpoint method), as the plain version
+// (ops/graphite.py:nanpercentile_plain) computes it.
+//
+// What bounds it on an H100: bytes (each cell read once); the column form
+// reads [L, S] once per pass until its steps are done (a step's prefix
+// usually narrows its candidates to a list within two or three passes;
+// ties of more than kColCap equal keys take all eight), and a tile whose
+// steps are all listed or done is not read; the row form's sorts' P
+// log2(P)^2 / 4 compare-exchanges per lane.
 
 struct PercentilePick {
   long long low, high;
@@ -520,51 +551,359 @@ __device__ __forceinline__ PercentilePick percentile_pick(double n, double qf) {
 
 __device__ __forceinline__ double present_or_inf(double v) { return isnan(v) ? INFINITY : v; }
 
-__global__ void graphite_percentile_columns_kernel(
-    const double* __restrict__ x, long long L, long long S, double qf, int p_smem,
-    long long p_scratch, unsigned long long* __restrict__ scratch_keys,
-    int* __restrict__ scratch_pos, double* __restrict__ out) {
-  extern __shared__ unsigned long long csmem[];
-  __shared__ int n_present;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const double nan = __longlong_as_double(0x7ff8000000000000LL);
-  int P = 1;
-  while (P < L) P <<= 1;
-  unsigned long long* keys;
-  int* pos;
-  if (P <= p_smem) {
-    keys = csmem;
-    pos = (int*)(csmem + P);
-  } else {
-    keys = scratch_keys + (long long)blockIdx.x * p_scratch;
-    pos = scratch_pos + (long long)blockIdx.x * p_scratch;
-  }
-  for (long long s = blockIdx.x; s < S; s += gridDim.x) {
-    if (tid == 0) n_present = 0;
-    __syncthreads();
-    int mine = 0;
-    for (int i = tid; i < P; i += nt) {
-      if (i < L) {
-        const double v = x[(long long)i * S + s];
-        mine += !isnan(v);
-        keys[i] = order_key(present_or_inf(v));
-      } else {
-        keys[i] = ~0ull;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kColWarps = 8;       // warps per block of the column passes
+constexpr int kColChunk = 256;     // lanes a warp sweeps per unit
+constexpr int kColRows = 8;        // rows loaded ahead
+constexpr int kDigitBits = 8;
+constexpr int kBuckets = 1 << kDigitBits;
+constexpr int kColPasses = 64 / kDigitBits;
+constexpr int kColCap = 2048;      // candidates gathered into a list rather than counted
+constexpr unsigned long long kZeroKey = 0x8000000000000000ull;  // order_key(+-0.0)
+static_assert(kColWarps * 32 == kBuckets, "a thread per bucket");
+
+// radix, compact and split read x in the next pass; listed and done do not
+// (the finish kernel settles a listed step).
+enum ColMode : int { kColRadix = 0, kColCompact = 1, kColSplit = 2, kColListed = 3,
+                     kColDone = 4 };
+
+// A step's selection state (zero: radix, no digit known yet).
+struct ColStep {
+  unsigned long long prefix;     // the candidates' top `bits` bits (split: low's)
+  unsigned long long prefix_hi;  // split: high's
+  unsigned long long key_lo, key_hi;  // done: the keys at ranks low and high
+  long long r;                   // low's rank among the candidates
+  long long z_lo, z_hi;          // done: each rank among its key's cells (-1: the last)
+  long long n;                   // the step's present cells
+  int mode, bits, d, pad;        // d = high - low
+};
+
+struct ColScratch {
+  ColStep* steps;                // [S]
+  unsigned* hist;                // [S, kBuckets] digit counts
+  unsigned* arrivals;            // [n_tiles] blocks of a tile done with a pass
+  unsigned* list_n;              // [S]
+  unsigned long long* list;      // [S, kColCap]
+  unsigned long long* lo_max;    // [S] split: the greatest key of low's bucket
+  unsigned long long* hi_min;    // [S] split: the least key of high's bucket
+  unsigned* zeros;               // [n_chunks, S] zero cells per (chunk, step)
+};
+
+__device__ __forceinline__ bool prefix_match(unsigned long long key, unsigned long long prefix,
+                                             int bits) {
+  return bits == 0 || ((key ^ prefix) >> (64 - bits)) == 0;
+}
+
+__device__ __forceinline__ double key_value(unsigned long long key) {  // order_key's inverse
+  const unsigned long long b = (key >> 63) ? (key & ~kZeroKey) : ~key;
+  return __longlong_as_double((long long)b);
+}
+
+// Updates step s after a pass; one whole warp calls it.
+__device__ void column_step(long long s, double qf, const ColScratch& sc) {
+  const int lane = threadIdx.x & 31;
+  ColStep st = sc.steps[s];
+  if (st.mode == kColRadix) {
+    unsigned cnt[kBuckets / 32];
+    unsigned mine = 0;
+    for (int q = 0; q < kBuckets / 32; ++q) {
+      cnt[q] = __ldcg(&sc.hist[s * kBuckets + lane * (kBuckets / 32) + q]);
+      sc.hist[s * kBuckets + lane * (kBuckets / 32) + q] = 0;  // for the next pass
+      mine += cnt[q];
+    }
+    unsigned incl = mine;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const long long excl = (long long)(incl - mine);
+    if (st.bits == 0) {
+      st.n = __shfl_sync(kFull, incl, 31);
+      if (st.n == 0) {
+        st.mode = kColDone;
+        if (lane == 0) sc.steps[s] = st;
+        return;
       }
+      const PercentilePick k = percentile_pick((double)st.n, qf);
+      st.r = k.low;
+      st.d = (int)(k.high - k.low);
+    }
+    const int src = __ffs(__ballot_sync(kFull, excl <= st.r && st.r < excl + mine)) - 1;
+    int b = 0;
+    long long before = excl;
+    unsigned cb = 0;
+    if (lane == src) {
+      for (int q = 0; q < kBuckets / 32; ++q) {
+        if (st.r < before + cnt[q]) {
+          b = lane * (kBuckets / 32) + q;
+          cb = cnt[q];
+          break;
+        }
+        before += cnt[q];
+      }
+    }
+    b = __shfl_sync(kFull, b, src);
+    before = __shfl_sync(kFull, before, src);
+    cb = __shfl_sync(kFull, cb, src);
+    const int shift = 64 - kDigitBits - st.bits;
+    if (st.r + st.d < before + cb) {  // both ranks in bucket b
+      st.prefix |= (unsigned long long)b << shift;
+      st.bits += kDigitBits;
+      st.r -= before;
+      if (st.bits == 64) {
+        st.mode = kColDone;
+        st.key_lo = st.key_hi = st.prefix;
+        st.z_lo = st.r;
+        st.z_hi = st.r + st.d;
+      } else if (cb <= kColCap) {
+        st.mode = kColCompact;
+        if (lane == 0) sc.list_n[s] = 0;
+      }
+    } else {  // low is the last of bucket b, high the first of the next non-empty one
+      int nb = kBuckets;
+      for (int q = kBuckets / 32 - 1; q >= 0; --q)
+        if (lane * (kBuckets / 32) + q > b && cnt[q] > 0) nb = lane * (kBuckets / 32) + q;
+      for (int o = 16; o > 0; o >>= 1) nb = min(nb, __shfl_xor_sync(kFull, nb, o));
+      const unsigned long long lo = st.prefix | (unsigned long long)b << shift;
+      const unsigned long long hi = st.prefix | (unsigned long long)nb << shift;
+      st.bits += kDigitBits;
+      if (st.bits == 64) {
+        st.mode = kColDone;
+        st.key_lo = lo;
+        st.key_hi = hi;
+        st.z_lo = -1;
+        st.z_hi = 0;
+      } else {
+        st.mode = kColSplit;
+        st.prefix = lo;
+        st.prefix_hi = hi;
+        if (lane == 0) {
+          sc.lo_max[s] = 0;
+          sc.hi_min[s] = ~0ull;
+        }
+      }
+    }
+  } else if (st.mode == kColCompact) {  // the list is gathered: the finish kernel sorts it
+    st.mode = kColListed;
+  } else if (st.mode == kColSplit) {
+    st.key_lo = __ldcg(&sc.lo_max[s]);
+    st.key_hi = __ldcg(&sc.hi_min[s]);
+    st.z_lo = -1;
+    st.z_hi = 0;
+    st.mode = kColDone;
+  } else {
+    return;
+  }
+  if (lane == 0) sc.steps[s] = st;
+}
+
+// One pass of the column form over a (tile of 32 steps, kColWarps chunks)
+// block; `first`: the first pass (also counts each chunk's zero cells).
+// The tile's last block to finish updates its steps.
+__global__ void __launch_bounds__(kColWarps * 32) graphite_percentile_columns_kernel(
+    const double* __restrict__ x, long long L, long long S, double qf, int first,
+    long long groups, ColScratch sc) {
+  __shared__ unsigned hist[kBuckets * 32];  // the digit counts [bucket][step of the tile]
+  __shared__ unsigned long long lo_max[32], hi_min[32];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long tile = blockIdx.x / groups, g = blockIdx.x % groups;
+  const long long s = tile * 32 + lane;
+  ColStep st{};
+  st.mode = kColDone;
+  if (s < S) st = sc.steps[s];
+  const bool reads = st.mode < kColListed;
+  if (!__syncthreads_or(reads)) return;  // every block of the tile agrees
+  for (int i = tid; i < kBuckets * 32; i += kColWarps * 32) hist[i] = 0;
+  if (tid < 32) {
+    lo_max[tid] = 0;
+    hi_min[tid] = ~0ull;
+  }
+  __syncthreads();
+  const long long n_chunks = (L + kColChunk - 1) / kColChunk;
+  const long long c_end = (g + 1) * kColWarps < n_chunks ? (g + 1) * kColWarps : n_chunks;
+  const int shift = 64 - kDigitBits - st.bits;
+  unsigned long long mx = 0, mn = ~0ull;
+  for (long long c = g * kColWarps + warp; c < c_end; c += kColWarps) {
+    const long long i0 = c * kColChunk, i1 = i0 + kColChunk < L ? i0 + kColChunk : L;
+    unsigned zeros = 0;
+    for (long long i = i0; i < i1; i += kColRows) {
+      double v[kColRows];
+#pragma unroll
+      for (int r = 0; r < kColRows; ++r)
+        v[r] = reads && i + r < i1 ? x[(i + r) * S + s] : NAN;
+#pragma unroll
+      for (int r = 0; r < kColRows; ++r) {
+        if (isnan(v[r])) continue;
+        zeros += v[r] == 0.0;
+        const unsigned long long key = order_key(v[r]);
+        if (st.mode == kColRadix) {
+          if (prefix_match(key, st.prefix, st.bits))
+            atomicAdd(&hist[((key >> shift) & (kBuckets - 1)) * 32 + lane], 1u);
+        } else if (st.mode == kColCompact) {
+          if (prefix_match(key, st.prefix, st.bits)) {
+            const unsigned at = atomicAdd(&sc.list_n[s], 1u);
+            if (at < kColCap) sc.list[s * kColCap + at] = key;
+          }
+        } else if (prefix_match(key, st.prefix, st.bits)) {  // split
+          mx = key > mx ? key : mx;
+        } else if (prefix_match(key, st.prefix_hi, st.bits)) {
+          mn = key < mn ? key : mn;
+        }
+      }
+    }
+    if (first && s < S) sc.zeros[c * S + s] = zeros;
+  }
+  if (st.mode == kColSplit) {
+    atomicMax(&lo_max[lane], mx);
+    atomicMin(&hi_min[lane], mn);
+  }
+  __syncthreads();
+  for (int i = tid; i < kBuckets * 32; i += kColWarps * 32) {
+    const unsigned n = hist[i];
+    if (n) atomicAdd(&sc.hist[(tile * 32 + i % 32) * kBuckets + i / 32], n);
+  }
+  if (tid < 32 && tile * 32 + tid < S) {
+    if (lo_max[tid] != 0) atomicMax(&sc.lo_max[tile * 32 + tid], lo_max[tid]);
+    if (hi_min[tid] != ~0ull) atomicMin(&sc.hi_min[tile * 32 + tid], hi_min[tid]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&sc.arrivals[tile], 1u) == (unsigned)(groups - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int w = warp; w < 32; w += kColWarps)
+    if (tile * 32 + w < S) column_step(tile * 32 + w, qf, sc);
+  if (tid == 0) sc.arrivals[tile] = 0;
+}
+
+// The value of the cell at rank z (-1: the last) among the cells of `key`
+// at step s; one whole warp calls it.
+__device__ double column_value(const double* __restrict__ x, long long L, long long S,
+                               long long s, unsigned long long key, long long z,
+                               const unsigned* __restrict__ zeros) {
+  if (key != kZeroKey) return key_value(key);
+  // +-0.0: the sign of the z-th zero cell in lane order; first its chunk
+  const int lane = threadIdx.x & 31;
+  const long long n_chunks = (L + kColChunk - 1) / kColChunk;
+  long long chunk = -1, before = 0;
+  if (z < 0) {
+    for (long long c0 = (n_chunks - 1) / 32 * 32; c0 >= 0 && chunk < 0; c0 -= 32) {
+      const long long c = c0 + lane;
+      const unsigned has = __ballot_sync(kFull, c < n_chunks && zeros[c * S + s] > 0);
+      if (has) chunk = c0 + 31 - __clz(has);
+    }
+  } else {
+    for (long long c0 = 0; c0 < n_chunks && chunk < 0; c0 += 32) {
+      const long long c = c0 + lane;
+      const unsigned n = c < n_chunks ? zeros[c * S + s] : 0;
+      unsigned incl = n;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const unsigned hit = __ballot_sync(kFull, before + (long long)incl > z);
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        chunk = c0 + src;
+        before += __shfl_sync(kFull, incl - n, src);
+      } else {
+        before += __shfl_sync(kFull, incl, 31);
+      }
+    }
+  }
+  // then the cell, walking the chunk in lane order
+  const long long i0 = chunk * kColChunk, i1 = i0 + kColChunk < L ? i0 + kColChunk : L;
+  long long want = z - before;
+  double found = 0.0;
+  for (long long i = i0; i < i1; i += 32) {
+    const double v = i + lane < i1 ? x[(i + lane) * S + s] : NAN;
+    const unsigned zb = __ballot_sync(kFull, v == 0.0);
+    if (!zb) continue;
+    if (z < 0) {
+      found = __shfl_sync(kFull, v, 31 - __clz(zb));
+      continue;
+    }
+    const int n = __popc(zb);
+    if (want < n) {
+      const bool hit = ((zb >> lane) & 1u) && __popc(zb & ((1u << lane) - 1u)) == want;
+      return __shfl_sync(kFull, v, __ffs(__ballot_sync(kFull, hit)) - 1);
+    }
+    want -= n;
+  }
+  return found;
+}
+
+// Writes each step's percentile from its selected keys, a block per step;
+// a listed step's candidates are sorted first and read at the ranks.
+__global__ void __launch_bounds__(kColWarps * 32) graphite_percentile_finish_kernel(
+    const double* __restrict__ x, long long L, long long S, double qf, int midpoint,
+    ColScratch sc, double* __restrict__ out) {
+  __shared__ unsigned long long keys[kColCap];
+  __shared__ int pos[kColCap];
+  const long long s = blockIdx.x;
+  ColStep st = sc.steps[s];
+  if (st.mode == kColListed) {
+    const int m = (int)sc.list_n[s];
+    int P = 1;
+    while (P < m) P <<= 1;
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      keys[i] = i < m ? sc.list[s * kColCap + i] : ~0ull;
       pos[i] = i;
     }
-    if (mine) atomicAdd(&n_present, mine);
     __syncthreads();
     bitonic_sort(keys, pos, P);
-    if (tid == 0) {
-      const double n = (double)n_present;
-      const PercentilePick k = percentile_pick(n, qf);
-      const double lo = present_or_inf(x[(long long)pos[k.low] * S + s]);
-      const double hi = present_or_inf(x[(long long)pos[k.high] * S + s]);
-      out[s] = n > 0.0 ? lo * k.lw + hi * k.hw : nan;
+    st.key_lo = keys[st.r];
+    st.key_hi = keys[st.r + st.d];
+    // each rank among its key's cells: less the first position of the key
+    int lo = 0, hi = (int)st.r;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (keys[mid] < st.key_lo) lo = mid + 1;
+      else hi = mid;
     }
-    __syncthreads();  // the pairs are rewritten by the next step
+    st.z_lo = st.r - lo;
+    lo = 0, hi = (int)(st.r + st.d);
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (keys[mid] < st.key_hi) lo = mid + 1;
+      else hi = mid;
+    }
+    st.z_hi = st.r + st.d - lo;
   }
+  if (threadIdx.x >= 32) return;  // the first warp reads the values
+  double v = __longlong_as_double(0x7ff8000000000000LL);
+  if (st.n > 0) {
+    const PercentilePick k = percentile_pick((double)st.n, qf);
+    const double lo = column_value(x, L, S, s, st.key_lo, st.z_lo, sc.zeros);
+    const double hi = column_value(x, L, S, s, st.key_hi, st.z_hi, sc.zeros);
+    v = midpoint ? (lo + hi) * 0.5 : lo * k.lw + hi * k.hw;
+  }
+  if (threadIdx.x == 0) out[s] = v;
+}
+
+// The column form's scratch carved from `base` (null: sizes only); returns
+// its bytes, and in *zeroed the bytes of its head that start at zero.
+long long column_layout(long long L, long long S, void* base, ColScratch* sc, long long* zeroed) {
+  const long long n_tiles = (S + 31) / 32, n_chunks = (L + kColChunk - 1) / kColChunk;
+  char* p = (char*)base;
+  long long at = 0;
+  auto take = [&](long long bytes) {
+    void* q = p ? p + at : nullptr;
+    at += (bytes + 15) / 16 * 16;
+    return q;
+  };
+  sc->steps = (ColStep*)take(S * (long long)sizeof(ColStep));
+  sc->hist = (unsigned*)take(S * kBuckets * 4LL);
+  sc->arrivals = (unsigned*)take(n_tiles * 4LL);
+  *zeroed = at;
+  sc->list_n = (unsigned*)take(S * 4LL);
+  sc->list = (unsigned long long*)take(S * kColCap * 8LL);
+  sc->lo_max = (unsigned long long*)take(S * 8LL);
+  sc->hi_min = (unsigned long long*)take(S * 8LL);
+  sc->zeros = (unsigned*)take(n_chunks * S * 4LL);
+  return at;
 }
 
 constexpr int kRowWarps = 8;
@@ -723,44 +1062,61 @@ int m3_quantile_window(const long long* times, const double* values, const long 
   return (int)cudaGetLastError();
 }
 
+// GK2's column form's scratch: the bytes m3_graphite_percentile needs in
+// mode 0 for x f64[L, S].
+long long m3_graphite_percentile_scratch(long long L, long long S) {
+  ColScratch sc;
+  long long zeroed;
+  return column_layout(L, S, nullptr, &sc, &zeroed);
+}
+
 // GK2: x f64[L, S].  mode 0 (the column form): out f64[S], the percentile at
-// the finite fraction qf of each step's L lanes, `grid` blocks.  mode 1-3
-// (the row form: nPercentile, removeAbovePercentile, removeBelowPercentile):
-// out f64[L, S] from each lane's first real_S steps, `grid` blocks of
-// kRowWarps warps.  p_smem: the padded size (pairs) that sorts in shared
-// memory; p_scratch: 0, or the padded size past it with scratch keys
-// u64[rows * p_scratch] and positions i32 alike (rows: grid for the column
-// form, grid * kRowWarps for the row form).  Launches on `stream` and
-// returns cudaGetLastError().
+// the finite fraction qf of each step's L lanes (mode 4: the midpoint of its
+// two cells, the median at qf 0.5); scratch_keys is a scratch of p_scratch
+// >= m3_graphite_percentile_scratch(L, S) bytes (p_smem, scratch_pos and
+// grid unused); kColPasses + 1 launches after a memset.
+// mode 1-3 (the row form: nPercentile, removeAbovePercentile,
+// removeBelowPercentile): out f64[L, S] from each lane's first real_S steps,
+// `grid` blocks of kRowWarps warps; p_smem: the padded size (pairs) that
+// sorts in shared memory; p_scratch: 0, or the padded size past it with
+// scratch keys u64[grid * kRowWarps * p_scratch] and positions i32 alike.
+// Launches on `stream` and returns cudaGetLastError().
 int m3_graphite_percentile(const double* x, long long L, long long S, int real_S, int mode,
                            double qf, int p_smem, long long p_scratch,
                            unsigned long long* scratch_keys, int* scratch_pos, int grid,
                            double* out, void* stream) {
-  if (mode < 0 || mode > 3 || !isfinite(qf) || p_smem < 1 || grid < 1 ||
-      real_S < 0 || real_S > S ||
+  if (mode < 0 || mode > 4 || !isfinite(qf) || real_S < 0 || real_S > S)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 0 || mode == 4) {
+    ColScratch sc;
+    long long zeroed;
+    if (scratch_keys == nullptr || p_scratch < column_layout(L, S, nullptr, &sc, &zeroed))
+      return (int)cudaErrorInvalidValue;
+    if (L <= 0 || S <= 0) return (int)cudaSuccess;
+    column_layout(L, S, scratch_keys, &sc, &zeroed);
+    cudaError_t rc = cudaMemsetAsync(scratch_keys, 0, (size_t)zeroed, st);
+    if (rc != cudaSuccess) return (int)rc;
+    const long long n_tiles = (S + 31) / 32;
+    const long long groups = ((L + kColChunk - 1) / kColChunk + kColWarps - 1) / kColWarps;
+    if (n_tiles * groups > 0x7fffffffLL || S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    for (int p = 0; p < kColPasses; ++p)
+      graphite_percentile_columns_kernel<<<(unsigned)(n_tiles * groups), kColWarps * 32, 0, st>>>(
+          x, L, S, qf, p == 0, groups, sc);
+    graphite_percentile_finish_kernel<<<(unsigned)S, kColWarps * 32, 0, st>>>(
+        x, L, S, qf, mode == 4, sc, out);
+    return (int)cudaGetLastError();
+  }
+  if (p_smem < 1 || grid < 1 ||
       (p_scratch > 0 && (scratch_keys == nullptr || scratch_pos == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (L <= 0 || S <= 0) return (int)cudaSuccess;
-  const size_t pair = sizeof(unsigned long long) + sizeof(int);
-  cudaError_t rc;
-  if (mode == 0) {
-    long long P = 1;
-    while (P < L) P <<= 1;
-    const int threads = (int)(P / 2 < 64 ? 64 : (P / 2 > 512 ? 512 : P / 2));
-    const size_t smem = (size_t)p_smem * pair;
-    rc = cudaFuncSetAttribute(graphite_percentile_columns_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-    graphite_percentile_columns_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        x, L, S, qf, p_smem, p_scratch, scratch_keys, scratch_pos, out);
-  } else {
-    const size_t smem = (size_t)kRowWarps * p_smem * pair;
-    rc = cudaFuncSetAttribute(graphite_percentile_rows_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-    graphite_percentile_rows_kernel<<<grid, kRowWarps * 32, smem, (cudaStream_t)stream>>>(
-        x, L, S, real_S, mode, qf, p_smem, p_scratch, scratch_keys, scratch_pos, out);
-  }
+  const size_t smem = (size_t)kRowWarps * p_smem * (sizeof(unsigned long long) + sizeof(int));
+  cudaError_t rc = cudaFuncSetAttribute(graphite_percentile_rows_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return (int)rc;
+  graphite_percentile_rows_kernel<<<grid, kRowWarps * 32, smem, st>>>(
+      x, L, S, real_S, mode, qf, p_smem, p_scratch, scratch_keys, scratch_pos, out);
   return (int)cudaGetLastError();
 }
 

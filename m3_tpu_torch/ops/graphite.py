@@ -20,11 +20,16 @@ device forms of the host Graphite library's numpy NaN-reductions.
   arithmetic (``h = q * (n - 1)``, both indices clamped to ``[0, n-1]``,
   ``lo * (1 - w) + hi * w``) over the lanes of each step (medianSeries,
   percentileOfSeries) or over each lane's real steps (nPercentile,
-  remove{Above,Below}Percentile).  Sorted by (key, position) with -0.0
-  equal to +0.0 and NaN last, as ``lax.sort`` compares.
-- GK3 ``row_transform`` (``csrc/graphite_call.cu``): one thread per lane
-  walks its steps: integral, integralByInterval, keepLastValue,
-  summarize, offsetToZero, minMax and moving{Average,Sum,Max,Min}.
+  remove{Above,Below}Percentile), in the order of (key, position) with
+  -0.0 equal to +0.0 and NaN last, as ``lax.sort`` compares.  The column
+  form selects the two order statistics of each step (a radix select over
+  the order key); the row form sorts each lane.
+- GK3 ``row_transform`` (``csrc/graphite_call.cu``): a warp stages
+  [32 lanes x ROW_TILE steps] tiles in shared memory and each thread walks
+  its lane's steps: integral, integralByInterval, keepLastValue,
+  summarize, offsetToZero, minMax and moving{Average,Sum,Max,Min} (the
+  sums of a window wider than ROW_TILE block-wise, as
+  ``_block_window_sums`` says).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which repeats the kernel's arithmetic
@@ -39,6 +44,8 @@ leave values there, as the reference does.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -70,11 +77,12 @@ ELEMENTWISE_FNS = ("scale", "offset", "absolute", "invert", "logarithm", "pow", 
 SHIFT_FNS = ("derivative", "nonNegativeDerivative", "perSecond", "changed", "delay")
 CALL_FNS = ELEMENTWISE_FNS + SHIFT_FNS + ROW_FNS + PERCENTILE_FNS
 
-# percentile kernel: lanes (pairs) a block sorts in shared memory in the
-# column form (48 KB), and the padded row a warp sorts there in the row form
-COLUMN_SMEM_P = 4096
+# percentile kernel's row form: the padded row a warp sorts in shared memory
 ROW_SMEM_P = 512
 ROW_WARPS = 8  # warps per block of the row form (kRowWarps of csrc/query_select.cu)
+# GK3: steps per staged tile and per block of a wide moving window (kT of
+# csrc/graphite_call.cu)
+ROW_TILE = 16
 
 
 def _matrix(x: torch.Tensor) -> torch.Tensor:
@@ -110,14 +118,17 @@ def percentile_fraction(q: float) -> float:
     return float(q) / 100.0
 
 
-# --- GK2: NaN-aware linear percentiles ------------------------------------
+# --- GK2: NaN-aware percentiles (linear; the median's midpoint) ------------
 
 
-def nanpercentile_plain(x: torch.Tensor, qf: float, dim: int) -> torch.Tensor:
+def nanpercentile_plain(x: torch.Tensor, qf: float, dim: int,
+                       midpoint: bool = False) -> torch.Tensor:
     """``jnp.nanpercentile(x, 100 * qf, axis=dim, keepdims=True)`` in jnp's
-    arithmetic.  The order is a stable sort of a key with -0.0 as +0.0 and
-    NaN as +inf; a NaN lane tied with a real +inf reads as +inf (the values
-    read always lie among the n present ones, which jnp sorts first)."""
+    arithmetic, or with ``midpoint`` ``jnp.nanquantile``'s midpoint method,
+    ``(lo + hi) * 0.5``, which ``jnp.nanmedian`` takes at 0.5.  The order is
+    a stable sort of a key with -0.0 as +0.0 and NaN as +inf; a NaN lane
+    tied with a real +inf reads as +inf (the values read always lie among
+    the n present ones, which jnp sorts first)."""
     m = ~torch.isnan(x)
     count = m.sum(dim, keepdim=True).to(F64)
     sortable = torch.where(m, x, INF)
@@ -131,13 +142,14 @@ def nanpercentile_plain(x: torch.Tensor, qf: float, dim: int) -> torch.Tensor:
     top = count - 1.0
     low = torch.clamp(torch.minimum(low, top), min=0.0).to(I64)
     high = torch.clamp(torch.minimum(high, top), min=0.0).to(I64)
-    r = torch.gather(sv, dim, low) * lw + torch.gather(sv, dim, high) * hw
+    lo_v, hi_v = torch.gather(sv, dim, low), torch.gather(sv, dim, high)
+    r = (lo_v + hi_v) * 0.5 if midpoint else lo_v * lw + hi_v * hw
     return torch.where(count == 0, NAN, r)
 
 
-def percentile_columns_plain(cv: torch.Tensor, qf: float) -> torch.Tensor:
+def percentile_columns_plain(cv: torch.Tensor, qf: float, midpoint: bool = False) -> torch.Tensor:
     """Plain version of ``percentile_columns``."""
-    return nanpercentile_plain(_matrix(cv), float(qf), 0)[0]
+    return nanpercentile_plain(_matrix(cv), float(qf), 0, midpoint)[0]
 
 
 def normalize(cv: torch.Tensor, real_S: int) -> torch.Tensor:
@@ -167,46 +179,46 @@ _SELECT_SIGNATURES = {
 def _launch_percentile(x: torch.Tensor, mode: int, qf: float, real_S: int) -> torch.Tensor:
     dev = x.device
     L, S = x.shape
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if mode == 0:  # a block per step over the L lanes
+    lib = _build.library("query_select", _SELECT_SIGNATURES)
+    if mode in (0, 4):  # the radix selection; its scratch carved by the C side
         out = torch.empty((S,), dtype=F64, device=dev)
-        P = query_grouped.pow2(L)
-        p_smem = min(P, COLUMN_SMEM_P)
-        p_scratch = P if P > COLUMN_SMEM_P else 0
-        grid = max(1, min(S, sms * (2 if p_scratch else 8)))
-        scratch_rows = grid
+        if not (L and S):
+            return out.fill_(NAN)
+        size = lib.m3_graphite_percentile_scratch
+        size.argtypes, size.restype = [_build.LL, _build.LL], ctypes.c_longlong
+        p_smem, grid, p_scratch = 0, 0, int(size(L, S))
+        scratch = torch.empty((p_scratch,), dtype=torch.uint8, device=dev)
+        keys_ptr, pos_ptr = scratch.data_ptr(), None
     else:  # a warp per lane over its real_S steps
         out = torch.empty((L, S), dtype=F64, device=dev)
+        if not (L and S):
+            return out
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         P = query_grouped.pow2(real_S)
         p_smem = min(P, ROW_SMEM_P)
         p_scratch = P if P > ROW_SMEM_P else 0
         grid = max(1, min(-(-L // ROW_WARPS), sms * 4))
-        scratch_rows = grid * ROW_WARPS
-    keys = torch.empty((scratch_rows * p_scratch,), dtype=I64, device=dev)
-    pos = torch.empty((scratch_rows * p_scratch,), dtype=torch.int32, device=dev)
-    if L and S:
-        lib = _build.library("query_select", _SELECT_SIGNATURES)
-        rc = lib.m3_graphite_percentile(
-            x.data_ptr(), L, S, real_S, mode, qf, p_smem, p_scratch,
-            keys.data_ptr() if p_scratch else None, pos.data_ptr() if p_scratch else None, grid,
-            out.data_ptr(), _stream(dev))
-        kernel = "graphite_percentile" if mode == 0 else "graphite_percentile_rows"
-        _build.check(lib, rc, kernel)
-        _build.count_launch(kernel)
-    elif mode == 0:
-        out.fill_(NAN)
+        keys = torch.empty((grid * ROW_WARPS * p_scratch,), dtype=I64, device=dev)
+        pos = torch.empty((grid * ROW_WARPS * p_scratch,), dtype=torch.int32, device=dev)
+        keys_ptr, pos_ptr = (keys.data_ptr(), pos.data_ptr()) if p_scratch else (None, None)
+    rc = lib.m3_graphite_percentile(x.data_ptr(), L, S, real_S, mode, qf, p_smem, p_scratch,
+                                    keys_ptr, pos_ptr, grid, out.data_ptr(), _stream(dev))
+    kernel = "graphite_percentile" if mode in (0, 4) else "graphite_percentile_rows"
+    _build.check(lib, rc, kernel)
+    _build.count_launch(kernel)
     return out
 
 
-def percentile_columns(cv: torch.Tensor, qf: float) -> torch.Tensor:
+def percentile_columns(cv: torch.Tensor, qf: float, midpoint: bool = False) -> torch.Tensor:
     """GK2's column form: ``jnp.nanpercentile`` over the lanes of each step
-    at the fraction ``qf`` (``percentile_fraction(q)``; the median is 0.5),
-    [L, S] -> f64[S]."""
+    at the fraction ``qf`` (``percentile_fraction(q)``), [L, S] -> f64[S];
+    with ``midpoint`` the two cells' midpoint, as ``jnp.nanmedian`` reads
+    them at 0.5."""
     qf = _finite(qf)
     x = _matrix(cv)
     if x.device.type == "cpu":
-        return percentile_columns_plain(x, qf)
-    return _launch_percentile(x, 0, qf, x.shape[1])
+        return percentile_columns_plain(x, qf, midpoint)
+    return _launch_percentile(x, 4 if midpoint else 0, qf, x.shape[1])
 
 
 def percentile_rows(cv: torch.Tensor, q: float, real_S: int, fn: str) -> torch.Tensor:
@@ -276,6 +288,50 @@ def _reduce_func(func: str, vals: list, ms: list):
     return prod  # multiply
 
 
+def _block_window_sums(vz: torch.Tensor, w: int) -> torch.Tensor:
+    """The sums of the windows of w > ROW_TILE cells up to each column, in
+    the kernel's block-wise grouping: the columns cut into aligned blocks
+    of ROW_TILE; for column c in block cb whose window starts at s (0 at
+    the least) in block hb < cb, ``(head + mid) + part`` with head the fold
+    of block hb from s to its end, right to left from 0.0, mid the in-order
+    fold from 0.0 of the in-order sums of blocks hb+1..cb-1, and part the
+    in-order fold of block cb up to c; a window inside block cb (only in
+    block 0) is part alone."""
+    T = ROW_TILE
+    L, S = vz.shape
+    nb = -(-S // T)
+    v = torch.zeros((L, nb * T), dtype=F64, device=vz.device)
+    v[:, :S] = vz
+    v = v.view(L, nb, T)
+    part, head = torch.empty_like(v), torch.empty_like(v)
+    acc = torch.zeros((L, nb), dtype=F64, device=vz.device)
+    for j in range(T):
+        acc = acc + v[:, :, j]
+        part[:, :, j] = acc
+    sums = acc
+    acc = torch.zeros_like(acc)
+    for j in range(T - 1, -1, -1):
+        acc = v[:, :, j] + acc
+        head[:, :, j] = acc
+    part, head = part.view(L, nb * T), head.view(L, nb * T)
+    out = torch.empty_like(vz)
+    cols: dict = {}  # (hb, cb) -> the columns and their window starts
+    for c in range(S):
+        s = max(0, c - w + 1)
+        cols.setdefault((s // T, c // T), []).append((c, s))
+    for (hb, cb), cs in cols.items():
+        c = torch.tensor([c for c, _ in cs], device=vz.device)
+        if hb == cb:
+            out[:, c] = part[:, c]
+            continue
+        mid = torch.zeros(L, dtype=F64, device=vz.device)
+        for b in range(hb + 1, cb):
+            mid = mid + sums[:, b]
+        s = torch.tensor([s for _, s in cs], device=vz.device)
+        out[:, c] = (head[:, s] + mid[:, None]) + part[:, c]
+    return out
+
+
 def row_transform_plain(cv: torch.Tensor, fn: str, real_S: int, k: int = 1, func: str = "sum",
                         limit: float = INF) -> torch.Tensor:
     """Plain version of ``row_transform``: the kernel's walk along each
@@ -321,16 +377,21 @@ def row_transform_plain(cv: torch.Tensor, fn: str, real_S: int, k: int = 1, func
         v = (x - lo) / torch.where(rng == 0, NAN, rng)
         return torch.where(torch.isfinite(v), v, 0.0)
     # the moving windows: the w cells up to each column, oldest first,
-    # columns before the first absent
+    # columns before the first absent; max, min and the counts do not depend
+    # on the grouping, the sums of a window wider than ROW_TILE are
+    # block-wise (_block_window_sums)
     w = k
     acc = torch.zeros_like(x)
     cnt, lo, hi = torch.zeros_like(x), torch.full_like(x, INF), torch.full_like(x, -INF)
     for d in range(min(w, S) - 1, -1, -1):
-        acc = acc + _shift(vz, d, 0.0)
+        if w <= ROW_TILE:
+            acc = acc + _shift(vz, d, 0.0)
         mm = _shift(m.to(F64), d, 0.0)
         cnt = cnt + mm
         lo = ieee.minimum(lo, _shift(torch.where(m, x, INF), d, INF))
         hi = ieee.maximum(hi, _shift(torch.where(m, x, -INF), d, -INF))
+    if w > ROW_TILE:
+        acc = _block_window_sums(vz, w)
     empty = cnt == 0
     if fn == "movingSum":
         return acc
@@ -343,7 +404,7 @@ def row_transform_plain(cv: torch.Tensor, fn: str, real_S: int, k: int = 1, func
 
 _ROW_SIGNATURES = {
     "m3_graphite_row": [_build.P, _build.LL, _build.LL, _build.I, _build.I, _build.LL, _build.I,
-                        _build.D, _build.P, _build.P],
+                        _build.D, _build.P, _build.LL, _build.P, _build.P],
 }
 
 
@@ -375,10 +436,15 @@ def _launch_row(x: torch.Tensor, fn: str, real_S: int, k: int, func: str,
     L, S = x.shape
     out = torch.empty_like(x)
     if L and S:
+        # a wide moving window's per-block folds (f64) and counts (i32)
+        wide = fn.startswith("moving") and k > ROW_TILE
+        scratch = torch.empty((-(-S // ROW_TILE) * L * 12,), dtype=torch.uint8,
+                              device=dev) if wide else None
         lib = _build.library("graphite_call", _ROW_SIGNATURES)
         rc = lib.m3_graphite_row(x.data_ptr(), L, S, real_S, ROW_FNS.index(fn), k,
-                                 SUMMARIZE_FUNCS.index(func), limit, out.data_ptr(),
-                                 _stream(dev))
+                                 SUMMARIZE_FUNCS.index(func), limit,
+                                 scratch.data_ptr() if wide else None,
+                                 scratch.numel() if wide else 0, out.data_ptr(), _stream(dev))
         _build.check(lib, rc, "graphite_row")
         _build.count_launch("graphite_row")
     return out
@@ -401,9 +467,10 @@ def grouped_reduce(cv: torch.Tensor, groups, g_pad: int, op: str, extra=(), tval
         return torch.full((g_pad, S), float(tval), dtype=F64, device=x.device)
     if op in ("median", "percentile"):
         _check_single_group(groups)
-        qf = 0.5 if op == "median" else percentile_fraction(extra[0])
+        col = (percentile_columns(x, 0.5, midpoint=True) if op == "median" else
+               percentile_columns(x, percentile_fraction(extra[0])))
         row0 = torch.arange(g_pad, device=x.device)[:, None] == 0
-        return torch.where(row0, percentile_columns(x, qf)[None, :], NAN)
+        return torch.where(row0, col[None, :], NAN)
     if op in SINGLE_GROUP_OPS:
         _check_single_group(groups)
     return query_grouped.grouped_reduce(x, groups, g_pad, op, index, GROUP_EMPTY.get(op, NAN))

@@ -209,6 +209,135 @@ def test_unknown_forms_raise():
 
 
 
+# GK3's moving windows on a long probe: [8, 512] with 401 real steps, NaN
+# holes, +-Inf entering and leaving windows (row 1; row 5's lone +Inf),
+# runs of -0.0, an all-NaN row and 1e6 spikes; widths across the kernel's
+# 16-step tiles and window blocks, an hour of 60 s steps, and wider than the
+# real steps.  One compiled JAX program.
+LONG_REAL_S = 401
+LONG_WIDTHS = (1, 15, 16, 17, 31, 32, 33, 60, 400, 450)
+MOVING = [(fn, w) for fn in ("movingSum", "movingAverage", "movingMax", "movingMin")
+          for w in LONG_WIDTHS]
+
+
+def _long_probe() -> np.ndarray:
+    rng = np.random.default_rng(37)
+    v = np.round(rng.uniform(-50, 50, (8, 512)), 2)
+    v[rng.random(v.shape) < 0.2] = np.nan
+    v[1, rng.random(512) < 0.03] = np.inf
+    v[1, rng.random(512) < 0.03] = -np.inf
+    v[2, 100:140] = -0.0
+    v[2, 300:303] = -0.0
+    v[3] = np.nan
+    v[4, ::3] = 1e6
+    v[5, 200] = np.inf
+    v[:, LONG_REAL_S:] = v[:, LONG_REAL_S - 1:LONG_REAL_S]
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_long() -> list:
+    v = _long_probe()
+    steps = np.arange(v.shape[1], dtype=np.int64)
+
+    def run(cv):
+        return [jq._graphite_call(fn, cv, (LONG_REAL_S, w), (), steps) for fn, w in MOVING]
+
+    return [np.array(a) for a in jax.jit(run)(v)]
+
+
+@pytest.mark.parametrize("i", range(len(MOVING)), ids=[f"{fn}[{w}]" for fn, w in MOVING])
+def test_long_moving_windows_match_jax(i):
+    """The plain moving windows (block-wise sums past 16 cells) against the
+    reference's lax.reduce_window: sums and averages at ``SUM``, max and
+    min bit for bit, NaN positions and infinities exact."""
+    fn, w = MOVING[i]
+    got = graphite.row_transform(torch.from_numpy(_long_probe()), fn, LONG_REAL_S, w)
+    _check(got, _jax_long()[i], SUM if fn in ("movingSum", "movingAverage") else None,
+           f"{fn}[{w}]")
+
+
+def test_long_probe_reaches_the_corners():
+    """An Inf that leaves a window leaves it finite (no running difference),
+    the max of a window of -0.0 cells only is -0.0, and windows wider than
+    the real steps cover them all."""
+    want = dict(zip(MOVING, _jax_long()))
+    for w in (17, 60, 400):
+        s = want[("movingSum", w)][5]
+        assert np.isinf(s[200:200 + w]).all() and np.isfinite(s[200 + w:LONG_REAL_S]).all()
+    m = want[("movingMax", 33)][2, 132:140]
+    assert (m == 0.0).all() and np.signbit(m).all()
+    wide = want[("movingSum", 450)]  # every real step in the window up to column 449
+    np.testing.assert_allclose(wide[:, LONG_REAL_S:450],
+                               np.repeat(wide[:, LONG_REAL_S - 1:LONG_REAL_S], 49, axis=1),
+                               rtol=SUM[0], atol=SUM[1])  # XLA regroups the sum per column
+
+
+# GK2's column form on a wide probe: [5,000 x 8] of a column of ties with
+# NaN holes, an all-equal column, an all-NaN column, a +-0.0 column whose
+# middle ranks land among the zeros, +inf mixed with NaN, small integers,
+# only +-0.0 and NaN, and two runs that differ in the last bit; percentiles
+# -20 to 150.  One compiled JAX program.
+WIDE_QS = (-20.0, 0.0, 10.0, 25.0, 50.0, 75.0, 90.0, 95.0, 100.0, 150.0)
+
+
+def _wide_probe() -> np.ndarray:
+    rng = np.random.default_rng(41)
+    n = 5000
+    v = np.round(rng.uniform(-100, 100, (n, 8)), 1)
+    v[rng.random(n) < 0.15, 0] = np.nan
+    v[:, 1] = 3.25
+    v[:, 2] = np.nan
+    v[:, 3] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    v[:1500, 3] = -2.0
+    v[3500:, 3] = 2.0
+    v[:, 4] = np.where(rng.random(n) < 0.5, np.nan, np.inf)
+    v[:200, 4] = -1.0
+    v[:, 5] = rng.integers(-3, 4, n).astype(np.float64)
+    v[:, 6] = np.where(rng.random(n) < 0.4, np.nan, np.where(rng.random(n) < 0.5, -0.0, 0.0))
+    v[:, 7] = np.where(np.arange(n) < n // 2, 1.0, np.nextafter(1.0, 2.0))
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wide() -> list:
+    v = _wide_probe()
+    zeros = np.zeros(v.shape[0], dtype=np.int64)
+
+    def run(cv, grp):
+        out = [jq._graphite_grouped_reduce(cv, grp, G_PAD, "percentile", (q,), 0.0)
+               for q in WIDE_QS]
+        return out + [jq._graphite_grouped_reduce(cv, grp, G_PAD, "median", (), 0.0)]
+
+    return [np.array(a) for a in jax.jit(run)(v, zeros)]
+
+
+@pytest.mark.parametrize("i", range(len(WIDE_QS) + 1),
+                         ids=[f"percentile[{q}]" for q in WIDE_QS] + ["median"])
+def test_wide_column_percentiles_match_jax(i):
+    """GK2's column form (plain) against jnp.nanpercentile over the lanes at
+    ``STAT``, NaN positions and infinities exact."""
+    v = _wide_probe()
+    zeros = np.zeros(v.shape[0], dtype=np.int64)
+    op, ex = ("median", ()) if i == len(WIDE_QS) else ("percentile", (WIDE_QS[i],))
+    got = graphite.grouped_reduce(torch.from_numpy(v), zeros, G_PAD, op, ex)
+    _check(got, _jax_wide()[i], STAT, f"{op}{list(ex)}")
+
+
+def test_wide_probe_reaches_the_corners():
+    """The ranks land where the probe means them to: among mixed +-0.0 with
+    both signs read, on +inf past the finite cells (where the median's
+    midpoint gives +inf and a percentile's inf * 0 weight NaN), on either
+    side of two runs one ulp apart."""
+    want = dict(zip(WIDE_QS + ("median",), (w[0] for w in _jax_wide())))
+    assert np.isnan(want[50.0][2]) and (want[-20.0][1] == 3.25) and (want[150.0][1] == 3.25)
+    assert want[50.0][3] == 0.0 and want["median"][3] == 0.0
+    assert {bool(np.signbit(want[q][6])) for q in WIDE_QS} == {False, True}
+    assert want[0.0][4] == -1.0 and want["median"][4] == np.inf
+    assert np.isnan([want[q][4] for q in WIDE_QS[2:]]).any()
+    assert want[25.0][7] == 1.0 and want[75.0][7] == np.nextafter(1.0, 2.0)
+
+
 class _FakeGrouped:
     """Stands in for QK4's library: records each call's chunk table, fold
     table and partial count (the wrapper's pointers are passed as the
