@@ -53,12 +53,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    15,000 lanes (the global-scratch sort); then the rest of the range
    functions (QK3's changes/resets and deriv/predict_linear op codes, QK9
    stddev/stdvar, QK10 holt_winters, QK11 quantile_over_time) on the CPU
-   tests' probe lanes and on lanes of 32,768 samples at 5m and 1h, and the
-   subquery pack (QK12) against a stable sort; bit for bit but the fit's
-   sums (rtol 1e-9 and ``linreg_atol``), twice; then the graphite kernels
-   (QK4's grouped NaN-reductions, GK2 percentiles in both forms, GK3
-   per-lane scans, buckets and windows) on their probes, twice, bit for bit
-   but QK4's sums and products (rtol 1e-12);
+   tests' probe lanes, QK11 also on windows of 1-300 samples, and on lanes
+   of 32,768 samples at 5m and 1h, and the subquery pack (QK12) against a
+   stable sort; bit for bit but the fit's sums (rtol 1e-9 and
+   ``linreg_atol``), twice; then the graphite kernels (QK4's grouped
+   NaN-reductions, GK2 percentiles in both forms, GK3 per-lane scans,
+   buckets and windows) on their probes, twice, bit for bit but QK4's sums
+   (rtol 1e-12);
 8. expr main — BASELINE config 4's width through ``device_expr_pipeline``:
    the grouped-rate ratio of ``bench.py:1768`` (25,000 + 25,000 series,
    32 jobs), histogram_quantile(0.99, sum by (job, le)(rate(..))) over
@@ -81,7 +82,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    subquery, numpy over the per-node rate on the inner grid) and timed;
    then QK3's new ops and QK9-QK12 beside their plain versions, bounds and
    ``torch.sort`` (along the window grid for QK11, of the packing key for
-   QK12);
+   QK12; QK11 at phi 0.99 and 0.5), and QK11 again over 1h windows;
 9. graphite — the same 50,000 series as Graphite paths
    ``servers.host<i>.cpu.load`` through ``device_expr_pipeline`` with the
    graphite nodes: the reference bench's target
@@ -107,8 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    1,000,000 lanes x 720 points, 1m and 5m tiles, beside its plain
    version, its bound and K3 + ``index_add_``/``scatter_reduce_``;
 13. mesh — the series-sharded paths on one card with 8 virtual shards
-   (MK1 and QK4's sqdev against their plain versions with the parity
-   phases, bit for bit, twice): the north-star read on a 4x2 mesh through
+   (MK1, its batched form and QK4's sqdev against their plain versions
+   with the parity phases, bit for bit, twice): the north-star read on a
+   4x2 mesh through
    ``decode_downsample_sharded`` (MEAN; per_lane against
    ``decode_downsample`` bit for bit, the fleet against numpy at rtol
    1e-12, both consolidation schedules the same bits), after the read main;
@@ -118,7 +120,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ratio, topk(10, ..), histogram_quantile(0.99, ..)), each against the
    unsharded pipeline on the same data, then the ratio and the grouped sum
    again over an NCCL group of world size 1 (the same bits), then MK1 and
-   sqdev timed, after the graphite phase; the encode configuration through
+   sqdev timed (MK1's time split between the device and the host, its host
+   time a call beside ``torch.sum``'s, its batched form beside two single
+   launches), after the graphite phase; the encode configuration through
    ``encode_rollup_sharded`` on 8x1 and 4x2 (words/nbits against
    ``encode_batched`` bit for bit, total_bytes exact), after the encode;
 14. report — one JSON line listing the kernels, then the result line.
@@ -246,6 +250,50 @@ def time_once(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def device_ms(fn, reps: int = 7) -> float:
+    """Median device time of fn alone (ms): the stream is kept busy by
+    ``torch.cuda._sleep`` while the host enqueues the start event, fn's
+    launches and the end event, so the events time the device's work and
+    not the host's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms of cycles ahead of the events
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time of one call of fn (us), over `calls` calls in a row: what
+    the caller's thread spends enqueueing, the device keeping up."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def _split_line(name: str, ms: float, fn) -> None:
+    """Log the split of a timed call between the device and the host: ``ms``
+    (CUDA events on an idle stream, the host's work inside the window) and
+    ``device_ms(fn)``."""
+    dev = device_ms(fn)
+    log(f"time {name} split: {ms:.4f} ms between events on an idle stream, {dev:.4f} ms on the "
+        f"device with the stream busy ahead, so {ms - dev:.4f} ms is the host's (the wrapper "
+        f"and the launch)")
 
 
 def card() -> str:
@@ -557,9 +605,11 @@ def compare_query(b: corpus.QueryBatch, tag: str):
 def _chunk_probe(sizes, S: int, seed: int):
     """A matrix of the lanes of groups of `sizes` lanes (shuffled), with
     NaN holes, +-Inf, +-0.0 and ties, and 7 all-NaN padding lanes parked on
-    group 0; the multiply form keeps the zeros, NaN and infinities and puts
-    the other cells near 1 (no overflow, so its NaN pattern does not depend
-    on the order)."""
+    group 0; and a near-one form that keeps the zeros, NaN and infinities
+    and puts the other cells near 1.  multiply runs on both: on the first
+    the products of large groups overflow and then meet a zero or an
+    infinity, so their NaN, +-0.0 and +-inf cells depend on the order; on
+    the second every order rounds differently."""
     rng = np.random.default_rng(seed)
     groups = np.repeat(np.arange(len(sizes)), sizes)
     rng.shuffle(groups)
@@ -591,16 +641,15 @@ def compare_grouped_chunks():
         gt = torch.from_numpy(groups).to(DEVICE)
         index = query_grouped.group_index(groups, G, DEVICE)
         center = torch.from_numpy(np.random.default_rng(seed).normal(size=(3, S))).to(DEVICE)
-        for agg in query_grouped.OPS:
-            v = near_one if agg == "multiply" else x
+        for agg, v in [(agg, x) for agg in query_grouped.OPS] + [("multiply", near_one)]:
             empty = 0.0 if agg == "sqdev" else float("nan")
             c = center if agg == "sqdev" else None
-            tag = f"chunks {sizes[:8]} S={S} {agg}"
+            tag = f"chunks {sizes[:8]} S={S} {agg}{' near one' if v is near_one else ''}"
             out = twice(lambda: query_grouped.grouped_reduce(v, groups, G, agg, index, empty, c),
                         tag)
             want = query_grouped.grouped_reduce_plain(v, gt, G, agg, empty, c)
             kernel = "query_sqdev" if agg == "sqdev" else "query_grouped"
-            if agg in BIT_EXACT_AGGS + ("range", "last"):
+            if agg in BIT_EXACT_AGGS + ("range", "last", "multiply"):
                 _record(kernel, same_bits(out, want, tag))
             else:
                 rtol = 1e-9 if agg in ("stddev", "stdvar") else 1e-12
@@ -609,8 +658,9 @@ def compare_grouped_chunks():
     torch.cuda.synchronize()
     log(f"query parity QK4 chunks: {n} cases (every op code; groups of 1, 3, {C - 1}, {C}, "
         f"{C + 1}, {2 * C + 5}, {3 * C + 17} and {8 * C} lanes, empty groups, padding on group 0; "
-        f"NaN, +-Inf, +-0.0): count/min/max/group/range/last bit for bit, sums within rtol "
-        f"1e-12, stddev/stdvar 1e-9, each twice bit for bit")
+        f"NaN, +-Inf, +-0.0; multiply overflowing and near one): count/min/max/group/range/last/"
+        f"multiply bit for bit, sums within rtol 1e-12, stddev/stdvar 1e-9, each twice bit for "
+        f"bit")
 
 
 def compare_long_lanes(n_cap: int = 32768):
@@ -999,6 +1049,17 @@ def compare_family_kernels():
     for tag, arrays in lanes:
         t, v, st = (torch.from_numpy(x).to(DEVICE) for x in arrays)
         compare_family(t, v, st, EXPR_RANGES, tag)
+    # QK11 at the CPU test's window widths (1, 31, 32, 33, 64, 300 samples):
+    # windows in registers up to 32, a sorted run past that, a long run at
+    # 300; phi at the end buffers and in the network
+    t, v, st = (torch.from_numpy(x).to(DEVICE) for x in corpus.quantile_width_lanes())
+    for width in corpus.QUANTILE_WIDTHS:
+        r = corpus.quantile_width_range(width)
+        for phi in (0.0, 0.1, 0.5, 0.9, 0.99, 1.0):
+            tag = f"width probe quantile_over_time {phi} over {width} samples"
+            out = twice(lambda: query_temporal.quantile_window(t, v, st, r, phi), tag)
+            _record("query_quantile_window", same_bits(out, query_temporal.quantile_window_plain(
+                t, v, st, r, phi), tag))
     t, v, st = (torch.from_numpy(x).to(DEVICE) for x in corpus.long_lanes())
     compare_family(t, v, st, (300 * SEC,), "long lanes", phis=(0.5, 0.99), hw=((0.3, 0.1),))
     compare_family(t, v, st[::8].contiguous(), (3600 * SEC,), "long lanes 1h", phis=(0.0, 0.99),
@@ -1007,7 +1068,9 @@ def compare_family_kernels():
     log("expr parity changes/resets, deriv/predict_linear (QK3), stddev/stdvar (QK9), "
         "holt_winters (QK10), quantile_over_time (QK11): probe lanes (NaN holes, all-NaN, "
         "sparse, the 1.5e9 canary, +-Inf, +-0.0 ties, counter resets, short lanes) at 93s and "
-        "10m, 6 lanes x 32,768 at 5m and 1h (QK11's global scratch), horizons 0-14400, "
+        "10m, QK11 on windows of 1, 31, 32, 33, 64 and 300 samples (+-0.0 ties at the "
+        "selected ranks, all-NaN and empty windows), 6 lanes x 32,768 at 5m and 1h (QK11's "
+        "global scratch), horizons 0-14400, "
         "(sf, tf) 3 pairs, phi 0-1: bit for bit but the fit's sums (rtol 1e-9, linreg_atol), "
         "twice")
     for rows, S, n_valid in ((6, 64, 41), (3, 64, 1), (5000, 512, 385)):
@@ -1618,9 +1681,6 @@ def family_kernel_times(fc: corpus.FanoutCorpus, shapes: dict):
         lane_bytes, search_ms + windowed(r) * 9 / FP64_OPS_PER_S * 1e3)
 
     r = 5 * MIN
-    fn = lambda: qt.quantile_window(times, values, steps, r, 0.99)  # noqa: E731
-    _record("query_quantile_window", same_bits(fn(), qt.quantile_window_plain(
-        times, values, steps, r, 0.99), "main quantile_over_time"))
     _, left, right = qt.window_bounds_plain(times, steps, r)
     width = int((right - left).max())
     idx = (left[:, :, None] + torch.arange(width, device=DEVICE)).clamp(max=N - 1)
@@ -1628,15 +1688,34 @@ def family_kernel_times(fc: corpus.FanoutCorpus, shapes: dict):
     grid = torch.where(idx < right[:, :, None], grid, torch.inf)
     del idx, left, right
     torch.cuda.empty_cache()
+    sort_ms = time_ms(lambda: torch.sort(grid, dim=2), reps=5)
+    del grid
     # what the function needs: a selection of two order statistics, one
     # 64-bit compare (two INT32 operations) per windowed sample for each
     samples = windowed(r)
-    row("query_quantile_window", rows, time_ms(fn, reps=7),
-        time_ms(lambda: qt.quantile_window_plain(times, values, steps, r, 0.99), reps=3),
-        lane_bytes, search_ms + samples * 2 * 2 / INT32_OPS_PER_S * 1e3,
-        time_ms(lambda: torch.sort(grid, dim=2), reps=5),
-        f"torch.sort along the window grid [{L}, {S}, {width}]")
-    del grid, times, values
+    # phi 0.99 takes the ranks near the window's end (the end buffers),
+    # phi 0.5 the median (the comparator network)
+    for phi, name in ((0.99, "query_quantile_window"),
+                      (0.5, "query_quantile_window[phi 0.5]")):
+        fn = lambda: qt.quantile_window(times, values, steps, r, phi)  # noqa: E731
+        _record("query_quantile_window", same_bits(fn(), qt.quantile_window_plain(
+            times, values, steps, r, phi), f"main quantile_over_time phi {phi}"))
+        row(name, rows, time_ms(fn, reps=7),
+            time_ms(lambda: qt.quantile_window_plain(times, values, steps, r, phi), reps=3),
+            lane_bytes, search_ms + samples * 2 * 2 / INT32_OPS_PER_S * 1e3, sort_ms,
+            f"torch.sort along the window grid [{L}, {S}, {width}]")
+    torch.cuda.empty_cache()
+    # 1h windows (~360 samples): the second launch's runs of up to 1,024
+    # samples; no torch.sort of that window grid fits (~96 GB)
+    r = 60 * MIN
+    fn = lambda: qt.quantile_window(times, values, steps, r, 0.99)  # noqa: E731
+    plain, plain_ms = time_once(lambda: qt.quantile_window_plain(times, values, steps, r, 0.99))
+    _record("query_quantile_window", same_bits(fn(), plain, "main quantile_over_time[1h]"))
+    del plain
+    samples = windowed(r)
+    row("query_quantile_window[1h]", rows, time_ms(fn, reps=3), plain_ms, lane_bytes,
+        search_ms + samples * 2 * 2 / INT32_OPS_PER_S * 1e3)
+    del times, values
     torch.cuda.empty_cache()
 
     inner, sub_p, sub_valid = shapes["subq"]
@@ -1662,7 +1741,8 @@ GRAPHITE_STEP = 60 * SEC
 GRAPHITE_QS = (-0.2, 0.0, 0.2, 0.5, 0.95, 1.0, 1.5)  # fractions for the column form
 # (fraction, midpoint) of the column form: the percentiles, then the median
 GRAPHITE_COLUMN_CASES = tuple((q, False) for q in GRAPHITE_QS) + ((0.5, True),)
-GRAPHITE_BIT_EXACT_OPS = ("count", "min", "max", "range", "last")  # independent of order
+# independent of order, or (multiply) in lane order on both sides
+GRAPHITE_BIT_EXACT_OPS = ("count", "min", "max", "range", "last", "multiply")
 
 
 def _graphite_probes():
@@ -1673,10 +1753,9 @@ def _graphite_probes():
     512), 300 lanes in groupByNode's layout, 70,000 lanes (GK2's column
     selection over many chunks and buckets) and 64 rows of 1,024 steps
     (GK3's staged tiles and window blocks).  `kernels`: those the probe
-    drives (the last two, built for one kernel each: a product over 14,000
-    lanes of values up to +-1,000 overflows, and whether it ends NaN or 0
-    depends on the fold order, which QK4 and its plain version's atomics do
-    not share)."""
+    drives (QK4 on all of them: multiplySeries over 14,000 and 70,000 lanes
+    of values up to +-1,000 overflows and then meets a zero, and QK4 and its
+    plain version both multiply in lane order)."""
     ALL = {"QK4", "GK2 columns", "GK2 rows", "GK3"}
     v, groups, _ = corpus.graphite_probe_matrix(real_S=21)
     yield "probes", v, groups, 21, ALL
@@ -1714,7 +1793,7 @@ def _graphite_probes():
     wide[:100, 5] = -2.0
     wide[:, 6] = 1.0 + rng.integers(0, 3, 70_000) * 2.0**-52
     wide[:, 7] = np.where(np.arange(70_000) < 35_000, 1.0, np.nextafter(1.0, 2.0))
-    yield "70,000 lanes", wide, rng.integers(0, 5, 70_000), 8, {"GK2 columns"}
+    yield "70,000 lanes", wide, rng.integers(0, 5, 70_000), 8, {"QK4", "GK2 columns"}
     # GK3's tiles and window blocks: 64 rows of 1,024 steps, 901 real; NaN
     # holes, +-Inf entering and leaving windows, runs of -0.0, a constant row
     rows = np.round(rng.uniform(-50, 50, (64, 1024)), 2)
@@ -1725,7 +1804,7 @@ def _graphite_probes():
     rows[3] = 4.0
     rows[4] = np.nan
     rows[5, 17::33] = 1e9
-    yield "tiled rows", rows, np.arange(64) % 7, 901, {"GK3"}
+    yield "tiled rows", rows, np.arange(64) % 7, 901, {"QK4", "GK3"}
 
 
 def compare_graphite_kernels():
@@ -1733,9 +1812,9 @@ def compare_graphite_kernels():
     card, twice: every op code, summarize func and percentile form, on the
     probes above, windows and buckets of 1, 3 and 7 steps and wider than
     the real steps (k not dividing them), gap limits 0, 2 and +inf,
-    percentiles -20 to 150.  Bit for bit, but for QK4's sums and products,
-    whose plain version on the card sums with atomics (rtol 1e-12; stddev
-    1e-9, as QK4's PromQL ops)."""
+    percentiles -20 to 150.  Bit for bit, but for QK4's sums, whose plain
+    version on the card sums with atomics (rtol 1e-12; stddev 1e-9, as QK4's
+    PromQL ops)."""
     g = graphite
     n = 0
     for tag, v, groups, real_S, kernels in _graphite_probes():
@@ -1750,7 +1829,7 @@ def compare_graphite_kernels():
                                                       g.GROUP_EMPTY.get(op, float("nan")))
             if op in GRAPHITE_BIT_EXACT_OPS:
                 _record("query_grouped[graphite]", same_bits(out, want, f"graphite {tag} {op}"))
-            else:  # the plain version's sums and products are index_add_'s atomics
+            else:  # the plain version's sums are index_add_'s atomics
                 rtol = 1e-9 if op == "stddev" else 1e-12
                 _record("query_grouped[graphite]", close(out, want, rtol, f"graphite {tag} {op}"))
             n += 1
@@ -1788,9 +1867,9 @@ def compare_graphite_kernels():
         "groups, real steps < padded steps, k not dividing them, windows wider than them, "
         "5,000- and 70,000-lane columns (ties, ranks in +-0.0 runs, all-equal, all-NaN, "
         "+inf with NaN), 1,300-step rows in global scratch, windows and buckets of 1-400 "
-        "steps across 16-step tiles): bit for bit (QK4's count/min/max/range/last, GK2, "
-        "GK3; QK4's sum/avg/multiply/diff within rtol 1e-12, stddev 1e-9), each kernel "
-        "twice bit for bit")
+        "steps across 16-step tiles; QK4 on all of them, multiply overflowing): bit for bit "
+        "(QK4's count/min/max/range/last/multiply, GK2, GK3; QK4's sum/avg/diff within rtol "
+        "1e-12, stddev 1e-9), each kernel twice bit for bit")
 
 
 def _np_moving_average(x: np.ndarray, w: int) -> np.ndarray:
@@ -1946,8 +2025,8 @@ def graphite_kernel_times(shapes: dict):
     """QK4, GK2 and GK3 at the full-width plans' shapes ([65,536, 512], 355
     real steps): each kernel's time, its plain version's (held against
     it), its bound, and one PyTorch call computing the same function where
-    there is one.  QK4 at sumSeries' one group of every lane and at
-    groupByNode's 50,000 one-lane groups (of 65,536, the padding lanes
+    there is one.  QK4 at sumSeries' one group of every lane (sum and
+    multiply) and at groupByNode's 50,000 one-lane groups (of 65,536, the padding lanes
     parked on group 0); GK3's integral, movingSum over 5 steps,
     keepLastValue and movingAverage at the dashboards' wide windows, 60
     steps (an hour at 60 s) and 400 (wider than the 355 real steps), each
@@ -1967,6 +2046,19 @@ def graphite_kernel_times(shapes: dict):
     row("query_grouped[graphite]", rows, time_ms(fn, reps=7), time_ms(plain, reps=3),
         cell_bytes + L * 8 + 8 * S * 8, L * S / FP64_OPS_PER_S * 1e3,
         time_ms(lambda: torch.nansum(x, dim=0), reps=7), "torch.nansum along the lanes")
+    # multiplySeries over the same group: the product in lane order (QK4's
+    # product_kernel past one chunk); the plain version's loop over the
+    # 65,536 lanes runs once, timed and checked
+    fn = lambda: g.grouped_reduce(x, one, 8, "multiply", index=index)  # noqa: E731
+    want, plain_ms = time_once(
+        lambda: query_grouped.grouped_reduce_plain(x, one_t, 8, "multiply", 1.0))
+    _record("query_grouped[graphite]", same_bits(fn(), want, "main multiplySeries"))
+    x1 = torch.nan_to_num(x, nan=1.0)
+    row("query_grouped[multiply]", rows, time_ms(fn, reps=7), plain_ms,
+        cell_bytes + L * 8 + 8 * S * 8, L * S / FP64_OPS_PER_S * 1e3,
+        time_ms(lambda: torch.prod(x1, dim=0), reps=7),
+        "torch.prod along the lanes (of nan_to_num(x, 1.0) computed ahead; its own order)")
+    del want, x1
     n = int((~torch.isnan(x).all(dim=1)).nonzero().max()) + 1  # the real lanes
     ids = np.where(np.arange(L) < n, np.arange(L), 0)  # padding parked on group 0
     index = query_grouped.group_index(ids, L, DEVICE)
@@ -2939,6 +3031,30 @@ def compare_mesh_kernels():
                         _record("mesh_reduce", same_bits(
                             got, mesh_reduce.mesh_reduce_plain(t, op, lo, hi), tag))
                         n_mk1 += 1
+    n_batch = 0
+    for n_shards in (1, 8):
+        for n in (60, 4097):
+            ops = ("sum", "min", "max", "sum", "min")
+            joint = torch.stack([_mesh_probe_stack(n_shards, n, seed=7 * i + n)
+                                 for i in range(len(ops))], dim=1)
+            stacks = [joint[:, i] for i in range(len(ops))]  # views of one gather
+            ints = [torch.from_numpy(np.random.default_rng(n + i).integers(
+                -2**60, 2**60, (n_shards, n))).to(DEVICE) for i in range(3)]
+            # rows that are not contiguous: transposed views, each copied
+            trans = [_mesh_probe_stack(n_shards, n, seed=11 * i + n).T.contiguous().T
+                     for i in range(2)]
+            whole = (None, None)
+            for batch, bops, (lo, hi) in ((stacks, ops, whole), (stacks[:2], ops[:2], whole),
+                                          (ints, ops[:3], whole), (trans, ops[1:3], whole),
+                                          (trans, ops[1:3], (n // 3, n // 3 + n // 2))):
+                tag = (f"mesh parity MK1 batch {bops} {batch[0].dtype} {n_shards}x{n} "
+                       f"strides {batch[0].stride()} [{lo}, {hi})")
+                got = twice(lambda: torch.stack(mesh_reduce.mesh_reduce_batch(batch, bops, lo, hi)),
+                            tag)
+                want = torch.stack([mesh_reduce.mesh_reduce_plain(b, op, lo, hi)
+                                    for b, op in zip(batch, bops)])
+                _record("mesh_reduce", same_bits(got, want, tag))
+                n_batch += 1
     n_sq = 0
     for out, seg, n_seg, center in _sqdev_probes():
         tag = f"mesh parity sqdev {tuple(out.shape)} over {n_seg} segments"
@@ -2948,7 +3064,9 @@ def compare_mesh_kernels():
             out, torch.from_numpy(seg).to(DEVICE), n_seg, "sqdev", 0.0, center), tag))
         n_sq += 1
     torch.cuda.synchronize()
-    log(f"mesh parity: MK1 bit for bit on {n_mk1} cases, QK4 sqdev on {n_sq} probe sets "
+    log(f"mesh parity: MK1 bit for bit on {n_mk1} cases and its batched form on {n_batch} "
+        f"batches (views of one stack, transposed views, an owned range, mixed ops, f64 and "
+        f"i64), QK4 sqdev on {n_sq} probe sets "
         f"(segments of <= 32 lanes), twice each")
 
 
@@ -3242,8 +3360,27 @@ def mesh_query_main(fc: corpus.FanoutCorpus, results: dict, rows: dict):
             time_ms(lambda: mesh_reduce.mesh_reduce_plain(part, op), reps=7),
             (MESH_SHARDS + 1) * N * 8, MESH_SHARDS * N / FP64_OPS_PER_S * 1e3,
             time_ms(lambda: lib_fn(part, dim=0), reps=7), f"torch.{lib_fn.__name__} over dim 0")
-    counts = mesh_reduce.mesh_reduce(query_grouped.grouped_reduce(
-        rate, seg, n_seg, "count", None, 0.0).reshape(MESH_SHARDS, -1), "sum").reshape(-1, S)
+        _split_line(f"mesh_reduce[{op}]", rows[f"mesh_reduce[{op}]"]["ms"], fn)
+    count_part = query_grouped.grouped_reduce(rate, seg, n_seg, "count", None, 0.0).reshape(
+        MESH_SHARDS, -1)
+    pair = [count_part, part]
+    host = {name: host_us(fn) for name, fn in (
+        ("mesh_reduce", lambda: mesh_reduce.mesh_reduce(part, "sum")),
+        ("torch.sum", lambda: torch.sum(part, dim=0)),
+        ("batch", lambda: mesh_reduce.mesh_reduce_batch(pair, ["sum", "sum"])),
+        ("two", lambda: [mesh_reduce.mesh_reduce(x, "sum") for x in pair]))}
+    log(f"time mesh_reduce host: the wrapper {host['mesh_reduce']:.2f} us a call, torch.sum "
+        f"{host['torch.sum']:.2f} us a call; a batch of two stacks {host['batch']:.2f} us, two "
+        f"single calls {host['two']:.2f} us (host clock over 2,000 calls, the device keeping up)")
+    fn = lambda: mesh_reduce.mesh_reduce_batch(pair, ["sum", "sum"])  # noqa: E731
+    for got, stack in zip(fn(), pair):
+        same_bits(got, mesh_reduce.mesh_reduce_plain(stack, "sum"), "time MK1 batch")
+    batch_ms = time_ms(fn, reps=7)
+    two_ms = time_ms(lambda: [mesh_reduce.mesh_reduce(x, "sum") for x in pair], reps=7)
+    log(f"time mesh_reduce batch (the sharded sum by's counts and sums, 2 x [{MESH_SHARDS}, "
+        f"{N}] f64): one launch {batch_ms:.3f} ms, two single launches {two_ms:.3f} ms")
+    _split_line("mesh_reduce batch", batch_ms, fn)
+    counts = mesh_reduce.mesh_reduce(count_part, "sum").reshape(-1, S)
     center = (mesh_reduce.mesh_reduce(part, "sum").reshape(-1, S)
               / torch.clamp(counts, min=1.0)).contiguous()
     seg_t = torch.from_numpy(seg).to(DEVICE)

@@ -36,9 +36,15 @@
 // Order.  A warp folds its chunk from 0.0 in ascending lane order.  A group
 // of one chunk writes its result directly: a group of at most CHUNK lanes is
 // folded strictly in lane order.  A group of several chunks writes per-chunk
-// partials (the sum, the count, and the min/max, product or last pair) to a
-// scratch, and fold_kernel, a second launch, folds each (group, step)'s
-// partials from 0.0 in ascending chunk order.  The order depends on the
+// partials (the sum, the count, and the min/max or last pair) to a scratch,
+// and fold_kernel, a second launch, folds each (group, step)'s partials from
+// 0.0 in ascending chunk order.  multiply is the exception: a product that
+// overflows and later meets a zero ends NaN, 0 or +-inf by its order, and
+// the reference (segment_prod on XLA:CPU) multiplies strictly in lane order
+// from 1.0.  So for a group of several chunks product_kernel, in place of
+// fold_kernel, takes the chunks' counts and multiplies the group's members
+// again in lane order, one warp per (group, tile of 32 steps) fed by the
+// block's other warps through shared memory.  The order depends on the
 // group's own size only, never on the other groups, the grid or the card.
 // stddev/stdvar: a one-chunk group's warp sweeps its lanes twice (the sum and
 // count, then (x - mean)^2); for a group of several chunks the first fold
@@ -86,8 +92,10 @@ struct Pair {
   double a, b;
 };
 
+// Whether a chunk's partials carry its pair (multiply's product is taken
+// anew by fold_kernel).
 __device__ __forceinline__ bool uses_pair(int agg) {
-  return agg == kMin || agg == kMax || agg == kRange || agg == kMultiply || agg == kLast;
+  return agg == kMin || agg == kMax || agg == kRange || agg == kLast;
 }
 
 __device__ __forceinline__ Pair pair_init(int agg) {
@@ -214,10 +222,84 @@ __global__ void __launch_bounds__(kWarps * 32) chunk_kernel(
   if (s < S) out[g * S + s] = finish(agg, a, var, x, s, empty_value);
 }
 
+// multiply for a group of several chunks: one block per (group, tile of 32
+// steps).  Warp 0 multiplies, lane w on step w, in lane order from 1.0 (a
+// NaN cell as 1.0, which leaves the product's bits as skipping it does);
+// the other warps stage the next kProdBatch rows in shared memory while it
+// multiplies the last ones, kProdRows rows a warp with their loads in
+// flight together, so the chain of multiplies, and not the loads, sets
+// the pace.
+constexpr int kProdWarps = 16;
+constexpr int kProdRows = 8;  // rows a staging warp loads at once
+constexpr int kProdBatch = (kProdWarps - 1) * kProdRows;
+
+// Rows [at, at + kProdBatch) of members (CSR positions, < hi) at step s into
+// buf[row][32] by the staging warp `warp` (1 .. kProdWarps - 1).
+__device__ __forceinline__ void stage_rows(const double* __restrict__ x, long long S,
+                                           const long long* __restrict__ members, long long at,
+                                           long long hi, long long s, int warp,
+                                           double* __restrict__ buf) {
+  const int lane = threadIdx.x & 31;
+  const long long base = at + (long long)(warp - 1) * kProdRows;
+  long long mine = 0;  // lane u < kProdRows holds row base + u's lane id
+  if (lane < kProdRows && base + lane < hi) mine = members == nullptr ? base + lane
+                                                                      : members[base + lane];
+  double v[kProdRows];
+#pragma unroll
+  for (int u = 0; u < kProdRows; ++u) {
+    const long long m = __shfl_sync(kFull, mine, u);
+    v[u] = base + u < hi && s < S ? x[m * S + s] : 1.0;
+  }
+#pragma unroll
+  for (int u = 0; u < kProdRows; ++u)
+    buf[((warp - 1) * kProdRows + u) * kTile + lane] = isnan(v[u]) ? 1.0 : v[u];
+}
+
+__global__ void __launch_bounds__(kProdWarps * 32) product_kernel(
+    const double* __restrict__ x, long long S, const long long* __restrict__ members,
+    const long long* __restrict__ chunks, long long n_table,
+    const long long* __restrict__ folds, long long n_folds, long long n_tiles,
+    long long n_partial, double empty_value, const double* __restrict__ partials,
+    double* __restrict__ out) {
+  extern __shared__ double prod_rows[];  // [2][kProdBatch][kTile]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long f = blockIdx.x / n_tiles, s = (blockIdx.x % n_tiles) * kTile + lane;
+  const long long g = folds[f], first = folds[n_folds + f], end = first + folds[2 * n_folds + f];
+  const long long lo = chunks[first], hi = chunks[n_table + end - 1];
+  const long long n_batches = (hi - lo + kProdBatch - 1) / kProdBatch;
+  if (warp > 0 && n_batches > 0) stage_rows(x, S, members, lo, hi, s, warp, prod_rows);
+  __syncthreads();
+  double prod = 1.0;
+  for (long long b = 0; b < n_batches; ++b) {
+    double* cur = prod_rows + (b & 1) * kProdBatch * kTile;
+    if (warp > 0) {
+      if (b + 1 < n_batches)
+        stage_rows(x, S, members, lo + (b + 1) * kProdBatch, hi, s, warp,
+                   prod_rows + ((b + 1) & 1) * kProdBatch * kTile);
+    } else {
+      const long long left = hi - (lo + b * kProdBatch);
+      const int n_rows = left < kProdBatch ? (int)left : kProdBatch;
+      for (int r0 = 0; r0 < n_rows; r0 += kRows) {
+        double v[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) v[u] = r0 + u < n_rows ? cur[(r0 + u) * kTile + lane] : 1.0;
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) prod *= v[u];
+      }
+    }
+    __syncthreads();
+  }
+  if (warp != 0 || s >= S) return;
+  double cnt = 0.0;  // the chunks' counts of present cells
+  for (long long c = first; c < end; ++c) cnt += partials[n_partial * S + c * S + s];
+  out[g * S + s] = cnt == 0.0 ? empty_value : prod;
+}
+
 // folds i64[3, n_folds]: rows group, first chunk, number of chunks.  One
 // thread per (group of several chunks, step) folds its partials from 0.0 in
-// ascending chunk order.  For stddev/stdvar the partial sums are the
-// (x - mean)^2 sums of the second chunk pass.
+// ascending chunk order (multiply takes product_kernel instead).  For
+// stddev/stdvar the partial sums are the (x - mean)^2 sums of the second
+// chunk pass.
 __global__ void __launch_bounds__(kFoldThreads) fold_kernel(
     const double* __restrict__ x, long long S, const long long* __restrict__ folds,
     long long n_folds, long long n_partial, int agg, double empty_value,
@@ -279,7 +361,8 @@ int m3_query_grouped(const double* x, long long S, const long long* members,
   const long long n_tiles = (S + kTile - 1) / kTile;
   const long long blocks = (n_chunks * n_tiles + kWarps - 1) / kWarps;
   const long long fold_blocks = (n_folds * S + kFoldThreads - 1) / kFoldThreads;
-  if (blocks > 0x7fffffffLL || fold_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || fold_blocks > 0x7fffffffLL || n_folds * n_tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   chunk_kernel<<<(unsigned)blocks, kWarps * 32, 0, st>>>(
       x, S, members, chunks, n_chunks, n_chunks, n_partial, n_tiles, agg, empty_value, center,
@@ -294,6 +377,16 @@ int m3_query_grouped(const double* x, long long S, const long long* members,
         x, S, members, chunks, n_chunks, n_partial, n_partial, n_tiles, kSqdev, 0.0, out,
         n_groups, partials, out);
     if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  }
+  if (agg == kMultiply) {
+    const size_t smem = (size_t)2 * kProdBatch * kTile * sizeof(double);
+    if ((rc = cudaFuncSetAttribute(product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem)) != cudaSuccess)
+      return (int)rc;
+    product_kernel<<<(unsigned)(n_folds * n_tiles), kProdWarps * 32, smem, st>>>(
+        x, S, members, chunks, n_chunks, folds, n_folds, n_tiles, n_partial, empty_value,
+        partials, out);
+    return (int)cudaGetLastError();
   }
   fold_kernel<<<(unsigned)fold_blocks, kFoldThreads, 0, st>>>(
       x, S, folds, n_folds, n_partial, agg, empty_value, partials, out);

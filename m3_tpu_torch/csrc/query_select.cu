@@ -81,6 +81,13 @@ __device__ __forceinline__ unsigned long long order_key(double v) {
   return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
 }
 
+constexpr unsigned long long kZeroKey = 0x8000000000000000ull;  // order_key(+-0.0)
+
+__device__ __forceinline__ double key_value(unsigned long long key) {  // order_key's inverse
+  const unsigned long long b = (key >> 63) ? (key & ~kZeroKey) : ~key;
+  return __longlong_as_double((long long)b);
+}
+
 __device__ __forceinline__ double sort_value(double v, int mode) {
   if (mode == kQuantile) return isnan(v) ? INFINITY : v;
   if (mode == kTopk) return -(isnan(v) ? -INFINITY : v);
@@ -387,89 +394,464 @@ __device__ __forceinline__ long long search_right(const long long* t, long long 
   return high;
 }
 
+// search_right of qa and qb at once: the two bisections' loads in flight
+// together.
+__device__ __forceinline__ void search_right2(const long long* t, long long n, int levels,
+                                              long long qa, long long qb, long long& ra,
+                                              long long& rb) {
+  long long la = 0, ha = n, lb = 0, hb = n;
+  for (int k = 0; k < levels; ++k) {
+    const long long ma = (long long)(((unsigned long long)la + (unsigned long long)ha) >> 1);
+    const long long mb = (long long)(((unsigned long long)lb + (unsigned long long)hb) >> 1);
+    const long long ta = t[ma], tb = t[mb];
+    if (qa < ta) ha = ma; else la = ma;
+    if (qb < tb) hb = mb; else lb = mb;
+  }
+  ra = ha;
+  rb = hb;
+}
+
 __device__ __forceinline__ long long wsub(long long a, long long b) {
   return (long long)((unsigned long long)a - (unsigned long long)b);
 }
 
-constexpr int kQWarps = 8;
+constexpr int kQWarps = 8;          // warps a block of the short-run kernel
+constexpr int kQRegion = 256;       // samples of a short run
+constexpr int kQLongWarps = 4;      // warps a block of the long-run kernel
+constexpr int kQLongRegion = 1024;  // samples of a long run
+constexpr int kQStage = 8;          // samples a lane loads ahead while staging
+
+// Shared memory of one warp's run of kRegion samples: its (order key,
+// offset) pairs (u64, i32), values (f64), ranks (u16), and each thread's
+// kRegion / 32 mask words (word j of lane l at j * 32 + l).
+template <int kRegion>
+__host__ __device__ constexpr size_t run_bytes() {
+  return (size_t)kRegion * 26;
+}
+
+// The position of the k-th (from 0) set bit of m, which has more than k.
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int p = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1) {
+    const int c = __popc(m & ((1u << half) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= half;
+      p += half;
+    }
+  }
+  return p;
+}
+
+// The k-th (from 0) set bit of a thread's mask (its words 32 apart).
+__device__ __forceinline__ int kth_rank(const unsigned* mask, int n_words, int k) {
+  for (int j = 0; j < n_words; ++j) {
+    const unsigned m = mask[j * 32];
+    const int c = __popc(m);
+    if (k < c) return j * 32 + nth_bit(m, k);
+    k -= c;
+  }
+  return 0;  // not reached: the mask holds more than k bits
+}
+
+__device__ __forceinline__ long long warp_min(long long x) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = y < x ? y : x;
+  }
+  return x;
+}
+
+__device__ __forceinline__ long long warp_max(long long x) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = y > x ? y : x;
+  }
+  return x;
+}
+
+__device__ __forceinline__ double interpolate(double v_lo, double v_hi, double frac) {
+  return v_lo + (v_hi - v_lo) * frac;
+}
+
+constexpr int kQNarrow = 32;  // samples of a window sorted in a thread's registers
+
+// Batcher's odd-even merge network over kQNarrow elements: its comparators
+// in order, comparator `index` as the pair (a, b), a < b, worked out at
+// compile time so that every index into the keys is a constant.
+struct Comparator {
+  int a, b;
+};
+
+__host__ __device__ constexpr Comparator batcher_comparator(int index) {
+  int c = 0;
+  for (int p = 1; p < kQNarrow; p <<= 1)
+    for (int d = p; d >= 1; d >>= 1)
+      for (int j = d % p; j + d < kQNarrow; j += 2 * d)
+        for (int i = 0; i < d && i + j + d < kQNarrow; ++i)
+          if ((i + j) / (2 * p) == (i + j + d) / (2 * p) && c++ == index) return {i + j, i + j + d};
+  return {0, 0};
+}
+
+__host__ __device__ constexpr int batcher_size() {
+  int c = 0;
+  for (int p = 1; p < kQNarrow; p <<= 1)
+    for (int d = p; d >= 1; d >>= 1)
+      for (int j = d % p; j + d < kQNarrow; j += 2 * d)
+        for (int i = 0; i < d && i + j + d < kQNarrow; ++i)
+          c += (i + j) / (2 * p) == (i + j + d) / (2 * p);
+  return c;
+}
+
+static_assert(batcher_size() == 191, "Batcher's network over 32 elements");
+
+// Comparators I.. of the network on k, ascending.
+template <int I>
+__device__ __forceinline__ void batcher_sort(unsigned long long (&k)[kQNarrow]) {
+  if constexpr (I < batcher_size()) {
+    constexpr Comparator c = batcher_comparator(I);
+    const unsigned long long a = k[c.a], b = k[c.b];
+    k[c.a] = a < b ? a : b;
+    k[c.b] = a < b ? b : a;
+    batcher_sort<I + 1>(k);
+  }
+}
+
+// The keys at places a and b (from 0) of the B largest (kTop) or smallest
+// present keys of k, by a buffer of B keys that each key passes through: B
+// compare-exchanges a key, against the network's 191 for the whole sort.
+// Absent and NaN keys (~0) take no place.
+template <int B, bool kTop>
+__device__ __forceinline__ void end_keys(const unsigned long long (&k)[kQNarrow], int a, int b,
+                                         unsigned long long& key_a, unsigned long long& key_b) {
+  unsigned long long buf[B];
+#pragma unroll
+  for (int j = 0; j < B; ++j) buf[j] = kTop ? 0ull : ~0ull;  // below / above every key
+#pragma unroll
+  for (int u = 0; u < kQNarrow; ++u) {
+    unsigned long long x = kTop && k[u] == ~0ull ? 0ull : k[u];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const bool keep = kTop ? buf[j] >= x : buf[j] <= x;
+      const unsigned long long y = keep ? buf[j] : x;
+      x = keep ? x : buf[j];
+      buf[j] = y;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    if (j == a) key_a = buf[j];
+    if (j == b) key_b = buf[j];
+  }
+}
+
+// The quantile of one window of w <= kQNarrow samples wv[0, w), by one
+// thread: the order keys in registers, the floor(h)-th and ceil(h)-th found
+// by a buffer of the window's few largest or smallest keys when they sit
+// within 4 of an end (phi >= 0.9 or <= 0.1 for 30 samples), else by
+// sorting them with Batcher's odd-even merge network (191 compare-exchanges
+// at constant indices, so the keys never leave the registers), and read
+// back as values.
+// Equal keys are equal values but for +-0.0, so the key order needs no
+// offsets (nor the network its inputs in offset order): a zero at rank k is
+// the (k - below)-th zero of the window in offset order (`below`: the keys
+// under the zero key), with its own sign.
+__device__ double narrow_quantile(const double* wv, int w, double phi) {
+  unsigned long long k[kQNarrow];
+  int n = 0, below = 0;
+  // the network takes its inputs in any order: lane l starts at offset l
+  // (mod w), so the lanes' reads fall in different banks
+  const int rot = w > 0 ? (threadIdx.x & 31) % w : 0;
+#pragma unroll
+  for (int u = 0; u < kQNarrow; ++u) {
+    unsigned long long key = ~0ull;
+    if (u < w) {
+      const double x = wv[u + rot < w ? u + rot : u + rot - w];
+      if (!isnan(x)) {
+        key = order_key(x);
+        ++n;
+        below += key < kZeroKey;
+      }
+    }
+    k[u] = key;
+  }
+  if (n == 0) return __longlong_as_double(0x7ff8000000000000LL);
+  const double h = phi * ((double)n - 1.0 > 0.0 ? (double)n - 1.0 : 0.0);
+  const double fl = floor(h);
+  const int i_lo = (int)fl, i_hi = (int)ceil(h);
+  unsigned long long k_lo = 0, k_hi = 0;
+  if (n - i_lo <= 2) {  // the ranks sit at an end: no sort, a buffer of that end
+    end_keys<2, true>(k, n - 1 - i_lo, n - 1 - i_hi, k_lo, k_hi);
+  } else if (i_hi < 2) {
+    end_keys<2, false>(k, i_lo, i_hi, k_lo, k_hi);
+  } else if (n - i_lo <= 4) {
+    end_keys<4, true>(k, n - 1 - i_lo, n - 1 - i_hi, k_lo, k_hi);
+  } else if (i_hi < 4) {
+    end_keys<4, false>(k, i_lo, i_hi, k_lo, k_hi);
+  } else {
+    batcher_sort<0>(k);
+#pragma unroll
+    for (int u = 0; u < kQNarrow; ++u) {
+      if (u == i_lo) k_lo = k[u];
+      if (u == i_hi) k_hi = k[u];
+    }
+  }
+  double v_lo = key_value(k_lo), v_hi = key_value(k_hi);
+  if (k_lo == kZeroKey || k_hi == kZeroKey) {  // the zeros' signs, in offset order
+    int z = 0;
+    for (int u = 0; u < w; ++u) {
+      if (wv[u] == 0.0) {
+        if (z == i_lo - below) v_lo = wv[u];
+        if (z == i_hi - below) v_hi = wv[u];
+        ++z;
+      }
+    }
+  }
+  return interpolate(v_lo, v_hi, h - fl);
+}
+
+// A tile's run: the samples [lo, lo + n_run) of a lane, n_run <= kRegion,
+// that hold the windows of its 32 steps ([left, right) of the run for this
+// lane's step).  The warp stages the run's values in `w` (kQStage loads a
+// lane in flight).  If every window holds at most kQNarrow samples, each
+// live lane sorts its own in registers (narrow_quantile); else the warp
+// sorts the run's (order key, offset) pairs once (a bitonic network), and
+// each live lane marks the ranks of its window's present samples in a mask
+// and reads the floor(h)-th and ceil(h)-th set bits.  Returns the lane's quantile (NaN
+// for a window with no present sample).
+template <int kRegion>
+__device__ double run_quantile(const double* __restrict__ v, long long lo, int n_run, int left,
+                               int right, bool live, double phi, char* w) {
+  const unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  unsigned long long* keys = (unsigned long long*)w;
+  int* pos = (int*)(w + 8 * kRegion);
+  double* vals = (double*)(w + 12 * kRegion);
+  unsigned short* rank = (unsigned short*)(w + 20 * kRegion);
+  for (int b0 = 0; b0 < n_run; b0 += 32 * kQStage) {
+    double vv[kQStage];
+#pragma unroll
+    for (int u = 0; u < kQStage; ++u) {
+      const int i = b0 + u * 32 + lane;
+      if (i < n_run) vv[u] = v[lo + i];
+    }
+#pragma unroll
+    for (int u = 0; u < kQStage; ++u) {
+      const int i = b0 + u * 32 + lane;
+      if (i < n_run) vals[i] = vv[u];
+    }
+  }
+  __syncwarp();
+  if (__all_sync(kFull, !live || right - left <= kQNarrow)) {  // each window in registers
+    const double q = live ? narrow_quantile(vals + left, right - left, phi)
+                          : __longlong_as_double(0x7ff8000000000000LL);
+    __syncwarp();  // the warp's shared memory is rewritten by its next tile
+    return q;
+  }
+  int P = 32;
+  while (P < n_run) P <<= 1;
+  int n_real = 0;  // the run's present samples: ranks 0..n_real-1
+  for (int i = lane; i < P; i += 32) {
+    unsigned long long key = ~0ull;
+    if (i < n_run && !isnan(vals[i])) key = order_key(vals[i]);
+    keys[i] = key;
+    pos[i] = i;
+    n_real += __popc(__ballot_sync(kFull, key != ~0ull));
+  }
+  __syncwarp();
+  warp_bitonic_sort(keys, pos, P);
+  for (int r = lane; r < n_run; r += 32) rank[pos[r]] = (unsigned short)r;
+  __syncwarp();
+  double q = __longlong_as_double(0x7ff8000000000000LL);
+  if (live) {
+    const int n_words = P >> 5;
+    unsigned* mask = (unsigned*)(w + 22 * kRegion) + lane;  // word j of this lane at j * 32
+    for (int j = 0; j < n_words; ++j) mask[j * 32] = 0u;
+    int n = 0;
+    for (int i = left; i < right; ++i) {
+      const int r = rank[i];
+      if (r < n_real) {
+        mask[(r >> 5) * 32] |= 1u << (r & 31);
+        ++n;
+      }
+    }
+    const double h = phi * ((double)n - 1.0 > 0.0 ? (double)n - 1.0 : 0.0);
+    const int r_lo = kth_rank(mask, n_words, (int)floor(h));
+    const int r_hi = kth_rank(mask, n_words, (int)ceil(h));
+    if (n > 0) q = interpolate(vals[pos[r_lo]], vals[pos[r_hi]], h - floor(h));
+  }
+  __syncwarp();  // the warp's shared memory is rewritten by its next tile
+  return q;
+}
+
+// The quantile of one window, samples v[left, left + w), by the whole warp
+// (past a long run): (order key, offset) pairs sorted by a bitonic network
+// in the warp's shared memory (kQLongRegion pairs) or, past them, in its
+// slice of the global scratch; lane 0 returns the interpolation, the
+// others NaN.
+__device__ double window_sort_quantile(const double* __restrict__ v, long long left,
+                                       long long w, double phi, unsigned long long* smem_keys,
+                                       int* smem_pos, unsigned long long* scratch_keys,
+                                       int* scratch_pos) {
+  const int lane = threadIdx.x & 31;
+  int P = 1;
+  while (P < w) P <<= 1;
+  unsigned long long* keys = P <= kQLongRegion ? smem_keys : scratch_keys;
+  int* pos = P <= kQLongRegion ? smem_pos : scratch_pos;
+  int n = 0;
+  for (int i = lane; i < P; i += 32) {
+    unsigned long long key = ~0ull;
+    if (i < w) {
+      const double x = v[left + i];
+      if (!isnan(x)) {
+        key = order_key(x);
+        ++n;
+      }
+    }
+    keys[i] = key;
+    pos[i] = i;
+  }
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+  __syncwarp();
+  warp_bitonic_sort(keys, pos, P);
+  double q = __longlong_as_double(0x7ff8000000000000LL);
+  if (lane == 0 && n > 0) {
+    const double h = phi * ((double)n - 1.0 > 0.0 ? (double)n - 1.0 : 0.0);
+    const double lo = floor(h);
+    q = interpolate(v[left + pos[(long long)lo]], v[left + pos[(long long)ceil(h)]], h - lo);
+  }
+  __syncwarp();  // the pairs are rewritten by the next window
+  return q;
+}
+
+// A (lane, tile of 32 steps) unit: its lane's samples, this thread's step
+// and its window [left, right) (the reference's bisections over the lane,
+// so lanes need not be sorted), and the run [lo, hi) holding the tile's
+// windows.
+struct QUnit {
+  const double* v;
+  long long row, s0, s, left, right, lo, hi;
+  bool live;
+};
+
+__device__ __forceinline__ QUnit quantile_unit(const long long* __restrict__ times,
+                                               const double* __restrict__ values,
+                                               const long long* __restrict__ steps,
+                                               long long N, int S, int levels,
+                                               long long range_nanos, long long unit) {
+  const int lane = threadIdx.x & 31;
+  const long long n_tiles = (S + 31) / 32;
+  QUnit u;
+  u.row = unit / n_tiles;
+  u.s0 = (unit % n_tiles) * 32;
+  u.s = u.s0 + lane;
+  u.live = u.s < S;
+  const long long* t = times + u.row * N;
+  u.v = values + u.row * N;
+  u.left = u.right = 0;
+  if (u.live) {
+    const long long step = steps[u.s];
+    search_right2(t, N, levels, wsub(wsub(step, range_nanos), 1), step, u.left, u.right);
+    if (u.right < u.left) u.right = u.left;  // an unsorted lane's empty window
+  }
+  u.lo = warp_min(u.live ? u.left : N);
+  u.hi = warp_max(u.live ? u.right : 0);
+  return u;
+}
 
 // QK11.  Replaces m3_tpu/models/query_pipeline.py:648
 // _quantile_window_device: quantile_over_time, the phi-quantile of each
 // (lane, step) window's present samples, interpolated at h = phi * max(n -
-// 1, 0) as v_lo + (v_hi - v_lo) * frac; no present sample: NaN.  The
-// reference gathers every window into an [L, S, N] grid and sorts it (the
-// engine gates the function on that grid's size).  Here a block takes
-// lanes in turn and each of its warps one step of the lane at a time: the
-// two bisections, then the window's samples as (order key, offset) pairs
-// (absent samples keyed past every value), a bitonic sort by the warp
-// (offsets break ties, so the order is lax.sort's stable one), and the
-// interpolation between the floor(h)-th and ceil(h)-th samples.  A window
-// whose padded size is at most p_smem pairs sorts in the warp's slice of
-// shared memory, a longer one in the warp's slice of a global scratch of
-// p_scratch pairs (the padded lane length), so windows have no length
-// limit and the grid never exists.
+// 1, 0) as v_lo + (v_hi - v_lo) * frac between the floor(h)-th and
+// ceil(h)-th samples in the order of (order key, offset): -0.0 equals +0.0,
+// ties go by offset (lax.sort's stable order), NaN and absent samples come
+// last, and the value read keeps its own sign of zero; no present sample:
+// NaN.  The reference gathers every window into an [L, S, N] grid and sorts
+// it (the engine gates the function on that grid's size).
 //
-// What bounds it on an H100: bytes at short windows (each lane read once,
-// one f64 written per (lane, step)); the sorts' P log2(P)^2 / 4
-// compare-exchanges per window at long ones.
-__global__ void __launch_bounds__(kQWarps * 32) quantile_window_kernel(
+// Here one warp takes a (lane, tile of 32 steps), thread w step s0 + w: it
+// finds its window by the reference's two bisections over the lane (so an
+// unsorted lane gets the reference's windows), and the tile's windows lie
+// in one run of the lane's samples, [lo, hi), which the warp stages in
+// shared memory once (run_quantile).  A window of at most kQNarrow samples
+// (config 4's 5m windows: 30) is done in its thread's registers: a buffer
+// of its 2 or 4 largest or smallest keys when the ranks sit that near an
+// end, else a fixed sorting network.  A tile with a longer window sorts its
+// run's (order key, offset) pairs once instead, which gives every sample
+// its rank in the run: ranks are a total order that agrees with each
+// window's own, so a thread marks the ranks of its window's present samples
+// in a bit mask and reads the floor(h)-th and ceil(h)-th set bits, with no
+// sort per window.
+// quantile_window_kernel takes the runs of at most kQRegion samples and
+// lists the other units; quantile_long_kernel, the second launch, takes
+// the listed units with fewer warps and larger buffers: runs of at most
+// kQLongRegion samples (1h windows of ~360 samples) alike, and longer ones
+// (sparse steps, windows of hours) a window at a time, each sorted by the
+// warp in shared memory or, past kQLongRegion pairs, in its slice of a
+// global scratch of p_scratch pairs (the padded lane length), so windows
+// have no length limit.
+//
+// What bounds it on an H100: bytes at short windows (each lane read about
+// once, one f64 written per (lane, step)) against the end buffers' 2-4 or
+// the network's 191 compare-exchanges a window; the sorts' compares per
+// run, or per window past a long run.
+//
+// Three blocks an SM: the launch bounds cap a thread at 85 registers, so the
+// narrow windows' keys spill a little, which runs faster than two blocks an
+// SM without spills.
+__global__ void __launch_bounds__(kQWarps * 32, 3) quantile_window_kernel(
     const long long* __restrict__ times, const double* __restrict__ values,
     const long long* __restrict__ steps, long long L, long long N, int S, int levels,
-    long long range_nanos, double phi, int p_smem, long long p_scratch,
-    unsigned long long* __restrict__ scratch_keys, int* __restrict__ scratch_pos,
-    double* __restrict__ out) {
+    long long range_nanos, double phi, long long* __restrict__ listed,
+    unsigned long long* __restrict__ n_listed, double* __restrict__ out) {
   extern __shared__ unsigned long long qsmem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long gw = (long long)blockIdx.x * kQWarps + warp;
-  const double nan = __longlong_as_double(0x7ff8000000000000LL);
-  for (long long row = blockIdx.x; row < L; row += gridDim.x) {
-    const long long* t = times + row * N;
-    const double* v = values + row * N;
-    for (int s = warp; s < S; s += kQWarps) {
-      const long long step = steps[s];
-      const long long left = search_right(t, N, levels, wsub(wsub(step, range_nanos), 1));
-      const long long right = search_right(t, N, levels, step);
-      const long long w = right - left;
-      int P = 1;
-      while (P < w) P <<= 1;
-      unsigned long long* keys;
-      int* pos;
-      if (P <= p_smem) {
-        keys = qsmem + warp * p_smem;
-        pos = (int*)(qsmem + kQWarps * p_smem) + warp * p_smem;
-      } else {
-        keys = scratch_keys + gw * p_scratch;
-        pos = scratch_pos + gw * p_scratch;
-      }
-      int n = 0;
-      for (int i = lane; i < P; i += 32) {
-        unsigned long long key = ~0ull;
-        if (i < w) {
-          const double x = v[left + i];
-          if (!isnan(x)) {
-            key = order_key(x);
-            ++n;
-          }
-        }
-        keys[i] = key;
-        pos[i] = i;
-      }
-      for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
-      __syncwarp();
-      warp_bitonic_sort(keys, pos, P);
-      if (lane == 0) {
-        double q = nan;
-        if (n > 0) {
-          const double h = phi * ((double)n - 1.0 > 0.0 ? (double)n - 1.0 : 0.0);
-          const double lo = floor(h);
-          const double frac = h - lo;
-          const double v_lo = v[left + pos[(long long)lo]];
-          const double v_hi = v[left + pos[(long long)ceil(h)]];
-          q = v_lo + (v_hi - v_lo) * frac;
-        }
-        out[row * S + s] = q;
-      }
-      __syncwarp();  // the pairs are rewritten by the next step
+  char* w = (char*)qsmem + warp * run_bytes<kQRegion>();
+  const long long n_units = L * ((S + 31) / 32);
+  for (long long unit = (long long)blockIdx.x * kQWarps + warp; unit < n_units;
+       unit += (long long)gridDim.x * kQWarps) {
+    const QUnit u = quantile_unit(times, values, steps, N, S, levels, range_nanos, unit);
+    const long long n_run = u.hi - u.lo;
+    if (n_run <= kQRegion) {
+      const double q = run_quantile<kQRegion>(u.v, u.lo, (int)n_run, (int)(u.left - u.lo),
+                                              (int)(u.right - u.lo), u.live, phi, w);
+      if (u.live) out[u.row * S + u.s] = q;
+    } else if (lane == 0) {
+      listed[atomicAdd(n_listed, 1ull)] = unit;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kQLongWarps * 32) quantile_long_kernel(
+    const long long* __restrict__ times, const double* __restrict__ values,
+    const long long* __restrict__ steps, long long N, int S, int levels, long long range_nanos,
+    double phi, const long long* __restrict__ listed,
+    const unsigned long long* __restrict__ n_listed, long long p_scratch,
+    unsigned long long* __restrict__ scratch_keys, int* __restrict__ scratch_pos,
+    double* __restrict__ out) {
+  extern __shared__ unsigned long long lsmem[];
+  const unsigned kFull = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  char* w = (char*)lsmem + warp * run_bytes<kQLongRegion>();
+  const long long gw = (long long)blockIdx.x * kQLongWarps + warp;
+  unsigned long long* wkeys = scratch_keys + (p_scratch ? gw * p_scratch : 0);
+  int* wpos = scratch_pos + (p_scratch ? gw * p_scratch : 0);
+  const long long n = (long long)*n_listed;
+  for (long long i = gw; i < n; i += (long long)gridDim.x * kQLongWarps) {
+    const QUnit u = quantile_unit(times, values, steps, N, S, levels, range_nanos, listed[i]);
+    const long long n_run = u.hi - u.lo;
+    if (n_run <= kQLongRegion) {
+      const double q = run_quantile<kQLongRegion>(u.v, u.lo, (int)n_run, (int)(u.left - u.lo),
+                                                  (int)(u.right - u.lo), u.live, phi, w);
+      if (u.live) out[u.row * S + u.s] = q;
+      continue;
+    }
+    for (int k = 0; k < 32 && u.s0 + k < S; ++k) {
+      const long long lk = __shfl_sync(kFull, u.left, k), rk = __shfl_sync(kFull, u.right, k);
+      const double q = window_sort_quantile(u.v, lk, rk - lk, phi, (unsigned long long*)w,
+                                            (int*)(w + 8 * kQLongRegion), wkeys, wpos);
+      if (lane == 0) out[u.row * S + u.s0 + k] = q;
     }
   }
 }
@@ -559,7 +941,6 @@ constexpr int kDigitBits = 8;
 constexpr int kBuckets = 1 << kDigitBits;
 constexpr int kColPasses = 64 / kDigitBits;
 constexpr int kColCap = 2048;      // candidates gathered into a list rather than counted
-constexpr unsigned long long kZeroKey = 0x8000000000000000ull;  // order_key(+-0.0)
 static_assert(kColWarps * 32 == kBuckets, "a thread per bucket");
 
 // radix, compact and split read x in the next pass; listed and done do not
@@ -592,11 +973,6 @@ struct ColScratch {
 __device__ __forceinline__ bool prefix_match(unsigned long long key, unsigned long long prefix,
                                              int bits) {
   return bits == 0 || ((key ^ prefix) >> (64 - bits)) == 0;
-}
-
-__device__ __forceinline__ double key_value(unsigned long long key) {  // order_key's inverse
-  const unsigned long long b = (key >> 63) ? (key & ~kZeroKey) : ~key;
-  return __longlong_as_double((long long)b);
 }
 
 // Updates step s after a pass; one whole warp calls it.
@@ -1038,27 +1414,50 @@ int m3_query_topk(const double* x, long long S, const long long* members,
 }
 
 // QK11: times i64[L, N], values f64[L, N], steps i64[S] -> out f64[L, S],
-// quantile_over_time at phi (0 <= phi <= 1), on a grid of `grid` blocks of
-// kQWarps warps.  p_smem: the padded window (pairs) a warp sorts in shared
-// memory; p_scratch: 0, or the padded lane length with scratch keys
-// u64[grid * kQWarps * p_scratch] and positions i32 alike.  Launches on
+// quantile_over_time at phi (0 <= phi <= 1).
+// listed i64[L * ceil(S / 32)] and n_listed u64[1]: the long runs' units
+// (scratch); grid: at most this many blocks of the short-run kernel (capped
+// at the blocks the card holds at once), long_grid blocks of the long-run
+// one.  p_scratch: 0, or the padded lane length with scratch keys
+// u64[long_grid * kQLongWarps * p_scratch] and positions i32 alike (windows
+// of more than kQLongRegion samples sort there).  Launches both kernels on
 // `stream` and returns cudaGetLastError().
 int m3_quantile_window(const long long* times, const double* values, const long long* steps,
                        long long L, long long N, int S, int levels, long long range_nanos,
-                       double phi, int p_smem, long long p_scratch,
-                       unsigned long long* scratch_keys, int* scratch_pos, double* out, int grid,
-                       void* stream) {
-  if (!(phi >= 0.0 && phi <= 1.0) || N < 1 || p_smem < 1 || grid < 1 ||
-      (p_scratch > 0 && (scratch_keys == nullptr || scratch_pos == nullptr)))
+                       double phi, long long* listed, unsigned long long* n_listed,
+                       long long p_scratch, unsigned long long* scratch_keys, int* scratch_pos,
+                       double* out, int grid, int long_grid, void* stream) {
+  if (!(phi >= 0.0 && phi <= 1.0) || N < 1 || grid < 1 || long_grid < 1 ||
+      listed == nullptr || n_listed == nullptr ||
+      (p_scratch > 0 && (scratch_keys == nullptr || scratch_pos == nullptr)) ||
+      (N > kQLongRegion && p_scratch < N))
     return (int)cudaErrorInvalidValue;
   if (L <= 0 || S <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)kQWarps * p_smem * (sizeof(unsigned long long) + sizeof(int));
+  const size_t smem = kQWarps * run_bytes<kQRegion>();
+  const size_t long_smem = kQLongWarps * run_bytes<kQLongRegion>();
   cudaError_t rc = cudaFuncSetAttribute(quantile_window_kernel,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
-  quantile_window_kernel<<<grid, kQWarps * 32, smem, (cudaStream_t)stream>>>(
-      times, values, steps, L, N, S, levels, range_nanos, phi, p_smem, p_scratch, scratch_keys,
-      scratch_pos, out);
+  rc = cudaFuncSetAttribute(quantile_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)long_smem);
+  if (rc != cudaSuccess) return (int)rc;
+  int dev = 0, sms = 1, per_sm = 1;
+  if ((rc = cudaGetDevice(&dev)) != cudaSuccess ||
+      (rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quantile_window_kernel,
+                                                          kQWarps * 32, smem)) != cudaSuccess)
+    return (int)rc;
+  if (per_sm >= 1 && grid > per_sm * sms) grid = per_sm * sms;  // one wave, striding over units
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((rc = cudaMemsetAsync(n_listed, 0, sizeof(unsigned long long), st)) != cudaSuccess)
+    return (int)rc;
+  quantile_window_kernel<<<grid, kQWarps * 32, smem, st>>>(times, values, steps, L, N, S, levels,
+                                                           range_nanos, phi, listed, n_listed,
+                                                           out);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  quantile_long_kernel<<<long_grid, kQLongWarps * 32, long_smem, st>>>(
+      times, values, steps, N, S, levels, range_nanos, phi, listed, n_listed, p_scratch,
+      scratch_keys, scratch_pos, out);
   return (int)cudaGetLastError();
 }
 

@@ -1070,6 +1070,47 @@ def temporal_probe_lanes(n_cap: int = 192, seed: int = 37):
     return times, values, steps
 
 
+# Windows of quantile_width_lanes: samples every 10s and steps on sample
+# times, so a range of w * 10s - 1ns holds w samples (a window takes both of
+# its ends).
+QUANTILE_WIDTHS = (1, 31, 32, 33, 64, 300)
+
+
+def quantile_width_range(width: int) -> int:
+    """The range whose windows hold ``width`` samples of
+    ``quantile_width_lanes``."""
+    return width * 10 * SEC - 1
+
+
+def quantile_width_lanes(seed: int = 47):
+    """Lanes for quantile_over_time at the window widths ``QUANTILE_WIDTHS``:
+    ``(times i64[6, 420], values, steps i64[S])`` at 10s.  Lanes: +-0.0 and
+    +-1 in runs (ties at the selected ranks), an all-NaN lane, a walk with
+    NaN holes and +-Inf, integers -2..2 with +-0.0, values a few ulps
+    apart, and a short lane (INT64_MAX / NaN tail); steps every 60s from
+    before the first sample to past the last window of the widest range,
+    so windows are empty at both ends."""
+    rng = np.random.default_rng(seed)
+    n = 420
+    t = np.full((6, n), INT64_MAX, dtype=np.int64)
+    v = np.full((6, n), np.nan)
+    grid = START + (np.arange(n, dtype=np.int64) + 1) * 10 * SEC
+    zeros = np.repeat(rng.choice([-1.0, -0.0, 0.0, 1.0], n), rng.integers(1, 6, n))[:n]
+    walk = np.round(np.cumsum(rng.standard_normal(n)) * 3, 2)
+    pick = rng.random(n)
+    walk[pick < 0.3] = np.nan
+    walk[(pick >= 0.3) & (pick < 0.33)] = np.inf
+    walk[(pick >= 0.33) & (pick < 0.36)] = -np.inf
+    ints = rng.integers(-2, 3, n).astype(np.float64)
+    ints[ints == 0] = np.where(rng.random(int((ints == 0).sum())) < 0.5, -0.0, 0.0)
+    ulps = 1.0 + rng.integers(0, 4, n) * 2.0**-52
+    for lane, row in enumerate((zeros, np.full(n, np.nan), walk, ints, ulps)):
+        t[lane], v[lane] = grid, row
+    t[5, :n // 2], v[5, :n // 2] = grid[:n // 2], walk[:n // 2]
+    steps = START + np.arange(-2, n // 6 + 55, dtype=np.int64) * 60 * SEC
+    return t, v, steps
+
+
 def select_probes(n_steps: int = 64, seed: int = 23):
     """A served [64, S] matrix for the grouped quantile and topk/bottomk:
     ``(values f64[64, S], groups i64[64], n_groups)``.  Rows 0-47 are real

@@ -71,7 +71,7 @@ from m3_tpu_torch.ops import graphite, histo_quantile, ieee, lane_topk, query_gr
 from m3_tpu_torch.ops import query_merge
 from m3_tpu_torch.ops import query_temporal
 from m3_tpu_torch.ops.m3tsz_decode import decode_batched
-from m3_tpu_torch.parallel.mesh import (SERIES_AXIS, WINDOW_AXIS, Mesh, pmax, pmin, psum,
+from m3_tpu_torch.parallel.mesh import (SERIES_AXIS, WINDOW_AXIS, Mesh, psum, reduce_many,
                                         shard_reduce, shard_segments)
 from m3_tpu_torch.utils import xtime
 from m3_tpu_torch.utils.device import resolve_device
@@ -620,10 +620,11 @@ def _grouped_reduce_sharded(mesh: Mesh, out, groups_l, n_groups: int, agg: str, 
     replicated.  Each shard's lanes reduce into segments ``shard * n_groups
     + group`` in one QK4 launch a statistic; the shards combine in MK1.
     Every agg takes the counts; sum/avg add the sums, min/max their own
-    order statistic, stddev/stdvar the sums and a second pass (the global
-    mean, then each shard's sum of squared deviations from it, QK4's
-    ``sqdev``).  quantile gathers the lanes and runs QK6 on them.  NaN
-    where a group-step has no present cell."""
+    order statistic, reduced with the counts in one gather and one MK1
+    launch; stddev/stdvar the sums and a second pass (the global mean, then
+    each shard's sum of squared deviations from it, QK4's ``sqdev``).
+    quantile gathers the lanes and runs QK6 on them.  NaN where a
+    group-step has no present cell."""
     _check_agg(agg)
     if agg == "quantile":
         return query_grouped.grouped_quantile(mesh.gather_rows(out), _gather_ids(mesh, groups_l),
@@ -638,27 +639,29 @@ def _grouped_reduce_sharded(mesh: Mesh, out, groups_l, n_groups: int, agg: str, 
         part = query_grouped.grouped_reduce(out, seg, n_seg, op, index, empty, center)
         return part.reshape(spr, n_groups * S)
 
-    def whole(collective, part) -> torch.Tensor:
-        return collective(mesh, part, SERIES_AXIS)[0].reshape(n_groups, S)
+    def whole(parts, ops) -> list[torch.Tensor]:  # one gather, one MK1 launch
+        return [r[0].reshape(n_groups, S) for r in reduce_many(mesh, parts, ops, SERIES_AXIS)]
 
-    counts = whole(psum, per_shard("count", 0.0))
-    if agg in ("sum", "avg", "stddev", "stdvar"):
-        sums = whole(psum, per_shard("sum", 0.0))
-        denom = torch.clamp(counts, min=1.0)
-    if agg == "sum":
-        g = sums
+    # the statistic reduced beside the counts, and its value over no cell
+    stat, empty = {"sum": ("sum", 0.0), "avg": ("sum", 0.0), "stddev": ("sum", 0.0),
+                   "stdvar": ("sum", 0.0), "min": ("min", torch.inf),
+                   "max": ("max", -torch.inf)}.get(agg, (None, None))
+    if stat is None:
+        (counts,) = whole([per_shard("count", 0.0)], ["sum"])
+    else:
+        counts, red = whole([per_shard("count", 0.0), per_shard(stat, empty)], ["sum", stat])
+    denom = torch.clamp(counts, min=1.0)
+    if agg in ("sum", "min", "max"):
+        g = red
     elif agg == "count":
         g = counts
     elif agg == "avg":
-        g = sums / denom
-    elif agg == "min":
-        g = whole(pmin, per_shard("min", torch.inf))
-    elif agg == "max":
-        g = whole(pmax, per_shard("max", -torch.inf))
+        g = red / denom
     elif agg == "group":
         g = torch.ones_like(counts)
-    else:  # stddev, stdvar
-        var = whole(psum, per_shard("sqdev", 0.0, center=sums / denom)) / denom
+    else:  # stddev, stdvar: the sqdev stack needs the sums first
+        (sq,) = whole([per_shard("sqdev", 0.0, center=red / denom)], ["sum"])
+        var = sq / denom
         g = ieee.sqrt(var) if agg == "stddev" else var
     return torch.where(counts == 0, torch.nan, g)
 

@@ -35,6 +35,7 @@ LAUNCHES: dict[str, int] = {}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, int], tuple[ctypes.CDLL, dict]] = {}
 BUILD_LOGS: dict[str, str] = {}
 
 
@@ -97,7 +98,11 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed, with
     the ``argtypes`` of the entries in ``signatures`` set and an ``int``
-    return type."""
+    return type.  Each signatures table is bound once, on its first
+    request; later calls with the same table only look it up."""
+    hit = _bound.get((name, id(signatures)))
+    if hit is not None:
+        return hit[0]
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -105,10 +110,15 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             lib.m3_error_string.argtypes = [ctypes.c_int]
             lib.m3_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
-        # several modules may bind entries of one source
+        # several modules may bind entries of one source, never differently
         for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            entry = getattr(lib, fn)
+            if entry.argtypes is not None and list(entry.argtypes) != list(argtypes):
+                raise ValueError(f"{name}.{fn} bound with two signatures")
+            entry.argtypes = argtypes
+            entry.restype = ctypes.c_int
+        # the table is kept, so its id names it for as long as the entry lives
+        _bound[(name, id(signatures))] = (lib, signatures)
         return lib
 
 

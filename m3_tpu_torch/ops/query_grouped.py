@@ -101,22 +101,38 @@ def _segment_extreme(x: torch.Tensor, seg: torch.Tensor, n: int, is_max: bool) -
     return torch.where(r == 0, signed, r)
 
 
-def _segment_fold(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """Each segment's rows summed from 0.0 in ascending row order (the
-    kernel's order for a segment of at most 32 rows): one ``index_add_`` per
-    rank within the segment, so that no add has two rows of one segment and
-    the order is the same on every device."""
-    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    if not seg.numel():
-        return out
+def _rank_runs(seg: torch.Tensor, n: int):
+    """The rows of each rank within their segment (rank r: the segment's
+    r-th row in ascending row order), as (rows ordered by (rank, row), the
+    host list of each rank's start in it, and the end)."""
     order = torch.argsort(seg, stable=True)
     counts = torch.bincount(seg, minlength=n)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(seg)
     rank[order] = torch.arange(seg.numel(), device=seg.device) - starts[seg[order]]
-    for r in range(int(counts.max())):
-        sel = rank == r
-        out.index_add_(0, seg[sel], x[sel])
+    by_rank = torch.argsort(rank, stable=True)
+    bounds = torch.cumsum(torch.bincount(rank), 0).tolist()
+    return by_rank, [0] + bounds[:-1], bounds
+
+
+def _segment_fold(x: torch.Tensor, seg: torch.Tensor, n: int, multiply: bool = False):
+    """Each segment's rows summed from 0.0 (``multiply``: multiplied from
+    1.0) in ascending row order (the kernel's order for a segment of at most
+    ``CHUNK`` rows, and QK4's product for any segment): one step per rank
+    within the segment, so that no step has two rows of one segment and the
+    order is the same on every device."""
+    out = (torch.ones if multiply else torch.zeros)((n,) + x.shape[1:], dtype=x.dtype,
+                                                     device=x.device)
+    if not seg.numel():
+        return out
+    rows, starts, ends = _rank_runs(seg, n)
+    for a, b in zip(starts, ends):
+        sel = rows[a:b]
+        at = seg[sel]
+        if multiply:
+            out.index_copy_(0, at, out[at] * x[sel])
+        else:
+            out.index_add_(0, at, x[sel])
     return out
 
 
@@ -144,9 +160,8 @@ def grouped_reduce_plain(out: torch.Tensor, groups: torch.Tensor, n_groups: int,
     elif agg == "range":
         g = (_segment_extreme(torch.where(m, rows, -torch.inf), seg, n_groups, True)
              - _segment_extreme(torch.where(m, rows, torch.inf), seg, n_groups, False))
-    elif agg == "multiply":
-        idx = seg[:, None].expand_as(rows)
-        g = torch.ones_like(sums).scatter_reduce(0, idx, torch.where(m, rows, 1.0), "prod")
+    elif agg == "multiply":  # NaN cells as 1.0, in lane order from 1.0
+        g = _segment_fold(torch.where(m, rows, 1.0), seg, n_groups, multiply=True)
     elif agg == "diff":  # lane 0 is the minuend
         g = 2.0 * torch.where(torch.isnan(out[0]), 0.0, out[0].to(F64)) - sums
     elif agg == "last":  # the cell of the group's highest lane present at the step

@@ -18,7 +18,9 @@ Port of ``m3_tpu/models/query_pipeline.py``: ``_window_bounds_device``,
   turn; a lane's prefix sums in the block's slice of a global scratch
   buffer, so lanes have no length limit; one thread per step; QK5, QK9 and
   QK10 walk each window directly), and ``quantile_window`` launches QK11 in
-  ``csrc/query_select.cu`` (a warp per (lane, step) sorts the window), or
+  ``csrc/query_select.cu`` (a warp per (lane, 32-step tile) stages the run
+  of samples its windows cover; a window of at most 32 samples is sorted
+  in its thread's registers, longer ones through one sort of the run), or
   raise.
 - On a CPU tensor they run the plain versions below, which follow the
   reference line for line: the same bisection (a fixed number of levels,
@@ -416,8 +418,8 @@ _SIGNATURES = {
     "m3_query_holt_winters": _LANES + [_build.D, _build.D, _build.P, _build.I, _build.P],
 }
 _QUANTILE_SIGNATURES = {
-    "m3_quantile_window": _LANES + [_build.D, _build.I, _build.LL, _build.P, _build.P,
-                                    _build.P, _build.I, _build.P],
+    "m3_quantile_window": _LANES + [_build.D, _build.P, _build.P, _build.LL, _build.P,
+                                    _build.P, _build.P, _build.I, _build.I, _build.P],
 }
 # 128-thread blocks per SM; each block's prefix scratch is [N + 1] (four f64
 # rows for deriv/predict_linear: 73 MB at the serving shapes, past L2, which
@@ -580,11 +582,16 @@ def holt_winters_window(times, values, steps, range_nanos: int, sf: float,
                           range_nanos, float(sf), float(tf))
 
 
-QUANTILE_WARPS = 8  # warps per block of QK11, each sorting one window at a time
-# blocks per SM of QK11: each warp's global scratch is the padded lane
-# length (207 MB at the serving shapes with 4)
-QUANTILE_BLOCKS_PER_SM = 4
-QUANTILE_SMEM_P = 256  # padded window (pairs) a warp sorts in shared memory
+# QK11's two launches (csrc/query_select.cu): the short-run kernel, 8 warps a
+# block (as many blocks as the card holds at once), each unit a (lane,
+# 32-step tile) whose windows lie in a run of at most QUANTILE_REGION
+# samples; the long-run kernel, QUANTILE_LONG_WARPS warps a block, the units
+# it lists (runs of at most QUANTILE_LONG_REGION samples, longer ones a
+# window at a time, past QUANTILE_LONG_REGION samples in a global scratch of
+# the padded lane length a warp)
+QUANTILE_WARPS, QUANTILE_LONG_WARPS = 8, 4
+QUANTILE_LONG_BLOCKS_PER_SM = 2  # 104 KB of shared memory a block
+QUANTILE_REGION, QUANTILE_LONG_REGION = 256, 1024
 
 
 def quantile_window(times, values, steps, range_nanos: int, phi) -> torch.Tensor:
@@ -603,20 +610,25 @@ def _launch_quantile(times, values, steps, range_nanos: int, phi: float) -> torc
     dev = t.device
     out = torch.empty((L, S), dtype=F64, device=dev)
     if L and S:
-        n_blocks = _n_blocks(L, dev, QUANTILE_BLOCKS_PER_SM)
+        n_units = L * -(-S // 32)
+        grid = -(-n_units // QUANTILE_WARPS)  # the entry caps it at one wave
+        long_grid = (torch.cuda.get_device_properties(dev).multi_processor_count
+                     * QUANTILE_LONG_BLOCKS_PER_SM)
+        listed = torch.empty((n_units,), dtype=I64, device=dev)
+        n_listed = torch.empty((1,), dtype=I64, device=dev)
         # a window never holds more than the lane's N samples: windows past
-        # the shared-memory size sort in the warp's slice of a global scratch
+        # QUANTILE_LONG_REGION sort in the warp's slice of a global scratch
         p_lane = 1 << max(N - 1, 0).bit_length()
-        p_scratch = p_lane if p_lane > QUANTILE_SMEM_P else 0
-        warps = n_blocks * QUANTILE_WARPS
+        p_scratch = p_lane if p_lane > QUANTILE_LONG_REGION else 0
+        warps = long_grid * QUANTILE_LONG_WARPS
         keys = torch.empty((warps * p_scratch,), dtype=I64, device=dev)
         pos = torch.empty((warps * p_scratch,), dtype=torch.int32, device=dev)
         lib = _build.library("query_select", _QUANTILE_SIGNATURES)
         rc = lib.m3_quantile_window(
             t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
-            int(range_nanos), phi, QUANTILE_SMEM_P, p_scratch,
+            int(range_nanos), phi, listed.data_ptr(), n_listed.data_ptr(), p_scratch,
             keys.data_ptr() if p_scratch else None, pos.data_ptr() if p_scratch else None,
-            out.data_ptr(), n_blocks, torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), grid, long_grid, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, "query_quantile_window")
         _build.count_launch("query_quantile_window")
     return out

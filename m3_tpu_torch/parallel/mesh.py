@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from m3_tpu_torch.ops import query_grouped
-from m3_tpu_torch.ops.mesh_reduce import mesh_reduce
+from m3_tpu_torch.ops.mesh_reduce import mesh_reduce, mesh_reduce_batch
 from m3_tpu_torch.utils.device import resolve_device
 
 SERIES_AXIS = "series"
@@ -142,10 +142,19 @@ def _axes(axis) -> frozenset:
     return axes
 
 
-def _grid(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
-    """Every shard's partial as [n_series, n_window, ...]."""
-    full = mesh.stack(local)
+def _grid(mesh: Mesh, full: torch.Tensor) -> torch.Tensor:
+    """Every shard's partial [n_shards, ...] as [n_series, n_window, ...]."""
     return full.reshape((mesh.shape[SERIES_AXIS], mesh.shape[WINDOW_AXIS]) + tuple(full.shape[1:]))
+
+
+def _grids(mesh: Mesh, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``_grid`` of several local partials of one shape, gathered across
+    ranks in one ``all_gather_into_tensor`` (as one [shards_on_rank, m, ...]
+    tensor)."""
+    if len(parts) == 1 or mesh.group is None:
+        return [_grid(mesh, mesh.stack(p)) for p in parts]
+    joint = mesh.stack(torch.stack(parts, dim=1))
+    return [_grid(mesh, joint[:, i]) for i in range(len(parts))]
 
 
 def _per_local(mesh: Mesh, red: torch.Tensor, key) -> torch.Tensor:
@@ -156,19 +165,31 @@ def _per_local(mesh: Mesh, red: torch.Tensor, key) -> torch.Tensor:
     return red[keys]
 
 
-def _reduce(mesh: Mesh, local: torch.Tensor, op: str, axis) -> torch.Tensor:
+def reduce_many(mesh: Mesh, parts, ops, axis) -> list[torch.Tensor]:
+    """``psum``/``pmin``/``pmax`` (``ops[i]``: sum, min or max) of several
+    local partials of one shape over ``axis``, with one gather and one MK1
+    launch for all of them: each ``parts[i]`` [shards_on_rank, ...] ->
+    [shards_on_rank, ...], the bits of the single collectives."""
+    parts, ops = list(parts), list(ops)
     axes = _axes(axis)
     n_s, n_w = mesh.shape[SERIES_AXIS], mesh.shape[WINDOW_AXIS]
-    g = _grid(mesh, local)
-    rest = tuple(g.shape[2:])
+    grids = _grids(mesh, parts)
+    rest = tuple(grids[0].shape[2:])
     if axes == {SERIES_AXIS}:  # over s at each w
-        red = mesh_reduce(g.reshape(n_s, -1), op).reshape((n_w,) + rest)
-        return _per_local(mesh, red, lambda k: k % n_w)
-    if axes == {WINDOW_AXIS}:  # over w at each s
-        red = mesh_reduce(g.transpose(0, 1).reshape(n_w, -1), op).reshape((n_s,) + rest)
-        return _per_local(mesh, red, lambda k: k // n_w)
-    red = mesh_reduce(g.reshape(n_s * n_w, -1), op).reshape((1,) + rest)
-    return _per_local(mesh, red, lambda k: 0)
+        flat = [g.reshape(n_s, -1) for g in grids]
+        shape, key = (n_w,) + rest, lambda k: k % n_w
+    elif axes == {WINDOW_AXIS}:  # over w at each s
+        flat = [g.transpose(0, 1).reshape(n_w, -1) for g in grids]
+        shape, key = (n_s,) + rest, lambda k: k // n_w
+    else:
+        flat = [g.reshape(n_s * n_w, -1) for g in grids]
+        shape, key = (1,) + rest, lambda k: 0
+    reds = mesh_reduce_batch(flat, ops)
+    return [_per_local(mesh, r.reshape(shape), key) for r in reds]
+
+
+def _reduce(mesh: Mesh, local: torch.Tensor, op: str, axis) -> torch.Tensor:
+    return reduce_many(mesh, [local], [op], axis)[0]
 
 
 def psum(mesh: Mesh, local: torch.Tensor, axis) -> torch.Tensor:
@@ -198,7 +219,7 @@ def psum_scatter(mesh: Mesh, local: torch.Tensor, axis: str) -> torch.Tensor:
     if axis not in AXES:
         raise ValueError(f"psum_scatter over one axis, got {axis!r}")
     n_w = mesh.shape[WINDOW_AXIS]
-    g = _grid(mesh, local)
+    g = _grid(mesh, mesh.stack(local))
     n, rest = g.shape[2], tuple(g.shape[3:])
     n_a = mesh.shape[axis]
     if n % n_a:
@@ -217,7 +238,7 @@ def all_gather(mesh: Mesh, local: torch.Tensor, axis: str) -> torch.Tensor:
     if axis not in AXES:
         raise ValueError(f"all_gather over one axis, got {axis!r}")
     n_s, n_w = mesh.shape[SERIES_AXIS], mesh.shape[WINDOW_AXIS]
-    g = _grid(mesh, local)
+    g = _grid(mesh, mesh.stack(local))
     rest = tuple(g.shape[3:])
     if axis == SERIES_AXIS:
         full = g.transpose(0, 1).reshape((n_w, n_s * g.shape[2]) + rest)

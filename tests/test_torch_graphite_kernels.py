@@ -17,6 +17,10 @@ parameters traced, as the interpreter traces them).
 
 Tolerances, NaN positions and infinities always equal:
 - bit for bit, but for
+- multiplySeries is held bit for bit: QK4's product and its plain version
+  multiply in lane order from 1.0, as XLA:CPU's ``segment_prod`` does; a
+  probe of groups of 1 to 3,000 lanes whose products overflow and then
+  meet a zero (``test_multiply_in_lane_order``) holds it past one chunk;
 - rtol/atol 1e-12 (``SUM``): the in-order sums against XLA's grouping of
   ``jnp.cumsum`` and ``lax.reduce_window`` past 12 cells (integral,
   integralByInterval, the moving sums and averages, summarize's sum, avg
@@ -58,7 +62,7 @@ def _probe():
 # (op, extra, tolerance) of _graphite_grouped_reduce; single-group ops run
 # with every group id 0, as the lowering gives them
 GROUPED = [("sum", (), SUM), ("count", (), None), ("avg", (), SUM), ("min", (), None),
-           ("max", (), None), ("multiply", (), SUM), ("range", (), None), ("stddev", (), STAT),
+           ("max", (), None), ("multiply", (), None), ("range", (), None), ("stddev", (), STAT),
            ("count_series", (), None)]
 SINGLE = [("diff", (), SUM), ("last", (), None), ("median", (), STAT)] + [
     ("percentile", (q,), STAT) for q in (-20.0, 0.0, 20.0, 50.0, 75.0, 95.0, 100.0, 150.0)]
@@ -336,6 +340,90 @@ def test_wide_probe_reaches_the_corners():
     assert want[0.0][4] == -1.0 and want["median"][4] == np.inf
     assert np.isnan([want[q][4] for q in WIDE_QS[2:]]).any()
     assert want[25.0][7] == 1.0 and want[75.0][7] == np.nextafter(1.0, 2.0)
+
+
+# multiplySeries past one of QK4's chunks: groups of 1, CHUNK - 1, CHUNK,
+# CHUNK + 1 and 3,000 lanes (interleaved), 7 all-NaN padding lanes on group
+# 0, three empty groups.  "wide": uniform in +-1,000 with zeros, NaN holes
+# and +-Inf, so products overflow and later meet a zero (column 0: no zero
+# or infinity, so +-inf by overflow; column 1: a zero on each group's first
+# member; column 2: on its last; column 3: every cell NaN); "near one":
+# 1 +- 1e-3, where every order rounds differently.  One compiled program.
+MULTIPLY_SIZES = (1, 255, 256, 257, 3000)
+
+
+def _multiply_probe(kind: str):
+    rng = np.random.default_rng(43 if kind == "wide" else 44)
+    groups = rng.permutation(np.repeat(np.arange(len(MULTIPLY_SIZES)), MULTIPLY_SIZES))
+    L, S = len(groups), 24
+    if kind == "wide":
+        v = rng.uniform(-1000, 1000, (L, S))
+        pick = rng.random((L, S))
+        v[pick < 0.01] = 0.0
+        v[(pick >= 0.01) & (pick < 0.02)] = -0.0
+        v[(pick >= 0.02) & (pick < 0.12)] = np.nan
+        v[(pick >= 0.12) & (pick < 0.125)] = np.inf
+        v[(pick >= 0.125) & (pick < 0.13)] = -np.inf
+        v[:, :3] = rng.uniform(-1000, 1000, (L, 3))
+        for g in range(len(MULTIPLY_SIZES)):
+            lanes = np.flatnonzero(groups == g)
+            v[lanes[0], 1] = -0.0 if g % 2 else 0.0
+            v[lanes[-1], 2] = 0.0
+        v[:, 3] = np.nan
+    else:
+        v = 1.0 + rng.uniform(-1e-3, 1e-3, (L, S))
+        v[rng.random((L, S)) < 0.1] = np.nan
+    v = np.concatenate([v, np.full((7, S), np.nan)])
+    return v, np.concatenate([groups, np.zeros(7, dtype=np.int64)])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_multiply() -> dict:
+    probes = {kind: _multiply_probe(kind) for kind in ("wide", "near one")}
+
+    def run(cvs, grps):
+        return [jq._graphite_grouped_reduce(cv, g, G_PAD, "multiply", (), 0.0)
+                for cv, g in zip(cvs, grps)]
+
+    outs = jax.jit(run)([p[0] for p in probes.values()], [p[1] for p in probes.values()])
+    return {kind: np.array(o) for kind, o in zip(probes, outs)}
+
+
+@pytest.mark.parametrize("kind", ["wide", "near one"])
+def test_multiply_in_lane_order(kind):
+    """multiplySeries (QK4's plain version) against the reference's
+    ``segment_prod`` over groups past one chunk, bit for bit: NaN
+    positions, signed zeros and infinities exact."""
+    v, groups = _multiply_probe(kind)
+    got = graphite.grouped_reduce(torch.from_numpy(v), groups, G_PAD, "multiply")
+    assert_same(got, _jax_multiply()[kind], f"multiply {kind}")
+
+
+def test_multiply_probe_reaches_the_corners():
+    """The wide probe's products end +-inf, +-0.0 and NaN (inf * 0) in the
+    large groups and 1.0 where every cell is NaN; a product folded chunk by
+    chunk (CHUNK lanes, then the partials in order) gives other bits on
+    both probes, so the test tells the orders apart."""
+    want = _jax_multiply()
+    wide = want["wide"]
+    big = wide[4]  # the 3,000-lane group
+    assert np.isinf(big[0]) and np.isnan(big).any()
+    assert (wide[:5, 1] == 0.0).all() and {bool(np.signbit(x)) for x in wide[:5, 1]} == {
+        False, True}
+    assert np.isnan(wide[1:5, 2]).all() and (wide[:, 3] == 1.0).all()
+    for kind in want:
+        v, groups = _multiply_probe(kind)
+        chunked = np.ones_like(want[kind])
+        with np.errstate(over="ignore", invalid="ignore"):
+            for g in range(len(MULTIPLY_SIZES)):
+                lanes = np.flatnonzero(groups == g)
+                cells = np.where(np.isnan(v[lanes]), 1.0, v[lanes])
+                for c0 in range(0, len(lanes), query_grouped.CHUNK):
+                    part = np.ones(v.shape[1])
+                    for row in cells[c0:c0 + query_grouped.CHUNK]:
+                        part = part * row
+                    chunked[g] = chunked[g] * part
+        assert (chunked.view(np.int64) != want[kind].view(np.int64)).any(), kind
 
 
 class _FakeGrouped:

@@ -48,7 +48,8 @@ from m3_tpu_torch.ops import downsample as tds
 from m3_tpu_torch.ops import m3tsz_scalar as tsz
 from m3_tpu_torch.ops import query_grouped
 from m3_tpu_torch.ops.bitstream import pack_streams
-from m3_tpu_torch.ops.mesh_reduce import mesh_reduce, mesh_reduce_plain
+from m3_tpu_torch.ops import mesh_reduce as mesh_reduce_op
+from m3_tpu_torch.ops.mesh_reduce import mesh_reduce, mesh_reduce_batch, mesh_reduce_plain
 from m3_tpu_torch.parallel import mesh as tmesh
 from m3_tpu_torch.parallel.repack import shard_repack
 
@@ -134,6 +135,54 @@ def test_mesh_reduce_plain(n_shards):
     assert tuple(mesh_reduce(two_d, "sum").shape) == (4, 10)
     with pytest.raises(ValueError):
         mesh_reduce(torch.from_numpy(x), "sum", 30, 50)
+
+
+@pytest.mark.parametrize("n_shards", [1, 8])
+def test_mesh_reduce_batch_plain(n_shards):
+    """MK1's batched form: stacks of one shape, each with its own op (views
+    into one gathered [n_shards, m, ...] tensor and transposed views among
+    them), against the
+    per-stack ``mesh_reduce_plain`` and (8 shards) XLA's psum/pmin/pmax, bit
+    for bit; ``reduce_many`` on a CPU mesh against the single collectives."""
+    ops = ("sum", "min", "max", "sum", "max")
+    joint = np.stack([_specials(n_shards, 40, seed=10 + i) for i in range(len(ops))], axis=1)
+    stacks = [torch.from_numpy(joint)[:, i].reshape(n_shards, 4, 10) for i in range(len(ops))]
+    got = mesh_reduce_batch(stacks, ops)
+    xla = _jax_collectives(40) if n_shards == 8 else None
+    for i, (g, op) in enumerate(zip(got, ops)):
+        assert tuple(g.shape) == (4, 10)
+        assert_same(g, mesh_reduce_plain(stacks[i], op), f"batch {i} {op}")
+        if xla is not None:
+            ref = np.asarray(xla(jnp.asarray(joint[:, i]))[("sum", "min", "max").index(op)])
+            assert_same(g.reshape(-1), ref[0], f"batch {i} XLA {op}")
+    big = np.random.default_rng(2).integers(-2**61, 2**61, (2, n_shards, 9))
+    sums = mesh_reduce_batch([torch.from_numpy(b) for b in big], ["sum", "min"])
+    assert_same(sums[0], big[0].sum(0), "int64 sum")
+    assert_same(sums[1], big[1].min(0), "int64 min")
+    # stacks whose rows are not contiguous (transposed views), with an owned
+    # range: the kernel reads each through ``_rows``, copied where needed
+    trans = [torch.from_numpy(np.ascontiguousarray(_specials(n_shards, 40, seed=30 + i).T)).T
+             for i in range(2)]
+    for t, op, g in zip(trans, ("min", "sum"), mesh_reduce_batch(trans, ("min", "sum"), 5, 23)):
+        assert_same(g, _numpy_fold(t.numpy(), op)[5:23], f"transposed {op} [5, 23)")
+        rows = mesh_reduce_op._rows(t)
+        assert rows.stride(1) == 1
+        assert_same(rows, t.numpy(), f"transposed rows {op}")
+    with pytest.raises(ValueError):
+        mesh_reduce_batch(stacks[:2], ["sum"])
+    with pytest.raises(ValueError):
+        mesh_reduce_batch([stacks[0], stacks[1].reshape(n_shards, 40)], ["sum", "min"])
+    if n_shards == 8:
+        for shape in ((8, 1), (4, 2), (2, 4)):
+            mesh = _cpu_mesh(*shape)
+            parts = [torch.from_numpy(joint[:, i]) for i in range(3)]
+            for axis in (tmesh.SERIES_AXIS, tmesh.WINDOW_AXIS,
+                         (tmesh.SERIES_AXIS, tmesh.WINDOW_AXIS)):
+                many = tmesh.reduce_many(mesh, parts, ("sum", "min", "max"), axis)
+                for part, op, m in zip(parts, ("sum", "min", "max"), many):
+                    one = {"sum": tmesh.psum, "min": tmesh.pmin, "max": tmesh.pmax}[op](
+                        mesh, part, axis)
+                    assert_same(m, one.numpy(), f"reduce_many {shape} {axis} {op}")
 
 
 def test_sqdev_plain():

@@ -241,6 +241,78 @@ def test_quantile_over_time_refuses_phi_outside_0_1(phi):
         query_temporal.quantile_window(t, v, st, RANGES[0], phi)
 
 
+# --- QK11 at the window widths its two paths split on -----------------------
+
+# corpus.quantile_width_lanes: windows of 1, 31, 32 (a warp), 33, 64 and 300
+# (past a tile's staged run) samples.
+QOT_WIDTHS = corpus.QUANTILE_WIDTHS
+QOT_PHIS = (0.0, 0.1, 0.5, 0.9, 0.99, 1.0)
+_qot_range = corpus.quantile_width_range
+
+
+@functools.lru_cache(maxsize=None)
+def _qot_lanes():
+    return corpus.quantile_width_lanes()
+
+
+@functools.lru_cache(maxsize=None)
+def _qot_jax() -> np.ndarray:
+    """``_quantile_window_device`` at every (width, phi), one compiled
+    program (range and phi traced, vmapped) -> [widths, phis, 6, S]."""
+    t, v, st = (jnp.asarray(x) for x in _qot_lanes())
+    ranges = jnp.asarray([_qot_range(w) for w in QOT_WIDTHS], dtype=jnp.int64)
+    phis = jnp.asarray(QOT_PHIS)
+
+    def run(r, p):
+        return jq._quantile_window_device(t, v, st, r, p)
+
+    grid = jax.vmap(lambda r: jax.vmap(lambda p: run(r, p))(phis))
+    return np.asarray(jax.jit(grid)(ranges))
+
+
+@pytest.mark.parametrize("width", QOT_WIDTHS)
+def test_quantile_over_time_widths_match_jax(width):
+    """quantile_over_time's plain version (QK11's) against the reference's
+    ``_quantile_window_device`` on windows of ``width`` samples, phi 0, 0.1,
+    0.5, 0.9, 0.99 and 1 (QK11 takes its end buffers at 0, 0.1, 0.9, 0.99
+    and 1 and its network at 0.5), at the file's rtol 1e-9 rule; zero
+    results exact in sign."""
+    t, v, st = _qot_lanes()
+    r = _qot_range(width)
+    for j, phi in enumerate(QOT_PHIS):
+        got = query_temporal.quantile_window(*(torch.from_numpy(x) for x in (t, v, st)), r, phi)
+        want = _qot_jax()[QOT_WIDTHS.index(width), j]
+        check_temporal("quantile_over_time", got, want, t, v, st, r,
+                       what=f"quantile_over_time({phi}) over {width} samples")
+        zero = want == 0.0
+        assert_same(got[torch.from_numpy(zero)], want[zero], f"zeros at phi {phi}")
+
+
+def test_quantile_over_time_widths_reach_the_corners():
+    """The probe's windows hold exactly each width (full windows in the
+    middle), are empty before and after the lanes, all-NaN on lane 1, and
+    the selected ranks fall inside runs of mixed +-0.0 on lane 0."""
+    t, v, st = (torch.from_numpy(x) for x in _qot_lanes())
+    for width in QOT_WIDTHS:
+        _, left, right = query_temporal.window_bounds_plain(t, st, _qot_range(width))
+        n = right - left
+        assert int(n.max()) == width and (n[:, 0] == 0).all() and (n[:, -1] == 0).all()
+        assert np.isnan(_qot_jax()[QOT_WIDTHS.index(width), 1, 1]).all()
+    _, left, right = query_temporal.window_bounds_plain(t, st, _qot_range(32))
+    mixed = 0
+    for s in range(st.shape[0]):
+        w = v[0, int(left[0, s]):int(right[0, s])]
+        if len(w) < 2:
+            continue
+        order = sorted(range(len(w)), key=lambda i: (float(w[i]), i))  # -0.0 == +0.0
+        for h in (0.5 * (len(w) - 1), 0.99 * (len(w) - 1)):
+            lo, hi = order[int(np.floor(h))], order[int(np.ceil(h))]
+            zs = w[(w == 0.0)]
+            if w[lo] == 0.0 and len({bool(x) for x in torch.signbit(zs)}) == 2:
+                mixed += 1
+    assert mixed > 0
+
+
 # --- QK12: the subquery's packing of its inner grid --------------------------
 
 
