@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. parity — every kernel against its plain PyTorch version on the card,
    bit for bit, on seed-42 walks plus probe streams (error lanes, float
    mode, millisecond unit, NaN/+-Inf/-0.0, truncated and garbage streams,
-   odd lane counts) and a quantile grid of NaNs, ties and signed zeros;
+   odd lane counts; K3 also at 1, 31 and 33 steps on 71 lanes, around its
+   staged 16-step tiles) and a quantile grid of NaNs, ties and signed zeros;
 4. query parity — the query slice's kernels (merge QK1, rate family QK2,
    prefix-sum reducers QK3, group-by QK4) against their plain versions on
    the card, on probe batches: counter resets, NaN/+-Inf samples, empty,
@@ -50,7 +51,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU tests' probes (NaN, +-Inf, +-0.0 windows inside and across 32-sample
    blocks, ties, groups below k, padding on the trash group, total-0 and
    non-monotone histograms, phi 0, 1, -0.5, 1.5, NaN) and on groups of up to
-   15,000 lanes (the global-scratch sort); then the rest of the range
+   15,000 lanes; QK6 also on groups of 1, 255, 256, 257, 2,049 and 65,536
+   lanes (one-chunk groups and groups of several chunks; padding on group 0,
+   runs of +-0.0, all-NaN steps, phi 0, 0.5, 0.9, 1), and through the
+   sharded quantile (``_grouped_reduce_sharded`` on an 8-shard mesh); then
+   the rest of the range
    functions (QK3's changes/resets and deriv/predict_linear op codes, QK9
    stddev/stdvar, QK10 holt_winters, QK11 quantile_over_time) on the CPU
    tests' probe lanes, QK11 also on windows of 1-300 samples, and on lanes
@@ -303,6 +308,17 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
+def host_speed() -> str:
+    """The host's cores and the median time of a fixed Python loop (7
+    runs): host-bound times of two runs compare through it."""
+    times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        sum(i * i for i in range(200_000))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return f"{os.cpu_count()} cores; a fixed Python loop {statistics.median(times):.3f} ms"
+
+
 def row(name, rows, ms, plain_ms, bytes_, ops_ms, library_ms=None, library=""):
     """Record and print one kernel's time beside its plain version's, its
     bound (the larger of the bytes over the memory rate and the operations
@@ -351,6 +367,25 @@ def compare_decoders(streams, tag: str, int_optimized=True, unit=10**9, n_steps=
     _record("window_quantiles", same_bits(kq, pq, f"{tag} window_quantiles"))
     torch.cuda.synchronize()
     log(f"parity {tag}: {len(streams)} lanes, {int(err.sum())} error lanes: bit for bit")
+
+
+def compare_k3_steps(walks):
+    """K3 against its plain version at 1, 31 and 33 steps (inside one staged
+    tile of 16 steps, and past two), with and without flag_truncation, on
+    the probe streams (lanes ending early and in error) and 45 walks: 71
+    lanes, not a multiple of 32; all five outputs bit for bit."""
+    streams = corpus.probe_streams(N_DP) + walks[:45]
+    words, nbits = inputs_from_numpy(*pack_streams(streams), device=DEVICE)
+    for n_steps in (1, 31, 33):
+        for flag in (False, True):
+            k = dec.decode_batched(words, nbits, n_steps, flag_truncation=flag)
+            p = dec.decode_batched_plain(words, nbits, n_steps, flag_truncation=flag)
+            for field, kt, pt in zip(("ts", "vs", "valid", "count", "error"), k, p):
+                _record("decode_batched", same_bits(
+                    kt, pt, f"K3 steps {n_steps} flag {flag} decode_batched.{field}"))
+    torch.cuda.synchronize()
+    log(f"parity K3 steps: {len(streams)} lanes at 1, 31 and 33 steps, with and without "
+        f"truncation: ts, vs, valid, count, error bit for bit")
 
 
 def compare_quantile_grid():
@@ -897,6 +932,62 @@ def _compare_select(x: torch.Tensor, groups: np.ndarray, n_groups: int, tag: str
             _record("query_topk", same_bits(kt, pt, f"{tag} topk {k} {bottom} {field}"))
 
 
+QK6_SIZES = (2049, 1, 255, 256, 257, 65_536)  # group 0 also takes the padding
+QK6_PHIS = (0.0, 0.5, 0.9, 1.0)
+
+
+def _quantile_probe(kind: str, S: int, seed: int):
+    """Lanes of groups of QK6_SIZES lanes (shuffled) and 301 all-NaN padding
+    lanes on group 0, 10% NaN cells and every seventh step all NaN: "ints"
+    (a few values, long runs of ties, +-Inf), "zeros" (runs of +-0.0 at the
+    middle and end ranks) or "wide" (magnitudes 1e-3 to 1e3, both signs)."""
+    rng = np.random.default_rng(seed)
+    groups = np.repeat(np.arange(len(QK6_SIZES)), QK6_SIZES)
+    rng.shuffle(groups)
+    shape = (len(groups), S)
+    if kind == "ints":
+        x = rng.integers(-6, 7, shape).astype(np.float64)
+        x[rng.random(shape) < 0.01] = np.inf
+        x[rng.random(shape) < 0.01] = -np.inf
+    elif kind == "zeros":
+        x = rng.choice([-1.0, -0.0, 0.0, 1.0], size=shape, p=[0.1, 0.4, 0.4, 0.1])
+        x[:, ::3] = np.abs(x[:, ::3])  # no negatives: phi 0 reads a zero
+    else:
+        x = rng.standard_normal(shape) * 10.0 ** rng.integers(-3, 4, shape)
+    x[rng.random(shape) < 0.1] = np.nan
+    x[:, ::7] = np.nan
+    x = np.concatenate([x, np.full((301, S), np.nan)])
+    return torch.from_numpy(x).to(DEVICE), np.concatenate([groups, np.zeros(301, dtype=np.int64)])
+
+
+def compare_quantile_chunks():
+    """QK6 against its plain version on groups of one chunk and of several
+    (QK6_SIZES), bit for bit, twice, and the sharded quantile on the same
+    lanes (an 8-shard mesh on this card, the lanes gathered then QK6)."""
+    G = len(QK6_SIZES)
+    mesh = pmesh.make_mesh(8, device=DEVICE)
+    n = 0
+    for kind, S, seed in (("ints", 40, 1), ("zeros", 33, 2), ("wide", 64, 3)):
+        x, groups = _quantile_probe(kind, S, seed)
+        gt = torch.from_numpy(groups).to(DEVICE)
+        for phi in QK6_PHIS:
+            tag = f"QK6 {kind} S={S} phi {phi}"
+            got = twice(lambda: query_grouped.grouped_quantile(x, groups, G, phi), tag)
+            want = query_grouped.grouped_quantile_plain(x, gt, G, phi)
+            _record("query_quantile", same_bits(got, want, tag))
+            n += 1
+        sharded = twice(lambda: qp._grouped_reduce_sharded(mesh, x, groups, G, "quantile", 0.9),
+                        f"QK6 {kind} sharded")
+        _record("query_quantile", same_bits(sharded, query_grouped.grouped_quantile_plain(
+            x, gt, G, 0.9), f"QK6 {kind} sharded quantile 0.9"))
+        n += 1
+    torch.cuda.synchronize()
+    log(f"expr parity quantile by (QK6 chunks): {n} cases (groups of {QK6_SIZES[1:]} lanes and "
+        f"{QK6_SIZES[0]} + 301 padding lanes on group 0; ties, +-Inf, runs of +-0.0, magnitudes "
+        f"1e-3 to 1e3, all-NaN steps; phi {QK6_PHIS}; the sharded quantile at 0.9): bit for bit, "
+        f"twice")
+
+
 def compare_expr_kernels():
     """QK5-QK8 against their plain versions on the card, on the CPU tests'
     probes (and groups past the shared-memory size), bit for bit, twice."""
@@ -945,7 +1036,8 @@ def compare_expr_kernels():
     torch.cuda.synchronize()
     log("expr parity quantile/topk/bottomk (QK6/QK7): probe groups of 1-25 lanes (ties, "
         "+-0.0, NaN, +-Inf, padding on the trash group), groups of 3, 4,997 and 15,000 "
-        "lanes (shared memory and global scratch) and chunk ties (groups of "
+        "lanes (QK6's groups of several chunks; the k > 32 sort's shared memory and global "
+        "scratch) and chunk ties (groups of "
         f"{2 * C + 3} and {C + 1} lanes of 7 values, one of 50 lanes with 90% NaN, groups of "
         "10 and 32 lanes), phi 0-1, k 1-32 (the selection) and 33-40 (the sort): out, "
         "present and rank bit for bit, twice")
@@ -1422,18 +1514,19 @@ def expr_kernel_times(b: corpus.QueryBatch, shapes: dict):
 
     rate = shapes["rate"]
     L, S = rate.shape
-    for kernel, (groups, n_groups), mode in (
-            ("query_quantile", shapes["quantile_groups"], query_grouped.SELECT_QUANTILE),
-            ("query_topk", shapes["topk_groups"], query_grouped.SELECT_TOPK)):
+    for kernel, (groups, n_groups) in (("query_quantile", shapes["quantile_groups"]),
+                                       ("query_topk", shapes["topk_groups"])):
+        quantile = kernel == "query_quantile"
         index = query_grouped.group_index(groups, n_groups, DEVICE)
         gt = torch.from_numpy(groups).to(DEVICE)
         sizes = index.sizes
-        if mode == query_grouped.SELECT_QUANTILE:
-            fn = lambda: query_grouped.launch_select(rate, index, mode, phi=0.9)  # noqa: E731
+        if quantile:
+            fn = lambda: query_grouped.launch_quantile(rate, index, 0.9)  # noqa: E731
             plain = lambda: query_grouped.grouped_quantile_plain(rate, gt, n_groups, 0.9)  # noqa
             _record(kernel, same_bits(fn(), plain(), "main quantile by (job)"))
             out_bytes = n_groups * S * 8
         else:
+            mode = query_grouped.SELECT_TOPK
             fn = lambda: query_grouped.launch_topk(rate, index, mode, 10)  # noqa: E731
             plain = lambda: lane_topk.masked_topk_plain(rate, gt, n_groups, 10, False)  # noqa
             sort = lambda: query_grouped.launch_select(rate, index, mode, k=10)  # noqa: E731
@@ -1447,17 +1540,16 @@ def expr_kernel_times(b: corpus.QueryBatch, shapes: dict):
         # selection per (group, step), one 64-bit compare (two INT32
         # operations) per lane for each order statistic sought (quantile's
         # floor(h) and ceil(h); topk's k-th key)
-        ops_ms = int(sizes.sum()) * S * 2 * (2 if mode == query_grouped.SELECT_QUANTILE
-                                             else 1) / INT32_OPS_PER_S * 1e3
+        ops_ms = int(sizes.sum()) * S * 2 * (2 if quantile else 1) / INT32_OPS_PER_S * 1e3
         sort_ms = time_ms(lambda: torch.sort(rate, dim=0, stable=True), reps=5)
-        if mode == query_grouped.SELECT_QUANTILE:
+        if quantile:
             lib_ms, lib = sort_ms, "torch.sort along the lanes"
         else:
             lib_ms, lib = (time_ms(lambda: torch.topk(rate, 10, dim=0), reps=5),
                            "torch.topk(k=10) along the lanes")
         row(kernel, rows, time_ms(fn, reps=5), time_ms(plain, reps=3),
             L * S * 8 + L * 8 + out_bytes, ops_ms, lib_ms, lib)
-        if mode != query_grouped.SELECT_QUANTILE:
+        if not quantile:
             log(f"time query_topk beside the sort: torch.sort along the lanes {sort_ms:.3f} ms; "
                 f"the select kernel's bitonic sort at the same k=10 (the path of k > "
                 f"{query_grouped.K_MAX}) {time_ms(sort, reps=5):.3f} ms")
@@ -2478,10 +2570,10 @@ def timer_main(rows):
         log(f"timer {tag}: {n_win} windows x {per} samples; launches {launches}; "
             f"timer_quantiles {wall:.3f} ms (host clock, padding included); nearest ranks "
             f"match the sorted windows")
+        library_ms = time_ms(lambda: (lambda o: (torch.gather(tv, 1, o), torch.cumsum(
+            torch.gather(tw, 1, o), dim=1)))(torch.sort(tv, dim=1, stable=True).indices),
+            reps=7)
         if tag == "timer":
-            library_ms = time_ms(lambda: (lambda o: (torch.gather(tv, 1, o), torch.cumsum(
-                torch.gather(tw, 1, o), dim=1)))(torch.sort(tv, dim=1, stable=True).indices),
-                reps=7)
             row("padded_quantiles", rows, time_ms(lambda: elems.padded_quantiles(tv, tw, TIMER_QS),
                                                   reps=7),
                 time_ms(lambda: elems.padded_quantiles_plain(tv, tw, TIMER_QS), reps=5),
@@ -2494,7 +2586,7 @@ def timer_main(rows):
             ops_ms = _select_ops_ms(n_win, per, len(TIMER_QS))
             log(f"time padded_quantiles[{n_win}x{per}]: kernel {ms:.3f} ms, bound "
                 f"{max(bytes_ms, ops_ms):.3f} ms (bytes {bytes_ms:.3f} ms, operations "
-                f"{ops_ms:.3f} ms)")
+                f"{ops_ms:.3f} ms), torch.sort(stable) + cumsum + gather {library_ms:.3f} ms")
         del pool, tv, tw, k
     return results
 
@@ -3412,6 +3504,7 @@ def main() -> int:
     log(name_power)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    log(f"host: {host_speed()}")
 
     t0 = time.time()
     built = _build.build_all()
@@ -3431,6 +3524,7 @@ def main() -> int:
     probes = corpus.probe_streams(N_DP)
     for lanes in (1, 7, 129):
         compare_decoders((probes + walks)[:lanes], f"{lanes} lanes")
+    compare_k3_steps(walks)
     compare_quantile_grid()
     compare_query(corpus.query_probe_corpus(), "probes")
     compare_query(corpus.query_probe_corpus(tiered=True), "two-tier")
@@ -3438,6 +3532,7 @@ def main() -> int:
     compare_grouped_chunks()
     compare_long_lanes()
     compare_expr_kernels()
+    compare_quantile_chunks()
     compare_family_kernels()
     compare_graphite_kernels()
     enc_probes = corpus.encode_probe_series()

@@ -356,27 +356,74 @@ __global__ void __launch_bounds__(kThreads) decode_downsample_fused_kernel(
 // K3: decode up to n_steps datapoints per lane into [L, n_steps] grids.
 // scan_len == n_steps + 1 with flag_truncation: the extra step lets a
 // stream holding exactly n_steps records reach its EOS marker.
+//
+// Each thread still walks its own lane; what changes is how the grids leave
+// the SM.  A thread storing its step at lane * n_steps + step would touch one
+// 32-byte sector per lane and fill 8 bytes of it (1 for `valid`), so a warp's
+// store is 32 partly written sectors, and at 1M lanes the open sectors do not
+// fit in L2.  Instead each warp stages kK3Steps steps of its 32 lanes in
+// shared memory ([step][lane], a padded row: conflict-free both ways), then
+// writes each lane's kK3Steps steps as one contiguous run (128 bytes of ts
+// and of vs, a lane's run of valid bytes), a whole warp on neighbouring
+// addresses: whole sectors, but where lane * n_steps is not a multiple of 4
+// (of 32 for `valid`) at a run's two ends, which the neighbouring runs of
+// the same warp complete.  kK3Steps trades the tile's shared memory (~8.4 KB
+// a warp at 16) against the warps an SM holds: the state machine is
+// latency-bound and wants them.
+constexpr int kK3Steps = 16;
+constexpr int kK3Pad = 33;  // the staged rows' stride in elements
+// the tiles are static shared memory, at most 48 KB a block: 17 bytes a
+// step and lane, 4 warps
+static_assert(kK3Steps >= 1 && kK3Steps <= 16, "a tile holds 1-16 steps");
+
 __global__ void __launch_bounds__(kThreads) decode_batched_kernel(
     const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
     int n_steps, int scan_len, bool int_optimized, int64_t unit_nanos, bool flag_truncation,
     Divisors div, int64_t* __restrict__ ts, double* __restrict__ vs, bool* __restrict__ valid,
     int32_t* __restrict__ count, bool* __restrict__ error) {
+  __shared__ int64_t tile_ts[kThreads / 32][kK3Steps * kK3Pad];
+  __shared__ double tile_vs[kThreads / 32][kK3Steps * kK3Pad];
+  __shared__ bool tile_ok[kThreads / 32][kK3Steps * kK3Pad];
+  const int warp = threadIdx.x >> 5, col = threadIdx.x & 31;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const uint32_t* row = words + (size_t)lane * W;
-  const int32_t nb = nbits[lane];
+  const int first = lane - col;  // the warp's first lane
+  if (first >= L) return;        // warp-uniform: the warp writes its tiles together
+  const int n_lanes = L - first < 32 ? L - first : 32;
+  const bool mine = lane < L;
+  const uint32_t* row = words + (size_t)(mine ? lane : first) * W;
+  const int32_t nb = mine ? nbits[lane] : 0;  // a lane past L is done at once
   State st = init_state(row, W, nb);
+  int64_t* sts = tile_ts[warp];
+  double* svs = tile_vs[warp];
+  bool* sok = tile_ok[warp];
   int32_t cnt = 0;
-  for (int step = 0; step < scan_len; ++step) {
-    const bool ok = decode_step(row, W, nb, st, int_optimized, unit_nanos);
-    if (step < n_steps) {
-      const size_t o = (size_t)lane * n_steps + step;
-      ts[o] = st.prev_time;
-      vs[o] = emit_value(st, div);
-      valid[o] = ok;
-      cnt += ok;
+  for (int t0 = 0; t0 < scan_len; t0 += kK3Steps) {
+    const int nt = n_steps - t0 < kK3Steps ? n_steps - t0 : kK3Steps;  // steps of the tile to write
+    const int nd = scan_len - t0 < kK3Steps ? scan_len - t0 : kK3Steps;
+    for (int j = 0; j < nd; ++j) {
+      const bool ok = decode_step(row, W, nb, st, int_optimized, unit_nanos);
+      if (j < nt) {
+        sts[j * kK3Pad + col] = st.prev_time;
+        svs[j * kK3Pad + col] = emit_value(st, div);
+        sok[j * kK3Pad + col] = ok;
+        cnt += ok;
+      }
     }
+    if (nt <= 0) break;  // the truncation step alone
+    __syncwarp();
+    // lane l's steps t0 .. t0 + nt - 1, contiguous at l * n_steps + t0
+    const int total = n_lanes * nt;
+    for (int i = col; i < total; i += 32) {
+      const int l = nt == kK3Steps ? i / kK3Steps : i / nt;
+      const int j = i - l * nt;
+      const size_t o = (size_t)(first + l) * n_steps + t0 + j;
+      ts[o] = sts[j * kK3Pad + l];
+      vs[o] = svs[j * kK3Pad + l];
+      valid[o] = sok[j * kK3Pad + l];
+    }
+    __syncwarp();  // the tile is restaged by the next steps
   }
+  if (!mine) return;
   count[lane] = cnt;
   error[lane] = st.error || (flag_truncation && !st.done);
 }

@@ -11,11 +11,20 @@
 //        step): keep the k best lanes, NaN the rest, and report per lane
 //        whether it was kept at any step and its position at the last step.
 //
+// Which kernel serves which mode:
+//   QK6 (quantile by)        quantile_chunk_kernel + quantile_finish_kernel
+//                            (C entry m3_query_quantile), a selection;
+//   QK7, k <= kKMax          topk_chunk_kernel + topk_merge_kernel
+//                            (m3_query_topk), a selection;
+//   QK7, k > kKMax           select_kernel (m3_query_select), a sort;
+//   QK11                     quantile_window_kernel + quantile_long_kernel;
+//   GK2                      graphite_percentile_{columns,finish,rows}_kernel.
+//
 // The reference sorts the whole [L, S] matrix per step by (group, key) in
 // one lax.sort (stable: equal keys keep lane order; -0.0 equals +0.0 and
 // NaN keys sort last) and finds each group's run from segment counts.
 // Here the host hands in a stable CSR of each group's lanes (ascending
-// lane order).  Keys: quantile sorts v with NaN -> +inf; topk sorts -v with
+// lane order).  Keys: quantile orders v with NaN -> +inf; topk sorts -v with
 // NaN -> -inf before the negation (so NaN lanes come last, still selectable
 // once the real values run out); bottomk sorts v with NaN -> +inf.  The
 // order key maps -0.0 to +0.0, as the reference's comparator compares them.
@@ -44,22 +53,22 @@
 // (the caller fills 2^62 first).  Bytes: about two reads of [L, S] and one
 // write.
 //
-// QK6, and QK7 for k > kKMax: one block owns one (group, step) at a time
+// QK7 for k > kKMax: one block owns one (group, step) at a time
 // (select_kernel), taking them in turn: it loads the group's cells of that
 // step, builds (order key, member position) pairs and sorts them ascending
 // with a bitonic network.  A group whose padded size P is at most p_smem
 // pairs (the caller's shared-memory limit,
 // ops/query_grouped.py:SELECT_SMEM_MAX_P) sorts in dynamic shared memory; a
 // larger one sorts in the block's slice of a global scratch buffer, so
-// groups have no size limit.  QK6 then reads the keys at positions floor(h)
-// and ceil(h) and interpolates in the reference's order of operations (the
-// file is built with --fmad=false).  QK7 writes every member's cell of the
+// groups have no size limit.  It then writes every member's cell of the
 // step (kept or NaN), sets present[lane] = 1 for kept lanes, and at the last
 // step writes each member's rank: its position if kept, else 2^62.
 //
-// What bounds it on an H100: bytes for the selection and for small groups
-// (each cell read once, or twice by the selection; QK7 writes each cell
-// once); for the sorts of large groups, operations (the network's
+// QK6 is described with its kernels below.
+//
+// What bounds it on an H100: bytes for the selections and for small groups
+// (each cell read once, or a few times by the selections; QK7 writes each
+// cell once); for the sorts of large groups, operations (the network's
 // P log2(P)^2 / 4 compare-exchanges per (group, step)).
 
 #include <cuda_runtime.h>
@@ -69,8 +78,9 @@
 namespace {
 
 constexpr long long kNoRank = 1LL << 62;
+constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode : int { kQuantile = 0, kTopk = 1, kBottomk = 2 };
+enum Mode : int { kTopk = 1, kBottomk = 2 };  // QK7's (ops/query_grouped.py:SELECT_*)
 
 // Unsigned key whose order is the float order with -0.0 == +0.0 and every
 // NaN after +inf (the padding key ~0 is above all of them).
@@ -89,7 +99,6 @@ __device__ __forceinline__ double key_value(unsigned long long key) {  // order_
 }
 
 __device__ __forceinline__ double sort_value(double v, int mode) {
-  if (mode == kQuantile) return isnan(v) ? INFINITY : v;
   if (mode == kTopk) return -(isnan(v) ? -INFINITY : v);
   return isnan(v) ? INFINITY : v;
 }
@@ -138,22 +147,18 @@ __device__ void warp_bitonic_sort(unsigned long long* keys, int* pos, int P) {
 __global__ void select_kernel(const double* __restrict__ x, long long S,
                               const long long* __restrict__ members,
                               const long long* __restrict__ offsets, long long n_groups, int mode,
-                              double phi, long long k, int p_smem, long long p_scratch,
+                              long long k, int p_smem, long long p_scratch,
                               unsigned long long* __restrict__ scratch_keys,
                               int* __restrict__ scratch_pos, double* __restrict__ out,
                               int* __restrict__ present, long long* __restrict__ rank) {
   extern __shared__ unsigned long long smem[];
-  __shared__ int n_present;
   const int tid = threadIdx.x, nt = blockDim.x;
   const double nan = __longlong_as_double(0x7ff8000000000000LL);
   for (long long item = blockIdx.x; item < n_groups * S; item += gridDim.x) {
     const long long g = item / S, s = item % S;
     const long long off = offsets[g];
     const int size = (int)(offsets[g + 1] - off);
-    if (size == 0) {
-      if (mode == kQuantile && tid == 0) out[g * S + s] = nan;
-      continue;  // block-uniform: no thread reaches a barrier below
-    }
+    if (size == 0) continue;  // block-uniform: no thread reaches a barrier below
     int P = 1;
     while (P < size) P <<= 1;
     unsigned long long* keys;
@@ -165,46 +170,18 @@ __global__ void select_kernel(const double* __restrict__ x, long long S,
       keys = scratch_keys + (long long)blockIdx.x * p_scratch;
       pos = scratch_pos + (long long)blockIdx.x * p_scratch;
     }
-    if (tid == 0) n_present = 0;
-    __syncthreads();
-    int mine = 0;
     for (int i = tid; i < P; i += nt) {
-      if (i < size) {
-        const double v = x[members[off + i] * S + s];
-        mine += !isnan(v);
-        keys[i] = order_key(sort_value(v, mode));
-      } else {
-        keys[i] = ~0ull;
-      }
+      keys[i] = i < size ? order_key(sort_value(x[members[off + i] * S + s], mode)) : ~0ull;
       pos[i] = i;
     }
-    if (mine) atomicAdd(&n_present, mine);
     __syncthreads();
     bitonic_sort(keys, pos, P);
-    if (mode == kQuantile) {
-      if (tid == 0) {
-        const double np = (double)n_present;
-        double q = nan;
-        if (np > 0.0) {
-          const double h = phi * (np - 1.0 > 0.0 ? np - 1.0 : 0.0);
-          const double lo = floor(h);
-          const double frac = h - lo;
-          // the sorted keys, as the reference interpolates them (a NaN
-          // lane tied with a real +inf reads as +inf)
-          const double v_lo = sort_value(x[members[off + pos[(long long)lo]] * S + s], mode);
-          const double v_hi = sort_value(x[members[off + pos[(long long)ceil(h)]] * S + s], mode);
-          q = v_lo + (v_hi - v_lo) * frac;
-        }
-        out[g * S + s] = q;
-      }
-    } else {
-      for (int i = tid; i < size; i += nt) {
-        const long long lane = members[off + pos[i]];
-        const bool kept = i < k;
-        out[lane * S + s] = kept ? x[lane * S + s] : nan;
-        if (kept) present[lane] = 1;
-        if (s == S - 1) rank[lane] = kept ? (long long)i : kNoRank;
-      }
+    for (int i = tid; i < size; i += nt) {
+      const long long lane = members[off + pos[i]];
+      const bool kept = i < k;
+      out[lane * S + s] = kept ? x[lane * S + s] : nan;
+      if (kept) present[lane] = 1;
+      if (s == S - 1) rank[lane] = kept ? (long long)i : kNoRank;
     }
     __syncthreads();  // the pairs are rewritten by the next item
   }
@@ -380,6 +357,488 @@ __global__ void __launch_bounds__(kMergeThreads) topk_merge_kernel(
   thr_pos[f * S + s] = held == k ? lp[(k - 1) * kMergeThreads] : kNoPos;
   if (s == S - 1)
     for (int j = 0; j < held; ++j) rank[members[lp[j * kMergeThreads]]] = j;
+}
+
+// QK6 (quantile by) is a selection of each (group, step)'s two order
+// statistics, an MSB-first radix select over the 64-bit order key: no sort.
+// It reads x through the chunk table as QK7 does (one warp per (chunk, tile
+// of 32 steps), lane w on step w, coalesced 256-byte row loads).  A group's
+// ranks are low = floor(h) and high = ceil(h), h = phi * (n - 1), over its
+// n present cells: a NaN cell never holds a rank below n (it ties with +inf
+// at worst and then reads as +inf), so only present cells are counted and
+// ranked.  A step's selection moves through these states:
+//   count    n and the least and greatest key (ranks 0 and n - 1 are then
+//            known: phi 0 and 1, and a step whose cells are all equal, end
+//            here);
+//   radix    count the next kGqDigit-bit digit of (key - lo_k) >> shift over
+//            the candidates, the keys in [lo_k, hi_k], and take their least
+//            and greatest key; the bucket holding low, cut to those two,
+//            becomes the candidates (candidates all of one key, or shift 0:
+//            that key is the answer, so long runs of ties end early);
+//   listing  gather the candidates' keys (at most the list's capacity) and
+//            rank them;
+//   split    low is the greatest key of one bucket and high the least of the
+//            next non-empty one: a max and a min over the candidates.
+// The first digit starts below the bits that the least and the greatest key
+// share, so values of one magnitude do not spend passes on their common
+// exponent.  The result is v_lo + (v_hi - v_lo) * frac, in the reference's
+// order of operations (the file is built with --fmad=false), with v_lo and
+// v_hi the values of the two keys.  Equal keys hold equal values but for the
+// zero key (+0.0 and -0.0), whose lane order the reference's stable sort
+// keeps; it is read as +0.0 all the same, because no zero's sign reaches the
+// result: with v_lo a zero, v_hi >= v_lo makes (v_hi - v_lo) * frac +0.0 or
+// of v_hi's sign, and -0.0 + +0.0 is +0.0; with only v_hi a zero, v_hi -
+// v_lo is positive either way.  So no rank is traced to its lane.
+//
+// A group of one chunk (at most CHUNK lanes, empty groups too) is settled by
+// its warp in the first launch: it re-reads its rows (which stay in L1/L2)
+// once per state, with each lane's digit counts in its own column of the
+// warp's shared histogram and its list (at most kGqRegs keys) in registers.
+// The chunks of a group of several ("a fold") share a global state per
+// (fold, step) (GqScratch): each launch is one pass, every chunk of the fold
+// adds its counts with integer atomics (exact, so the result does not depend
+// on their order), and the warp of the (fold, tile) that arrives last
+// updates the tile's states.  The count pass
+// also records which chunk tiles hold any present cell (later passes skip
+// the rest: padding lanes cost one read).  quantile_finish_kernel, a warp per
+// (fold, step), ranks a listed step's candidates and writes the result.  A
+// launch whose previous launch left no step to read returns at once.
+//
+// Grid: a warp per (chunk, tile) in the first launch, per (chunk of a fold,
+// tile) after it, a warp per (fold, step) in the finish: sized by the work.
+// What bounds it on an H100: bytes (each cell read once by the count pass;
+// the radix, listing and split passes read the chunk tiles that hold present
+// cells of steps still selecting, from L2 where they fit).
+
+constexpr int kGqDigit = 6;      // key bits a radix pass resolves
+constexpr int kGqBuckets = 1 << kGqDigit;
+constexpr int kGqWarps = 8;      // warps a block
+constexpr int kGqMinBlocks = 4;  // blocks an SM holds (caps the registers)
+constexpr int kGqBatch = 8;      // rows loaded ahead
+constexpr int kGqList = 32;      // a fold's listed candidates (the finish's warp ranks them)
+constexpr int kGqPer = kGqList / 32;          // listed candidates a lane of the finish holds
+static_assert(kGqList % 32 == 0 && kGqList >= 32, "a whole number of keys a lane");
+constexpr int kGqRegs = 8;                    // a one-chunk group's listed candidates (registers)
+// Launches of the chunk kernel: the count pass, then radix passes at shifts
+// of at most 58, 52, ..., 4 and one at 0, or a listing or split pass after
+// one of the first ten: at most 11 more.
+constexpr int kGqLaunches = 12;
+
+// count, radix, listing and split read x; listed and done do not.
+enum GqMode : int { kGqCount = 0, kGqRadix = 1, kGqListing = 2, kGqSplit = 3, kGqListed = 4,
+                    kGqDone = 5 };
+
+// A step's selection state (zero: count).
+struct GqStep {
+  unsigned long long lo_k, hi_k;      // the candidates' keys (split: low's bucket)
+  unsigned long long lo2, hi2;        // split: high's bucket
+  unsigned long long key_lo, key_hi;  // done: the keys at ranks low and high
+  long long r;                        // low's rank among the candidates
+  long long n;                        // present cells
+  int mode, shift, d, pad;            // d = high - low
+};
+
+struct GqScratch {
+  GqStep* steps;               // [F, S]
+  unsigned* hist;              // [F, kGqBuckets, S] digit counts (a warp's steps side by side)
+  unsigned* arrivals;          // [F, n_tiles] warps of a (fold, tile) done with a pass
+  unsigned* active;            // [kGqLaunches] (fold, tile)s left selecting after each launch
+  unsigned* cnt;               // [F, S] the count pass's n, then the listed candidates
+  unsigned long long* kmax;    // [F, S] the greatest key (count, radix); split: low's
+  unsigned long long* kmin_c;  // [F, S] ~ the least key (count, radix); split: ~ high's
+  unsigned long long* list;    // [F, S, kGqList]
+  unsigned* live;              // [n_partial, n_tiles] steps of a chunk tile with a present cell
+};
+
+// Calls f(v) on the cell of each row of CSR positions [lo, hi) at step s, in
+// lane order (NaN where !live); members null: row = position.  Every lane of
+// the warp calls it.
+template <class F>
+__device__ __forceinline__ void gq_rows(const double* __restrict__ x, long long S,
+                                        const long long* __restrict__ members, long long lo,
+                                        long long hi, long long s, bool live, F&& f) {
+  const int col = threadIdx.x & 31;
+  for (long long base = lo; base < hi; base += 32) {
+    const int n = hi - base < 32 ? (int)(hi - base) : 32;
+    const long long mine = col < n ? (members ? members[base + col] : base + col) : 0;
+    for (int j0 = 0; j0 < n; j0 += kGqBatch) {
+      double v[kGqBatch];
+#pragma unroll
+      for (int u = 0; u < kGqBatch; ++u) {
+        const long long row = __shfl_sync(kFull, mine, (j0 + u) & 31);
+        v[u] = live && j0 + u < n ? x[row * S + s] : NAN;
+      }
+#pragma unroll
+      for (int u = 0; u < kGqBatch; ++u)
+        if (j0 + u < n) f(v[u]);
+    }
+  }
+}
+
+__device__ __forceinline__ int gq_shift(unsigned long long span) {
+  const int bits = 64 - __clzll((long long)span);
+  return bits > kGqDigit ? bits - kGqDigit : 0;
+}
+
+__device__ __forceinline__ double gq_interpolate(double v_lo, double v_hi, double phi, long long n) {
+  const double h = phi * ((double)n - 1.0);
+  const double frac = h - floor(h);
+  return v_lo + (v_hi - v_lo) * frac;
+}
+
+// The state after the count pass: n present cells, least key mn, greatest mx.
+__device__ void gq_start(GqStep& st, long long n, unsigned long long mn, unsigned long long mx,
+                         double phi, int cap) {
+  st.n = n;
+  st.mode = kGqDone;
+  if (n == 0) return;
+  const double h = phi * ((double)n - 1.0);
+  const double lo = floor(h);
+  st.r = (long long)lo;
+  st.d = (int)(ceil(h) - lo);
+  const long long top = n - 1, r2 = st.r + st.d;
+  if (mn == mx || ((st.r == 0 || st.r == top) && (r2 == 0 || r2 == top))) {
+    st.key_lo = st.r == 0 ? mn : mx;  // ranks 0 and n - 1 (all one key: mn == mx)
+    st.key_hi = r2 == 0 ? mn : mx;
+    return;
+  }
+  st.lo_k = mn;
+  st.hi_k = mx;
+  st.shift = gq_shift(mx - mn);
+  st.mode = n <= cap ? kGqListing : kGqRadix;
+}
+
+// The state after a radix pass; count(b) gives bucket b's candidates.
+template <class Count>
+__device__ void gq_radix_step(GqStep& st, Count count, int cap) {
+  long long before = 0, cb = count(0);
+  int b = 0;
+  while (b < kGqBuckets - 1 && st.r >= before + cb) {
+    before += cb;
+    cb = count(++b);
+  }
+  const unsigned long long width = (1ull << st.shift) - 1ull;  // shift <= 58
+  const unsigned long long base = st.lo_k + ((unsigned long long)b << st.shift);
+  const unsigned long long top = st.hi_k - base < width ? st.hi_k : base + width;
+  if (st.r + st.d < before + cb) {  // both ranks in bucket b
+    st.r -= before;
+    st.lo_k = base;
+    st.hi_k = top;
+    if (st.shift == 0) {
+      st.mode = kGqDone;
+      st.key_lo = st.key_hi = base;
+    } else if (cb <= cap) {
+      st.mode = kGqListing;
+    } else {
+      st.shift = gq_shift(top - base);
+    }
+    return;
+  }
+  // low is the last candidate of bucket b, high the first of the next non-empty one
+  int nb = b + 1;
+  while (nb < kGqBuckets - 1 && count(nb) == 0) ++nb;
+  const unsigned long long base2 = st.lo_k + ((unsigned long long)nb << st.shift);
+  const unsigned long long top2 = st.hi_k - base2 < width ? st.hi_k : base2 + width;
+  if (st.shift == 0) {
+    st.mode = kGqDone;
+    st.key_lo = base;
+    st.key_hi = base2;
+    return;
+  }
+  st.mode = kGqSplit;
+  st.lo_k = base;
+  st.hi_k = top;
+  st.lo2 = base2;
+  st.hi2 = top2;
+}
+
+// The state after a radix pass whose candidates' keys ran from cmin to cmax.
+template <class Count>
+__device__ void gq_radix_done(GqStep& st, Count count, unsigned long long cmin,
+                              unsigned long long cmax, int cap) {
+  if (cmin == cmax) {
+    st.mode = kGqDone;
+    st.key_lo = st.key_hi = cmin;
+    return;
+  }
+  gq_radix_step(st, count, cap);
+  if (st.mode == kGqRadix || st.mode == kGqListing) {  // bucket b's candidates lie in both
+    st.lo_k = st.lo_k > cmin ? st.lo_k : cmin;
+    st.hi_k = st.hi_k < cmax ? st.hi_k : cmax;
+    st.shift = gq_shift(st.hi_k - st.lo_k);
+  }
+}
+
+__device__ __forceinline__ bool gq_in(unsigned long long key, unsigned long long lo,
+                                      unsigned long long hi) {
+  return key >= lo && key <= hi;
+}
+
+// One cell v of a pass in `mode` over a step in state st (every mode that
+// reads x): count takes n and the extremes; radix counts the digit in the
+// lane's column of h and takes the candidates' extremes; listing hands each
+// candidate's key to list; split takes low's bucket's greatest key into mx
+// and high's least into mn.
+template <class List>
+__device__ __forceinline__ void gq_cell(const GqStep& st, int mode, double v,
+                                        unsigned short* __restrict__ h, int col, long long& n,
+                                        unsigned long long& mn, unsigned long long& mx,
+                                        List&& list) {
+  if (isnan(v)) return;
+  const unsigned long long key = order_key(v);
+  if (mode == kGqCount) {
+    ++n;
+    mn = key < mn ? key : mn;
+    mx = key > mx ? key : mx;
+  } else if (mode == kGqRadix) {
+    if (gq_in(key, st.lo_k, st.hi_k)) {
+      ++h[((key - st.lo_k) >> st.shift) * 32 + col];
+      mn = key < mn ? key : mn;
+      mx = key > mx ? key : mx;
+    }
+  } else if (mode == kGqListing) {
+    if (gq_in(key, st.lo_k, st.hi_k)) list(key);
+  } else if (gq_in(key, st.lo_k, st.hi_k)) {  // split
+    mx = key > mx ? key : mx;
+  } else if (gq_in(key, st.lo2, st.hi2)) {
+    mn = key < mn ? key : mn;
+  }
+}
+
+// A group of one chunk, rows [lo, hi): the whole selection of each lane's
+// step, then out[g, s].  Every lane of the warp calls it.
+__device__ void gq_one_chunk(const double* __restrict__ x, long long S,
+                             const long long* __restrict__ members, long long lo, long long hi,
+                             long long g, long long s, bool live, double phi,
+                             unsigned short* __restrict__ h, double* __restrict__ out) {
+  const int col = threadIdx.x & 31;
+  GqStep st{};  // count
+  bool zeroed = false;
+  while (__any_sync(kFull, st.mode < kGqListed)) {
+    const int mode = st.mode;
+    if (mode == kGqRadix && !zeroed) {  // the lane's own column: no other lane touches it
+      for (int b = 0; b < kGqBuckets; ++b) h[b * 32 + col] = 0;
+      zeroed = true;
+    }
+    unsigned long long lst[kGqRegs];  // ascending; kNone past the listed keys
+#pragma unroll
+    for (int j = 0; j < kGqRegs; ++j) lst[j] = kNone;
+    long long n = 0;
+    unsigned long long mn = ~0ull, mx = 0;
+    gq_rows(x, S, members, lo, hi, s, live && mode < kGqListed, [&](double v) {
+      gq_cell(st, mode, v, h, col, n, mn, mx, [&](unsigned long long key) {
+#pragma unroll
+        for (int j = 0; j < kGqRegs; ++j) {
+          const unsigned long long a = lst[j];
+          lst[j] = key < a ? key : a;
+          key = key < a ? a : key;
+        }
+      });
+    });
+    if (mode == kGqCount) {
+      gq_start(st, n, mn, mx, phi, kGqRegs);
+    } else if (mode == kGqRadix) {
+      gq_radix_done(st, [&](int b) { return (long long)h[b * 32 + col]; }, mn, mx, kGqRegs);
+      for (int b = 0; b < kGqBuckets; ++b) h[b * 32 + col] = 0;
+    } else if (mode == kGqListing) {
+#pragma unroll
+      for (int j = 0; j < kGqRegs; ++j) {
+        if (j == st.r) st.key_lo = lst[j];
+        if (j == st.r + st.d) st.key_hi = lst[j];
+      }
+      st.mode = kGqDone;
+    } else if (mode == kGqSplit) {
+      st.key_lo = mx;
+      st.key_hi = mn;
+      st.mode = kGqDone;
+    }
+  }
+  if (live)
+    out[g * S + s] = st.n > 0 ? gq_interpolate(key_value(st.key_lo), key_value(st.key_hi), phi,
+                                                st.n)
+                              : NAN;
+}
+
+// One pass of a fold's chunk ch (rows [lo, hi)) over a tile; the warp of
+// the (fold, tile) that arrives last updates the tile's states.  Every lane
+// of the warp calls it.
+__device__ void gq_fold_pass(const double* __restrict__ x, long long S,
+                             const long long* __restrict__ members, long long lo, long long hi,
+                             long long ch, long long f, long long tile, long long n_tiles,
+                             const long long* __restrict__ folds, long long n_folds, double phi,
+                             int pass, unsigned short* __restrict__ h, const GqScratch& sc) {
+  const int col = threadIdx.x & 31;
+  const long long s = tile * 32 + col;
+  const bool live = s < S;
+  const long long fs = f * S + s;
+  GqStep st{};
+  st.mode = kGqDone;
+  if (live) st = sc.steps[fs];
+  const int mode = st.mode;
+  const bool reads = mode < kGqListed;
+  if (!__any_sync(kFull, reads)) return;  // the fold's warps of this tile agree: none arrives
+  if (mode == kGqRadix)
+    for (int b = 0; b < kGqBuckets; ++b) h[b * 32 + col] = 0;
+  long long n = 0;
+  unsigned long long mx = 0, mn = ~0ull;  // count, radix: the extremes; split: low's max, high's min
+  if (pass == 0 || sc.live[ch * n_tiles + tile] != 0) {
+    gq_rows(x, S, members, lo, hi, s, live && reads, [&](double v) {
+      gq_cell(st, mode, v, h, col, n, mn, mx, [&](unsigned long long key) {
+        const unsigned at = atomicAdd(&sc.cnt[fs], 1u);
+        if (at < (unsigned)kGqList) sc.list[fs * kGqList + at] = key;
+      });
+    });
+  }
+  if (live) {  // this chunk's share
+    if (mode == kGqCount && n) {
+      atomicAdd(&sc.cnt[fs], (unsigned)n);
+      atomicMax(&sc.kmax[fs], mx);
+      atomicMax(&sc.kmin_c[fs], ~mn);
+    } else if (mode == kGqRadix || mode == kGqSplit) {
+      if (mode == kGqRadix)
+        for (int b = 0; b < kGqBuckets; ++b) {
+          const unsigned c = h[b * 32 + col];
+          if (c) atomicAdd(&sc.hist[(f * kGqBuckets + b) * S + s], c);
+        }
+      if (mx != 0) atomicMax(&sc.kmax[fs], mx);  // a present cell's key is never 0
+      if (mn != ~0ull) atomicMax(&sc.kmin_c[fs], ~mn);
+    }
+  }
+  if (pass == 0) {
+    const unsigned any = __ballot_sync(kFull, n > 0);
+    if (col == 0) sc.live[ch * n_tiles + tile] = any;
+  }
+  __syncwarp();
+  __threadfence();
+  int last = 0;
+  if (col == 0)
+    last = atomicAdd(&sc.arrivals[f * n_tiles + tile], 1u) ==
+           (unsigned)(folds[2 * n_folds + f] - 1);
+  if (!__shfl_sync(kFull, last, 0)) return;
+  __threadfence();
+  if (col == 0) sc.arrivals[f * n_tiles + tile] = 0;
+  if (live && reads) {
+    if (mode == kGqCount) {
+      const long long n_all = __ldcg(&sc.cnt[fs]);
+      const unsigned long long kx = __ldcg(&sc.kmax[fs]), kn = ~__ldcg(&sc.kmin_c[fs]);
+      sc.cnt[fs] = 0;
+      sc.kmax[fs] = 0;
+      sc.kmin_c[fs] = 0;
+      gq_start(st, n_all, kn, kx, phi, kGqList);
+    } else if (mode == kGqRadix) {
+      unsigned* g = sc.hist + f * kGqBuckets * S + s;
+      unsigned c[kGqBuckets];  // loaded together, not one dependent load a bucket
+#pragma unroll
+      for (int b = 0; b < kGqBuckets; ++b) c[b] = __ldcg(g + b * S);
+      const unsigned long long kx = __ldcg(&sc.kmax[fs]), kn = ~__ldcg(&sc.kmin_c[fs]);
+      sc.kmax[fs] = 0;
+      sc.kmin_c[fs] = 0;
+      gq_radix_done(st, [&](int b) { return (long long)c[b]; }, kn, kx, kGqList);
+      for (int b = 0; b < kGqBuckets; ++b) g[b * S] = 0;
+    } else if (mode == kGqListing) {
+      st.mode = kGqListed;
+    } else {  // split
+      st.key_lo = __ldcg(&sc.kmax[fs]);
+      st.key_hi = ~__ldcg(&sc.kmin_c[fs]);
+      st.mode = kGqDone;
+    }
+    sc.steps[fs] = st;
+  }
+  if (__any_sync(kFull, live && st.mode < kGqListed) && col == 0) atomicAdd(&sc.active[pass], 1u);
+}
+
+// chunks i64[5, n_table] and folds i64[3, n_folds] as QK7's; the warps take
+// the (chunk, tile) units of chunks [0, n_work).  Launch `pass` 0 settles
+// every group of one chunk and counts the folds; later launches are the
+// folds' passes.
+__global__ void __launch_bounds__(kGqWarps * 32, kGqMinBlocks) quantile_chunk_kernel(
+    const double* __restrict__ x, long long S, const long long* __restrict__ members,
+    const long long* __restrict__ chunks, long long n_table, long long n_work, long long n_tiles,
+    const long long* __restrict__ folds, long long n_folds, double phi, int pass, GqScratch sc,
+    double* __restrict__ out) {
+  __shared__ unsigned short hist[kGqWarps][kGqBuckets * 32];  // [bucket][lane] per warp
+  if (pass > 0 && __ldcg(&sc.active[pass - 1]) == 0) return;   // nothing left to select
+  const int warp = threadIdx.x >> 5, col = threadIdx.x & 31;
+  const long long unit = (long long)blockIdx.x * kGqWarps + warp;
+  if (unit >= n_work * n_tiles) return;  // warp-uniform
+  const long long ch = unit / n_tiles, tile = unit % n_tiles;
+  const long long lo = chunks[ch], hi = chunks[n_table + ch], f = chunks[3 * n_table + ch];
+  if (f < 0) {
+    const long long s = tile * 32 + col;
+    gq_one_chunk(x, S, members, lo, hi, chunks[2 * n_table + ch], s, s < S, phi, hist[warp], out);
+    return;
+  }
+  gq_fold_pass(x, S, members, lo, hi, ch, f, tile, n_tiles, folds, n_folds, phi, pass, hist[warp],
+               sc);
+}
+
+// Each fold's steps from their states, a warp per (fold, step): a listed
+// step's candidates ranked first (one a lane), then out[g, s].
+__global__ void __launch_bounds__(kGqWarps * 32) quantile_finish_kernel(
+    long long S, const long long* __restrict__ folds, long long n_folds, double phi,
+    GqScratch sc, double* __restrict__ out) {
+  const int col = threadIdx.x & 31;
+  const long long fs = (long long)blockIdx.x * kGqWarps + (threadIdx.x >> 5);
+  if (fs >= n_folds * S) return;  // warp-uniform
+  const long long f = fs / S, s = fs % S;
+  GqStep st = sc.steps[fs];
+  if (st.mode == kGqListed) {
+    const unsigned m = sc.cnt[fs];
+    unsigned long long key[kGqPer];  // entry q * 32 + col
+    int rank[kGqPer];                // among the listed keys, ties by entry
+#pragma unroll
+    for (int q = 0; q < kGqPer; ++q) {
+      key[q] = (unsigned)(q * 32 + col) < m ? sc.list[fs * kGqList + q * 32 + col] : kNone;
+      rank[q] = 0;
+    }
+    for (int j = 0; j < 32; ++j) {
+#pragma unroll
+      for (int p = 0; p < kGqPer; ++p) {
+        const unsigned long long kj = __shfl_sync(kFull, key[p], j);
+#pragma unroll
+        for (int q = 0; q < kGqPer; ++q)
+          rank[q] += kj < key[q] || (kj == key[q] && p * 32 + j < q * 32 + col);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kGqPer; ++q) {
+      const unsigned at_lo = __ballot_sync(kFull, rank[q] == st.r);
+      const unsigned at_hi = __ballot_sync(kFull, rank[q] == st.r + st.d);
+      const unsigned long long klo = __shfl_sync(kFull, key[q], at_lo ? __ffs(at_lo) - 1 : 0);
+      const unsigned long long khi = __shfl_sync(kFull, key[q], at_hi ? __ffs(at_hi) - 1 : 0);
+      if (at_lo) st.key_lo = klo;
+      if (at_hi) st.key_hi = khi;
+    }
+  }
+  if (col == 0)
+    out[folds[f] * S + s] = st.n > 0 ? gq_interpolate(key_value(st.key_lo), key_value(st.key_hi),
+                                                      phi, st.n)
+                                     : NAN;
+}
+
+// QK6's scratch carved from `base` (null: sizes only); returns its bytes,
+// and in *zeroed the bytes of its head that start at zero.
+long long gq_layout(long long F, long long n_partial, long long S, void* base, GqScratch* sc,
+                    long long* zeroed) {
+  const long long n_tiles = (S + 31) / 32;
+  char* p = (char*)base;
+  long long at = 0;
+  auto take = [&](long long bytes) {
+    void* q = p ? p + at : nullptr;
+    at += (bytes + 15) / 16 * 16;
+    return q;
+  };
+  sc->steps = (GqStep*)take(F * S * (long long)sizeof(GqStep));
+  sc->hist = (unsigned*)take(F * kGqBuckets * S * 4LL);
+  sc->arrivals = (unsigned*)take(F * n_tiles * 4LL);
+  sc->active = (unsigned*)take(kGqLaunches * 4LL);
+  sc->cnt = (unsigned*)take(F * S * 4LL);
+  sc->kmax = (unsigned long long*)take(F * S * 8LL);
+  sc->kmin_c = (unsigned long long*)take(F * S * 8LL);
+  *zeroed = at;
+  sc->list = (unsigned long long*)take(F * S * kGqList * 8LL);
+  sc->live = (unsigned*)take(n_partial * n_tiles * 4LL);
+  return at;
 }
 
 // jnp.searchsorted(t, q, side="right") as JAX computes it: a fixed number
@@ -933,7 +1392,6 @@ __device__ __forceinline__ PercentilePick percentile_pick(double n, double qf) {
 
 __device__ __forceinline__ double present_or_inf(double v) { return isnan(v) ? INFINITY : v; }
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kColWarps = 8;       // warps per block of the column passes
 constexpr int kColChunk = 256;     // lanes a warp sweeps per unit
 constexpr int kColRows = 8;        // rows loaded ahead
@@ -1338,33 +1796,85 @@ __global__ void __launch_bounds__(kRowWarps * 32) graphite_percentile_rows_kerne
 
 extern "C" {
 
-// x f64[L, S]; members i64[offsets[G]] (lane ids, ascending within a group),
-// offsets i64[G + 1].  mode 0 (quantile at phi, 0 <= phi <= 1): out f64[G, S].
-// mode 1/2 (topk/bottomk of k >= 1; every lane in exactly one group): out
-// f64[L, S], present i32[L] (zeroed by the caller), rank i64[L].
-// p_smem is the largest padded group size that sorts in shared memory (0 if
-// none); p_scratch the largest padded size above it (0 if none), with
-// scratch keys u64[grid, p_scratch] and positions i32[grid, p_scratch].
-// Launches on `stream` and returns cudaGetLastError() (a p_smem above the
-// device's shared-memory opt-in fails at cudaFuncSetAttribute).
+// QK7 for k > kKMax, topk (mode 1) or bottomk (mode 2): x f64[L, S]; members
+// i64[offsets[G]] (lane ids, ascending within a group; every lane in exactly
+// one group), offsets i64[G + 1] -> out f64[L, S], present i32[L] (zeroed by
+// the caller), rank i64[L].  p_smem is the largest padded group size that
+// sorts in shared memory (0 if none); p_scratch the largest padded size above
+// it (0 if none), with scratch keys u64[grid, p_scratch] and positions
+// i32[grid, p_scratch].  Launches on `stream` and returns cudaGetLastError()
+// (a p_smem above the device's shared-memory opt-in fails at
+// cudaFuncSetAttribute).
 int m3_query_select(const double* x, long long S, const long long* members,
-                    const long long* offsets, long long n_groups, int mode, double phi,
-                    long long k, int p_smem, long long p_scratch,
-                    unsigned long long* scratch_keys, int* scratch_pos, int grid, int threads,
-                    double* out, int* present, long long* rank, void* stream) {
-  if (mode < kQuantile || mode > kBottomk || p_smem < 0 || grid < 1 ||
+                    const long long* offsets, long long n_groups, int mode, long long k, int p_smem,
+                    long long p_scratch, unsigned long long* scratch_keys, int* scratch_pos,
+                    int grid, int threads, double* out, int* present, long long* rank,
+                    void* stream) {
+  if (mode < kTopk || mode > kBottomk || p_smem < 0 || grid < 1 ||
       (p_scratch > 0 && (p_scratch <= p_smem || scratch_keys == nullptr || scratch_pos == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n_groups <= 0 || S <= 0) return (int)cudaSuccess;
   const size_t smem = (size_t)p_smem * (sizeof(unsigned long long) + sizeof(int));
-  // 4,096 pairs are 48 KB, which with the static counter is over the
-  // default limit: opt in to the dynamic size every launch asks for
+  // 4,096 pairs are 48 KB, at the default limit: opt in to the dynamic size
+  // every launch asks for
   cudaError_t rc = cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem);
   if (rc != cudaSuccess) return (int)rc;
   select_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, S, members, offsets, n_groups, mode, phi, k, p_smem, p_scratch, scratch_keys, scratch_pos,
-      out, present, rank);
+      x, S, members, offsets, n_groups, mode, k, p_smem, p_scratch, scratch_keys, scratch_pos, out,
+      present, rank);
+  return (int)cudaGetLastError();
+}
+
+// QK6's scratch: the bytes m3_query_quantile needs for n_folds groups of
+// several chunks holding n_partial chunks, over S steps (0 when n_partial is
+// 0: groups of one chunk need none).
+long long m3_query_quantile_scratch(long long n_folds, long long n_partial, long long S) {
+  if (n_partial <= 0 || S <= 0) return 0;
+  GqScratch sc;
+  long long zeroed;
+  return gq_layout(n_folds, n_partial, S, nullptr, &sc, &zeroed);
+}
+
+// QK6, quantile by at phi (0 <= phi <= 1): x f64[L, S]; members i64[K] (lane
+// ids, ascending within a group; null: lanes in order); chunks i64[5,
+// n_chunks] and folds i64[3, n_folds] (ops/query_grouped.py:chunk_plan, the
+// n_partial chunks of the folds first) -> out f64[G, S], G the groups of the
+// table.  scratch: at least m3_query_quantile_scratch(n_folds, n_partial, S)
+// bytes.  Launches on `stream` (one launch without folds; else a memset,
+// kGqLaunches chunk launches and the finish) and returns cudaGetLastError().
+int m3_query_quantile(const double* x, long long S, const long long* members,
+                      const long long* chunks, long long n_chunks, long long n_partial,
+                      const long long* folds, long long n_folds, double phi, void* scratch,
+                      long long scratch_bytes, double* out, void* stream) {
+  if (!(phi >= 0.0 && phi <= 1.0) || n_chunks < 0 || n_partial < 0 || n_partial > n_chunks ||
+      n_folds < 0 || (n_partial > 0 && n_folds == 0))
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0 || S <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n_tiles = (S + 31) / 32;
+  GqScratch sc{};
+  if (n_partial > 0) {
+    long long zeroed;
+    if (scratch == nullptr ||
+        scratch_bytes < gq_layout(n_folds, n_partial, S, nullptr, &sc, &zeroed))
+      return (int)cudaErrorInvalidValue;
+    gq_layout(n_folds, n_partial, S, scratch, &sc, &zeroed);
+    cudaError_t rc = cudaMemsetAsync(scratch, 0, (size_t)zeroed, st);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const long long blocks = (n_chunks * n_tiles + kGqWarps - 1) / kGqWarps;
+  const long long finish = (n_folds * S + kGqWarps - 1) / kGqWarps;
+  if (blocks > 0x7fffffffLL || finish > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < (n_partial > 0 ? kGqLaunches : 1); ++p) {
+    const long long work = p == 0 ? n_chunks : n_partial;
+    quantile_chunk_kernel<<<(unsigned)((work * n_tiles + kGqWarps - 1) / kGqWarps),
+                            kGqWarps * 32, 0, st>>>(x, S, members, chunks, n_chunks, work,
+                                                    n_tiles, folds, n_folds, phi, p, sc, out);
+  }
+  if (n_partial > 0)
+    quantile_finish_kernel<<<(unsigned)finish, kGqWarps * 32, 0, st>>>(S, folds, n_folds, phi, sc,
+                                                                       out);
   return (int)cudaGetLastError();
 }
 

@@ -98,7 +98,8 @@ def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed, with
     the ``argtypes`` of the entries in ``signatures`` set and an ``int``
-    return type.  Each signatures table is bound once, on its first
+    return type (an entry given as ``(argtypes, restype)`` returns
+    ``restype``).  Each signatures table is bound once, on its first
     request; later calls with the same table only look it up."""
     hit = _bound.get((name, id(signatures)))
     if hit is not None:
@@ -111,12 +112,13 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             lib.m3_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         # several modules may bind entries of one source, never differently
-        for fn, argtypes in signatures.items():
+        for fn, sig in signatures.items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
             entry = getattr(lib, fn)
             if entry.argtypes is not None and list(entry.argtypes) != list(argtypes):
                 raise ValueError(f"{name}.{fn} bound with two signatures")
             entry.argtypes = argtypes
-            entry.restype = ctypes.c_int
+            entry.restype = restype
         # the table is kept, so its id names it for as long as the entry lives
         _bound[(name, id(signatures))] = (lib, signatures)
         return lib

@@ -45,8 +45,6 @@ leave values there, as the reference does.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from m3_tpu_torch.ops import _build, ieee, query_grouped
@@ -173,6 +171,7 @@ _SELECT_SIGNATURES = {
     "m3_graphite_percentile": [_build.P, _build.LL, _build.LL, _build.I, _build.I, _build.D,
                                _build.I, _build.LL, _build.P, _build.P, _build.I, _build.P,
                                _build.P],
+    "m3_graphite_percentile_scratch": ([_build.LL, _build.LL], _build.LL),
 }
 
 
@@ -184,9 +183,7 @@ def _launch_percentile(x: torch.Tensor, mode: int, qf: float, real_S: int) -> to
         out = torch.empty((S,), dtype=F64, device=dev)
         if not (L and S):
             return out.fill_(NAN)
-        size = lib.m3_graphite_percentile_scratch
-        size.argtypes, size.restype = [_build.LL, _build.LL], ctypes.c_longlong
-        p_smem, grid, p_scratch = 0, 0, int(size(L, S))
+        p_smem, grid, p_scratch = 0, 0, int(lib.m3_graphite_percentile_scratch(L, S))
         scratch = torch.empty((p_scratch,), dtype=torch.uint8, device=dev)
         keys_ptr, pos_ptr = scratch.data_ptr(), None
     else:  # a warp per lane over its real_S steps

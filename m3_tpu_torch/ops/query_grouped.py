@@ -9,8 +9,9 @@ case, 0.0 where nothing is present), of ``_graphite_grouped_reduce``'s
 NaN-reductions (``ops/graphite.py`` calls ``grouped_reduce`` with the
 further ops multiply, range, diff and last and with numpy's value over
 nothing as ``empty_value``) and of ``_grouped_quantile`` (QK6,
-``grouped_quantile``: the phi-quantile of each group's present cells, in
-``csrc/query_select.cu``, which QK7 ``ops/lane_topk.py`` shares).
+``grouped_quantile``: the phi-quantile of each group's present cells, a
+radix selection over the chunk table in ``csrc/query_select.cu``, which QK7
+``ops/lane_topk.py`` shares).
 
 - On a CUDA tensor ``grouped_reduce`` and ``fleet_nansum`` launch
   ``csrc/query_grouped.cu`` or raise.  The kernel takes a stable CSR of
@@ -55,12 +56,12 @@ OPS = AGGS + ("multiply", "range", "diff", "last", "sqdev")
 # steps, and fold or merge a larger group's chunks in a second pass.
 CHUNK = 256
 # Largest k of the topk/bottomk selection (kKMax of csrc/query_select.cu);
-# a larger k sorts each group (the select kernel's topk mode).
+# a larger k sorts each group (the select kernel).
 K_MAX = 32
-# Largest padded group (pairs) that csrc/query_select.cu sorts in shared
-# memory (48 KB); larger groups sort in a global scratch buffer.
+# Largest padded group (pairs) that the select kernel sorts in shared memory
+# (48 KB); larger groups sort in a global scratch buffer.
 SELECT_SMEM_MAX_P = 4096
-SELECT_QUANTILE, SELECT_TOPK, SELECT_BOTTOMK = 0, 1, 2  # enum Mode of the kernel
+SELECT_TOPK, SELECT_BOTTOMK = 1, 2  # enum Mode of csrc/query_select.cu
 NO_RANK = 2**62  # the reference's rank of a lane not kept at the last step
 
 
@@ -241,9 +242,12 @@ _SIGNATURES = {
                          _build.P, _build.P],
 }
 _SELECT_SIGNATURES = {
-    "m3_query_select": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I, _build.D,
-                        _build.LL, _build.I, _build.LL, _build.P, _build.P, _build.I, _build.I,
-                        _build.P, _build.P, _build.P, _build.P],
+    "m3_query_select": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I, _build.LL,
+                        _build.I, _build.LL, _build.P, _build.P, _build.I, _build.I, _build.P,
+                        _build.P, _build.P, _build.P],
+    "m3_query_quantile": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.LL, _build.P,
+                          _build.LL, _build.D, _build.P, _build.LL, _build.P, _build.P],
+    "m3_query_quantile_scratch": ([_build.LL, _build.LL, _build.LL], _build.LL),
     "m3_query_topk": [_build.P, _build.LL, _build.P, _build.P, _build.LL, _build.LL, _build.P,
                       _build.LL, _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
                       _build.P, _build.P, _build.P, _build.P],
@@ -397,10 +401,10 @@ def pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def launch_select(x: torch.Tensor, index: GroupIndex, mode: int, phi: float = 0.0, k: int = 0):
-    """One launch of ``csrc/query_select.cu`` over the groups of ``index``
-    on the CUDA matrix ``x`` [L, S]: quantile (-> f64[G, S]) or
-    topk/bottomk (-> (f64[L, S], bool[L], i64[L]))."""
+def launch_select(x: torch.Tensor, index: GroupIndex, mode: int, k: int):
+    """One launch of ``csrc/query_select.cu``'s select kernel (QK7 for k >
+    ``K_MAX``: a sort per (group, step)) over the groups of ``index`` on the
+    CUDA matrix ``x`` [L, S]: topk/bottomk -> (f64[L, S], bool[L], i64[L])."""
     if x.dim() != 2:
         raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
     dev = x.device
@@ -415,21 +419,44 @@ def launch_select(x: torch.Tensor, index: GroupIndex, mode: int, phi: float = 0.
     grid = max(1, min(G * S, sms * (2 if p_scratch else 8)))
     keys = torch.empty((grid, p_scratch) if p_scratch else (0,), dtype=I64, device=dev)
     pos = torch.empty((grid, p_scratch) if p_scratch else (0,), dtype=torch.int32, device=dev)
-    quantile = mode == SELECT_QUANTILE
-    out = torch.empty((G, S) if quantile else (L, S), dtype=F64, device=dev)
-    present = torch.zeros((0,) if quantile else (L,), dtype=torch.int32, device=dev)
-    rank = torch.empty((0,) if quantile else (L,), dtype=I64, device=dev)
+    out = torch.empty((L, S), dtype=F64, device=dev)
+    present = torch.zeros((L,), dtype=torch.int32, device=dev)
+    rank = torch.empty((L,), dtype=I64, device=dev)
     if G and S and L:
         lib = _build.library("query_select", _SELECT_SIGNATURES)
         rc = lib.m3_query_select(
-            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), G, mode,
-            float(phi), int(k), p_smem, p_scratch, _ptr(keys), _ptr(pos), grid, threads,
-            out.data_ptr(), _ptr(present), _ptr(rank),
-            torch.cuda.current_stream(dev).cuda_stream)
-        kernel = "query_quantile" if quantile else "query_topk[sort]"
-        _build.check(lib, rc, kernel)
-        _build.count_launch(kernel)
-    return out if quantile else (out, present.bool(), rank)
+            xc.data_ptr(), S, _ptr(index.members), index.offsets.data_ptr(), G, mode, int(k),
+            p_smem, p_scratch, _ptr(keys), _ptr(pos), grid, threads, out.data_ptr(),
+            _ptr(present), _ptr(rank), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, rc, "query_topk[sort]")
+        _build.count_launch("query_topk[sort]")
+    return out, present.bool(), rank
+
+
+def launch_quantile(x: torch.Tensor, index: GroupIndex, phi: float) -> torch.Tensor:
+    """One call of ``csrc/query_select.cu``'s quantile-by selection (QK6)
+    over the groups of ``index`` on the CUDA matrix ``x`` [L, S] -> f64[G,
+    S]; its scratch is sized by the chunk table's groups of several chunks."""
+    if x.dim() != 2:
+        raise ValueError(f"expected an [L, S] matrix, got {tuple(x.shape)}")
+    dev = x.device
+    S = x.shape[1]
+    G = len(index.sizes)
+    xc = x.to(F64).contiguous()
+    out = torch.empty((G, S), dtype=F64, device=dev)
+    if not (G and S):
+        return out
+    lib = _build.library("query_select", _SELECT_SIGNATURES)
+    n_folds = index.folds.shape[1]
+    n_bytes = int(lib.m3_query_quantile_scratch(n_folds, index.n_partial, S))
+    scratch = torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
+    rc = lib.m3_query_quantile(
+        xc.data_ptr(), S, _ptr(index.members), _ptr(index.chunks), index.chunks.shape[1],
+        index.n_partial, _ptr(index.folds), n_folds, float(phi), _ptr(scratch), n_bytes,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "query_quantile")
+    _build.count_launch("query_quantile")
+    return out
 
 
 def launch_topk(x: torch.Tensor, index: GroupIndex, mode: int, k: int):
@@ -481,4 +508,4 @@ def grouped_quantile(out: torch.Tensor, groups, n_groups: int, phi,
     if (ids < 0).any():
         raise ValueError("group ids must not be negative")
     index = index if index is not None else group_index(ids, n_groups, out.device)
-    return launch_select(out, index, SELECT_QUANTILE, phi=phi)
+    return launch_quantile(out, index, phi)

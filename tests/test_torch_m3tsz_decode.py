@@ -105,6 +105,23 @@ def test_decode_batched_matches_jax(name, flag_truncation):
         assert got[4][: len(streams)].any() and not got[4][: len(streams)].all()
 
 
+@pytest.mark.parametrize("flag_truncation", [False, True])
+@pytest.mark.parametrize("n_steps", [1, 33])
+def test_decode_batched_steps_match_jax(n_steps, flag_truncation):
+    """K3's grids at step counts around the CUDA kernel's staged tiles (it
+    writes 16 steps a lane at a time): one step, and 33 of the probes' 36
+    records, so that most lanes are cut short (truncation flagged) and the
+    error lanes stop early."""
+    streams, _, _ = _corpus("probes")
+    words, nbits = _pack(streams)
+    want = jdec.decode_batched(words, nbits, n_steps, flag_truncation=flag_truncation)
+    got = tdec.decode_batched(torch.from_numpy(words), torch.from_numpy(nbits), n_steps,
+                              flag_truncation=flag_truncation)
+    for field, g, w in zip(("ts", "vs", "valid", "count", "error"), got, want):
+        assert_same(g, w, f"n_steps={n_steps}.{field}")
+    assert got[4][: len(streams)].any()
+
+
 @pytest.mark.parametrize(
     "name,window,full_agg",
     [("walks", 6, False), ("walks", 6, True), ("probes", 6, False),

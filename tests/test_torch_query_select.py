@@ -9,7 +9,9 @@ PyTorch vs the JAX package, bit for bit.
   QK7 ``lane_topk.masked_topk`` vs ``m3_tpu/ops/lane_topk.masked_topk``:
   ties, +-0.0, NaN and +-Inf cells, groups of 1-25 lanes (below and above
   k), an all-NaN group-step, an all-NaN step, padding lanes on the last
-  (trash / empty) group;
+  (trash / empty) group; QK6 also on groups across the kernel's chunks
+  (CHUNK - 1, CHUNK, CHUNK + 1 and 3 * CHUNK lanes) with NaN padding on
+  group 0 and runs of +-0.0 at the chosen ranks;
 - QK8 ``histo_quantile.bucket_quantile`` vs the reference's row gather +
   ``bucket_quantile``: +Inf count below a finite bucket's, negative and
   zero bounds, total 0, NaN and +-Inf counts, two buckets, padding, and
@@ -115,6 +117,60 @@ def test_grouped_quantile_matches_jax(phi):
     assert np.isnan(want[:5]).any() and np.isfinite(want).any()
 
 
+def _quantile_chunks():
+    """[4 * CHUNK + 37, 8]: groups of CHUNK - 1, CHUNK, CHUNK + 1 and 3 *
+    CHUNK lanes (shuffled), 37 all-NaN padding lanes on group 0, 10% NaN,
+    an all-NaN step (5); steps 0-2 put runs of +-0.0 at the chosen ranks
+    (0: zeros and positives, so phi 0 reads a zero; 1: negatives and zeros,
+    phi 1; 2: mostly zeros, phi 0.9), the others mix negatives, zeros and
+    positives (no infinity: a group's -inf at phi 0 gives -inf + (-inf -
+    -inf) * 0, NaN)."""
+    rng = np.random.default_rng(12)
+    C = query_grouped.CHUNK
+    groups = np.repeat(np.arange(4), [C - 1, C, C + 1, 3 * C])
+    rng.shuffle(groups)
+    pick = lambda vals, p: rng.choice(vals, size=len(groups), p=p)  # noqa: E731
+    cols = [pick([-0.0, 0.0, 1.0, 2.0], [0.3, 0.3, 0.2, 0.2]),
+            pick([-2.0, -1.0, -0.0, 0.0], [0.2, 0.2, 0.3, 0.3]),
+            pick([-1.0, -0.0, 0.0, 1.0], [0.02, 0.47, 0.47, 0.04])]
+    cols += [pick([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0], [0.1, 0.15, 0.25, 0.25, 0.15, 0.1])
+             for _ in range(5)]
+    sv = np.stack(cols, axis=1)
+    sv[rng.random(sv.shape) < 0.1] = np.nan
+    sv[:, 5] = np.nan
+    sv = np.concatenate([sv, np.full((37, 8), np.nan)])
+    return sv, np.concatenate([groups, np.zeros(37, dtype=np.int64)]), 4
+
+
+CHUNK_PHIS = (0.0, 0.9, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_quantile_chunks() -> list:
+    sv, groups, n_groups = _quantile_chunks()
+    run = jax.jit(lambda sv, g, phis: [jq._grouped_quantile(sv, g, n_groups, phis[i])
+                                       for i in range(len(CHUNK_PHIS))])
+    return [np.array(a) for a in run(jnp.asarray(sv), jnp.asarray(groups),
+                                     jnp.asarray(CHUNK_PHIS))]
+
+
+@pytest.mark.parametrize("phi", CHUNK_PHIS)
+def test_grouped_quantile_matches_jax_past_a_chunk(phi):
+    """Groups across the kernel's chunks, padding on group 0, +-0.0 ties
+    at the chosen ranks and an all-NaN step: bit for bit at phi 0 and 1
+    (frac 0: no product to contract), rtol 1e-12 at 0.9 (the FMA)."""
+    sv, groups, n_groups = _quantile_chunks()
+    got = query_grouped.grouped_quantile(torch.from_numpy(sv), groups, n_groups, phi)
+    want = _jax_quantile_chunks()[CHUNK_PHIS.index(phi)]
+    if phi in (0.0, 1.0):
+        assert_same(got, want, f"quantile {phi}")
+    else:
+        assert_close(got, want, 1e-12, f"quantile {phi}")
+        np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    assert np.isnan(want[:, 5]).all() and not np.isnan(want[:, :5]).any()
+    assert (want[:, :3] == 0).sum() >= 4  # the ranks land in the zero runs
+
+
 @pytest.mark.parametrize("phi", [-0.5, 1.5, float("nan")])
 def test_grouped_quantile_refuses_phi_out_of_range(phi):
     sv, groups, n_groups = corpus.select_probes()
@@ -198,9 +254,21 @@ class _FakeSelect:
         self.entries.append(("m3_query_topk", k, n_partial, n_folds))
         return 0
 
-    def m3_query_select(self, x, S, members, offsets, n_groups, mode, phi, k, p_smem, p_scratch,
+    def m3_query_select(self, x, S, members, offsets, n_groups, mode, k, p_smem, p_scratch,
                         keys, pos, grid, threads, out, present, rank, stream):
         self.entries.append(("m3_query_select", k, p_smem, p_scratch))
+        return 0
+
+    @staticmethod
+    def m3_query_quantile_scratch(n_folds, n_partial, S):
+        return 1000 * n_folds + 10 * n_partial + S
+
+    def m3_query_quantile(self, x, S, members, chunks, n_chunks, n_partial, folds, n_folds, phi,
+                          scratch, scratch_bytes, out, stream):
+        assert scratch.numel() == scratch_bytes == self.m3_query_quantile_scratch(
+            n_folds, n_partial, S)
+        self.entries.append(("m3_query_quantile", chunks, n_chunks, n_partial, folds, n_folds,
+                             phi))
         return 0
 
 
@@ -227,6 +295,31 @@ def test_masked_topk_dispatch_by_k(monkeypatch, k, want):
                                            2, k, False)
     assert fake.entries == [want]
     assert out.shape == (len(ids), 8) and present.shape == rank.shape == (len(ids),)
+
+
+def test_grouped_quantile_dispatch(monkeypatch):
+    """QK6's host side: the quantile takes the selection entry with the
+    chunk table of the grouping and a scratch sized by its groups of several
+    chunks (one group of CHUNK + 40 lanes: two chunks, one fold; one group
+    of 3 lanes), and never the select kernel, which QK7 still reaches for
+    k > K_MAX."""
+    fake = _FakeSelect()
+    monkeypatch.setattr(_build, "library", lambda name, sig: fake)
+    monkeypatch.setattr(query_grouped, "_ptr", lambda t: None if t is None or not t.numel() else t)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": 132}))
+    ids = np.zeros(query_grouped.CHUNK + 43, dtype=np.int64)
+    ids[-3:] = 1
+    x = torch.zeros((len(ids), 8), dtype=torch.float64)
+    index = query_grouped.group_index(ids, 2, x.device)
+    out = query_grouped.launch_quantile(x, index, 0.9)
+    assert out.shape == (2, 8)
+    (entry, chunks, n_chunks, n_partial, folds, n_folds, phi), = fake.entries
+    assert (entry, n_chunks, n_partial, n_folds, phi) == ("m3_query_quantile", 3, 2, 1, 0.9)
+    assert chunks is index.chunks and folds is index.folds
+    lane_topk._launch(x, ids, 2, query_grouped.K_MAX + 1, False)
+    assert fake.entries[1][0] == "m3_query_select"
 
 
 # --- QK8 ---------------------------------------------------------------------
