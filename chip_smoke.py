@@ -2227,10 +2227,12 @@ TIMER_QS = (0.5, 0.9, 0.95, 0.99, 0.999)
 CONFIG2_SERIES, CONFIG2_CPU_SERIES = 100_000, 5_000
 CONFIG2_WINDOWS, CONFIG2_BATCHES = 5, 6
 SEAL_LANES = 10_000
-# 64-bit integer operations csrc/m3tsz_encode.cu spends per step, counted from
-# the code: the delta-of-delta (3) and its bucket (8), three field appends of
-# ~10 each (mask, space test, shift, or, count, word test/emit): 41.
-ENC_INT32_OPS_PER_STEP = 2 * 41
+# INT32 operations csrc/m3tsz_encode.cu spends per step, counted from the
+# code (the unit division left out): in 64 bits the delta-of-delta (2), its
+# bucket (8) and three fields of ~6 each (align, shift, two halves, spill):
+# 28, two INT32 each; in 32 bits the width scan (10), the offsets (3), the
+# three atomicOr and a store: 17.
+ENC_INT32_OPS_PER_STEP = 2 * 28 + 17
 
 
 def _encode_args(ts, vs, start, n_valid):
@@ -2262,6 +2264,22 @@ def compare_encode(series, tag: str):
     torch.cuda.synchronize()
     log(f"write parity encode {tag}: {len(series)} lanes x {k[0].shape[1]} words: E1 bit for bit "
         f"with its plain version and twice, every stream byte for byte with the scalar encoder")
+
+
+def compare_pack_edges():
+    """E1 against its plain version, twice, on ``corpus.pack_edge_fields``
+    at 1, 31, 32, 33 and 65 steps (around its 32-step chunks): lanes of 0,
+    1 and all valid points, every time-field bucket edge, payloads of up to
+    64 bits with bits set above each width."""
+    for T in corpus.PACK_EDGE_STEPS:
+        args = tuple(torch.from_numpy(x).to(DEVICE) for x in corpus.pack_edge_fields(T))
+        k = twice(lambda: tuple(enc.pack_encode(*args)), f"pack_encode edges T={T}")
+        p = enc.pack_encode_plain(*args)
+        _record("pack_encode", same_bits(_words_bits(k[0]), _words_bits(p[0]),
+                                         f"pack_encode edges T={T} words"))
+        same_bits(k[1], p[1], f"pack_encode edges T={T} nbits")
+    log(f"write parity encode edges: T = {', '.join(map(str, corpus.PACK_EDGE_STEPS))}: E1 "
+        f"bit for bit with its plain version and twice")
 
 
 def compare_elems(batches, tag: str, n_slots: int = 64):
@@ -2301,7 +2319,10 @@ def compare_elems(batches, tag: str, n_slots: int = 64):
 
 
 def compare_padded_quantiles():
-    cases = corpus.quantile_probes() + [
+    """A1c against its plain version, twice: the probe matrices, rows at
+    each tier edge (``corpus.quantile_tier_probes``) and long rows of every
+    tier."""
+    cases = corpus.quantile_probes() + corpus.quantile_tier_probes() + [
         corpus.long_quantile_rows(*TIMER_HOT), corpus.long_quantile_rows(3, 5000),
         corpus.long_quantile_rows(1, 65536)]
     qs = TIMER_QS + (0.0, 1.0)
@@ -2312,9 +2333,10 @@ def compare_padded_quantiles():
         _record("padded_quantiles", same_bits(k, elems.padded_quantiles_plain(tv, tw, qs),
                                               f"padded_quantiles {F}x{K}"))
         P = 1 << (K - 1).bit_length()
-        log(f"write parity quantiles {F}x{K}: "
-            f"{'global scratch' if P > elems.SMEM_MAX_P else 'shared memory'} sort, A1c bit for "
-            f"bit with its plain version and twice")
+        tier = ("a warp's registers" if K <= elems.WARP_K else
+                "shared memory" if P <= elems.SMEM_MAX_P else "global scratch")
+        log(f"write parity quantiles {F}x{K}: sorted in {tier}, A1c bit for bit with its plain "
+            f"version and twice")
 
 
 # --- phase 8: the rollup flush at full size (BASELINE configs 2-3) ----------
@@ -2573,20 +2595,22 @@ def timer_main(rows):
         library_ms = time_ms(lambda: (lambda o: (torch.gather(tv, 1, o), torch.cumsum(
             torch.gather(tw, 1, o), dim=1)))(torch.sort(tv, dim=1, stable=True).indices),
             reps=7)
+        kernel = lambda: elems.padded_quantiles(tv, tw, TIMER_QS)  # noqa: E731
         if tag == "timer":
-            row("padded_quantiles", rows, time_ms(lambda: elems.padded_quantiles(tv, tw, TIMER_QS),
-                                                  reps=7),
+            row("padded_quantiles", rows, time_ms(kernel, reps=7),
                 time_ms(lambda: elems.padded_quantiles_plain(tv, tw, TIMER_QS), reps=5),
                 n_win * per * 16 + n_win * len(TIMER_QS) * 8,
                 _select_ops_ms(n_win, per, len(TIMER_QS)), library_ms,
                 "torch.sort(stable) + cumsum + gather")
+            _split_line(f"padded_quantiles[{n_win}x{per}]", rows["padded_quantiles"]["ms"], kernel)
         else:
-            ms = time_ms(lambda: elems.padded_quantiles(tv, tw, TIMER_QS), reps=7)
+            ms = time_ms(kernel, reps=7)
             bytes_ms = (n_win * per * 16 + n_win * len(TIMER_QS) * 8) / HBM_BYTES_PER_S * 1e3
             ops_ms = _select_ops_ms(n_win, per, len(TIMER_QS))
             log(f"time padded_quantiles[{n_win}x{per}]: kernel {ms:.3f} ms, bound "
                 f"{max(bytes_ms, ops_ms):.3f} ms (bytes {bytes_ms:.3f} ms, operations "
                 f"{ops_ms:.3f} ms), torch.sort(stable) + cumsum + gather {library_ms:.3f} ms")
+            _split_line(f"padded_quantiles[{n_win}x{per}]", ms, kernel)
         del pool, tv, tw, k
     return results
 
@@ -2714,6 +2738,7 @@ def encode_main(rows):
     plain_ms = time_ms(lambda: plain_all(False), reps=1, warmup=0)
     row("pack_encode", rows, ms, plain_ms, L * N_DP * 32 + L * 12 + L * W * 4 + L * 4,
         L * N_DP * ENC_INT32_OPS_PER_STEP / INT32_OPS_PER_S * 1e3)
+    _split_line("pack_encode", ms, lambda: enc.pack_encode(*args))
     res = {"launches": launches, "ms_e2e": ms_e2e, "ms_kernel": ms,
            "series_per_s": L / (ms_e2e / 1e3), "series_per_s_kernel": L / (ms / 1e3)}
     log(f"encode main: {L} series; launches {launches}; encode_batched {ms_e2e:.3f} ms median of "
@@ -3541,6 +3566,7 @@ def main() -> int:
     compare_encode(enc_probes, "probes")
     for lanes in (1, 7, 33, 129):
         compare_encode((enc_probes + walks_w)[:lanes], f"{lanes} lanes")
+    compare_pack_edges()
     compare_elems(corpus.elem_probe_batches(), "probes")
     compare_elems(corpus.elem_probe_batches(n=4096, n_batches=3, seed=6), "dense")
     compare_padded_quantiles()

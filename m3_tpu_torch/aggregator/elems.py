@@ -148,8 +148,7 @@ _SIGNATURES = {
                           _build.P, _build.P, _build.P, _build.P],
     "m3_gather_reset": [_build.P, _build.P, _build.LL, _build.I, _build.P, _build.P],
     "m3_padded_quantiles": [_build.P, _build.P, _build.LL, _build.I, _build.I, _build.P,
-                            _build.I, _build.I, _build.I, _build.P, _build.P, _build.P,
-                            _build.P],
+                            _build.I, _build.I, _build.P, _build.P, _build.P, _build.P],
 }
 
 
@@ -260,7 +259,9 @@ def gather_reset(state: ElemState, flats: torch.Tensor, reset: bool = True) -> E
 # ---------------------------------------------------------------------------
 
 MAX_QUANTILES = 32  # kMaxQ of csrc/aggregator_elems.cu
-SMEM_MAX_P = 4096  # 12 B a pair: 48 KB; padded rows longer than this sort in global scratch
+WARP_K = 32  # kWarpK: rows of at most this many samples sort in registers, 32 / P rows a warp
+WARP_ROWS_PER_BLOCK = 8  # kWarpTierThreads / 32: rows of 32 samples a block of that tier
+SMEM_MAX_P = 8192  # kSmemMaxP, 20 B a pair: longer padded rows sort in global scratch
 SCRATCH_BYTES = 256 << 20  # cap on the global scratch of long rows
 
 
@@ -300,9 +301,10 @@ def padded_quantiles(values: torch.Tensor, weights: torch.Tensor,
 
     For unit weights this is rank = ceil(q*n), 1-indexed, the target the
     reference's CM stream approximates (ref: cm/stream.go:141-175).  The
-    running weights are summed in sorted order; the kernel and the plain
-    version agree bit for bit when those sums are exact, as they are for
-    the pool's power-of-two weights."""
+    running weights are summed in sorted order: one after another in the
+    plain version, by a parallel scan (other groupings of the same adds)
+    in the kernel; the two agree bit for bit when those partial sums are
+    exact, as they are for the pool's power-of-two weights."""
     if values.dim() != 2 or weights.shape != values.shape:
         raise ValueError(f"values and weights must be one [F, K] shape, got "
                          f"{tuple(values.shape)} and {tuple(weights.shape)}")
@@ -318,16 +320,25 @@ def padded_quantiles(values: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"unsupported device {values.device}")
     if len(qs) > MAX_QUANTILES:
         raise ValueError(f"at most {MAX_QUANTILES} quantiles per call")
+    return _launch_quantiles(values.contiguous(), weights.contiguous(), qs)
+
+
+def _launch_quantiles(values: torch.Tensor, weights: torch.Tensor,
+                      qs: tuple[float, ...]) -> torch.Tensor:
+    """A1c on contiguous f64 [F, K] tensors of the card: the tier by K, its
+    grid, and the global scratch of rows past SMEM_MAX_P."""
+    F, K = values.shape
     dev = values.device
-    values, weights = values.contiguous(), weights.contiguous()
     out = torch.empty((F, len(qs)), dtype=F64, device=dev)
     if F == 0 or not qs:
         return out
     P = 1 << (K - 1).bit_length()
-    threads = min(256, max(32, P // 2))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     keys = cols = None
-    if P > SMEM_MAX_P:
+    if K <= WARP_K:
+        rows_per_block = WARP_ROWS_PER_BLOCK * (32 // P)
+        grid = min(-(-F // rows_per_block), 32 * sms)
+    elif P > SMEM_MAX_P:
         grid = max(1, min(F, 2 * sms, SCRATCH_BYTES // (12 * P)))
         keys = torch.empty((grid, P), dtype=I64, device=dev)
         cols = torch.empty((grid, P), dtype=torch.int32, device=dev)
@@ -336,7 +347,7 @@ def padded_quantiles(values: torch.Tensor, weights: torch.Tensor,
     q = np.asarray(qs, dtype=np.float64)
     lib = _lib()
     rc = lib.m3_padded_quantiles(values.data_ptr(), weights.data_ptr(), F, K, P, q.ctypes.data,
-                                 len(qs), grid, threads,
+                                 len(qs), grid,
                                  None if keys is None else keys.data_ptr(),
                                  None if cols is None else cols.data_ptr(), out.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)

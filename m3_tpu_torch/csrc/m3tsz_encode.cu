@@ -8,70 +8,44 @@
 // exclusive prefix sum, and scatter-adds each field into at most three
 // 32-bit words.
 //
-// Here one thread walks one lane's fields in order with a 64-bit bit buffer
-// and writes each finished big-endian word once: the prefix sum is the
-// thread's running bit count, and the scatter-add (a bitwise OR, since the
-// fields never overlap) is the shift into the buffer.  After the walk the
-// block zero-fills the tail of each of its rows with coalesced stores (the
-// decoder loads five words at its cursor, so the tail must be zero).
+// Here one warp encodes one lane, 32 steps at a time, in the reference's
+// form.  Each thread loads one step's timestamp and value fields (coalesced
+// runs of the row; the next chunk's loads are issued before this chunk is
+// packed), forms the step's delta-of-delta time field from the previous two
+// timestamps (by shuffle, with the chunk's carry), and an exclusive warp
+// scan of the steps' widths plus the lane's running bit count gives each
+// field its bit offset (the 64-bit stream start before step 0, the 11-bit
+// EOS after the last step).  The threads OR their fields into the warp's
+// word buffer in shared memory (atomicOr: the fields never overlap, so the
+// bits do not depend on the order); after each chunk the warp stores the
+// finished words up to a 32-byte boundary of `words` as consecutive 4-byte
+// stores, whole sectors, and keeps the rest (at most 7 words and the partial
+// one).  It then zero-fills the row's tail up to W (the decoder
+// loads five words past its cursor).  Words past W are dropped and nbits
+// is the exact length all the same (the caller's capacity guard).
 //
 // What bounds it on an H100: the bytes.  Each step reads 32 B (timestamp,
-// two u64 and two i32 value fields) and each row writes n_words_for(T) u32.
-// One thread per lane makes the reads and the used words strided across a
-// warp; the zero-fill, most of the row on compact series, is coalesced.
+// two u64 and two i32 value fields) and each row writes W = n_words_for(T)
+// u32; with a warp a lane, loads and stores are whole-sector runs, and a
+// seal's 1,024 lanes are 1,024 warps (256 blocks) rather than 8 blocks of
+// one thread a lane.
 //
-// Shifts by 64 are undefined in C++: every shift below stays in [0, 63].
+// Every field is at most 64 bits wide (wider value fields are cut to 64);
+// shifts by 64 are undefined in C++: every shift below stays in [0, 63].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;  // warps (lanes) a block
+constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kEos = (0x100ull << 2) | 0ull;  // marker opcode + EOS
 constexpr int kEosBits = 11;
-
-struct Writer {
-  unsigned* row;
-  int cap;     // words in the row
-  int nw;      // words written
-  int used;    // bits held at the top of buf, < 32 between calls
-  long long total;
-  unsigned long long buf;
-
-  __device__ void emit(unsigned w) {
-    if (nw < cap) row[nw] = w;
-    ++nw;
-  }
-
-  // Append the low n bits of `bits` (0 <= n <= 64), most significant first.
-  __device__ void put(unsigned long long bits, int n) {
-    if (n <= 0) return;
-    total += n;
-    if (n < 64) bits &= (1ull << n) - 1ull;
-    const int space = 64 - used;  // >= 33
-    if (n <= space) {
-      buf |= bits << (space - n);
-      used += n;
-    } else {  // n in (space, 64]: the top `space` bits fill the buffer
-      const int rem = n - space;  // 1..31
-      buf |= bits >> rem;
-      emit((unsigned)(buf >> 32));
-      emit((unsigned)buf);
-      buf = bits << (64 - rem);
-      used = rem;
-    }
-    while (used >= 32) {
-      emit((unsigned)(buf >> 32));
-      buf <<= 32;
-      used -= 32;
-    }
-  }
-
-  __device__ void finish() {
-    if (used > 0) emit((unsigned)(buf >> 32));
-  }
-};
+constexpr int kMaxStepBits = 36 + 64 + 64;  // time field, control, payload
+// up to 7 carried words and the partial one (or the stream start), a
+// chunk's fields and the spill word of the last one
+constexpr int kBufWords = (8 * 32 + 32 * kMaxStepBits) / 32 + 3;
 
 // The delta-of-delta time field of one valid step (second unit; the 32-bit
 // default bucket): ref timestamp_encoder.go:174-213, scheme.go:42-52.
@@ -95,50 +69,127 @@ __device__ __forceinline__ void time_field(long long dod, unsigned long long* bi
   }
 }
 
-__global__ void __launch_bounds__(kThreads) pack_encode_kernel(
+__device__ __forceinline__ int field_width(int n) { return n < 0 ? 0 : (n > 64 ? 64 : n); }
+
+// OR the low n bits of `bits` (0 <= n <= 64), most significant first, into
+// buf at bit `at` (big-endian words): at most three words, as _pack_fields.
+__device__ __forceinline__ void or_field(unsigned* buf, int at, unsigned long long bits, int n) {
+  if (n <= 0) return;
+  const unsigned long long aligned = bits << (64 - n);
+  const int b = at & 31, w0 = at >> 5;
+  const unsigned long long main = aligned >> b;
+  if ((unsigned)(main >> 32)) atomicOr(&buf[w0], (unsigned)(main >> 32));
+  if ((unsigned)main) atomicOr(&buf[w0 + 1], (unsigned)main);
+  if (b > 0) {
+    const unsigned spill = (unsigned)((aligned << (64 - b)) >> 32);
+    if (spill) atomicOr(&buf[w0 + 2], spill);
+  }
+}
+
+struct Step {
+  unsigned long long ts, cb, pb;
+  int cn, pn;
+};
+
+__device__ __forceinline__ Step load_step(const long long* __restrict__ ts,
+                                          const unsigned long long* __restrict__ ctl_bits,
+                                          const int* __restrict__ ctl_n,
+                                          const unsigned long long* __restrict__ pay_bits,
+                                          const int* __restrict__ pay_n, long long at, bool in) {
+  Step s{0ull, 0ull, 0ull, 0, 0};
+  if (in) {
+    s.ts = (unsigned long long)ts[at];
+    s.cb = ctl_bits[at];
+    s.cn = field_width(ctl_n[at]);
+    s.pb = pay_bits[at];
+    s.pn = field_width(pay_n[at]);
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kWarps * 32) pack_encode_kernel(
     const long long* __restrict__ ts, const long long* __restrict__ start,
     const int* __restrict__ n_valid, const unsigned long long* __restrict__ ctl_bits,
     const int* __restrict__ ctl_n, const unsigned long long* __restrict__ pay_bits,
     const int* __restrict__ pay_n, int L, int T, int W, long long unit,
     unsigned* __restrict__ words, int* __restrict__ nbits) {
-  __shared__ int used_words[kThreads];
-  const long long lane = (long long)blockIdx.x * kThreads + threadIdx.x;
-  int nw = 0;
-  if (lane < L) {
-    Writer w{words + lane * (long long)W, W, 0, 0, 0, 0ull};
-    const long long row = lane * (long long)T;
-    const int nv = n_valid[lane];
-    const long long st = start[lane];
-    if (nv > 0) w.put((unsigned long long)st, 64);
-    unsigned long long prev_t = (unsigned long long)st, prev_delta = 0ull;
-    for (int t = 0; t < T; ++t) {
-      const unsigned long long tt = (unsigned long long)ts[row + t];
-      const unsigned long long delta = tt - prev_t;  // wrapping, as XLA's int64
-      const long long raw = (long long)(delta - prev_delta);
-      prev_t = tt;
-      prev_delta = delta;
-      if (t < nv) {
-        unsigned long long bits;
-        int n;
-        time_field(raw / unit, &bits, &n);  // '/' truncates toward zero
-        w.put(bits, n);
-      }
-      w.put(ctl_bits[row + t], ctl_n[row + t]);
-      w.put(pay_bits[row + t], pay_n[row + t]);
+  __shared__ unsigned bufs[kWarps][kBufWords];
+  const int lane = threadIdx.x & 31;
+  unsigned* buf = bufs[threadIdx.x >> 5];
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= L) return;  // the whole warp
+  for (int k = lane; k < kBufWords; k += 32) buf[k] = 0u;
+  __syncwarp();
+  const long long rt = row * (long long)T;
+  const long long g0 = row * (long long)W;  // the row's first word in `words`
+  unsigned* out = words + g0;
+  const int nv = n_valid[row];
+  const unsigned long long st = (unsigned long long)start[row];
+  long long base = 0;   // bits placed so far
+  long long wbase = 0;  // the row word buf[0] holds
+  if (nv > 0) {
+    if (lane == 0) {
+      buf[0] = (unsigned)(st >> 32);
+      buf[1] = (unsigned)st;
     }
-    if (nv > 0) w.put(kEos, kEosBits);
-    w.finish();
-    nbits[lane] = (int)w.total;
-    nw = w.nw < W ? w.nw : W;
+    base = 64;
   }
-  used_words[threadIdx.x] = nw;
-  __syncthreads();
-  // zero-fill the tail of every row of this block, coalesced
-  const long long first = (long long)blockIdx.x * kThreads;
-  for (int r = 0; r < kThreads && first + r < L; ++r) {
-    unsigned* out = words + (first + r) * (long long)W;
-    for (int k = used_words[r] + threadIdx.x; k < W; k += kThreads) out[k] = 0u;
+  __syncwarp();
+  unsigned long long carry_t = st, carry_d = 0ull;  // ts[t0 - 1] and its delta
+  Step next = load_step(ts, ctl_bits, ctl_n, pay_bits, pay_n, rt + lane, lane < T);
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int t = t0 + lane;
+    const Step s = next;
+    next = load_step(ts, ctl_bits, ctl_n, pay_bits, pay_n, rt + t + 32, t + 32 < T);
+    const unsigned long long up_t = __shfl_up_sync(kFull, s.ts, 1);
+    const unsigned long long delta = s.ts - (lane == 0 ? carry_t : up_t);  // wrapping, as XLA
+    const unsigned long long up_d = __shfl_up_sync(kFull, delta, 1);
+    const unsigned long long prev_delta = lane == 0 ? carry_d : up_d;
+    carry_t = __shfl_sync(kFull, s.ts, 31);
+    carry_d = __shfl_sync(kFull, delta, 31);
+    unsigned long long tb = 0ull;
+    int tn = 0;
+    if (t < T && t < nv)
+      time_field((long long)(delta - prev_delta) / unit, &tb, &tn);  // '/' truncates to zero
+    const int width = tn + s.cn + s.pn;
+    int incl = width;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const int chunk = __shfl_sync(kFull, incl, 31);
+    int at = (int)(base - wbase * 32) + incl - width;
+    or_field(buf, at, tb, tn);
+    at += tn;
+    or_field(buf, at, s.cb, s.cn);
+    at += s.cn;
+    or_field(buf, at, s.pb, s.pn);
+    __syncwarp();
+    base += chunk;
+    // store the finished words up to a sector boundary; keep the rest
+    const long long done = base >> 5;
+    const long long flush = ((g0 + done) & ~7ll) - g0;
+    const int n_out = (int)(flush - wbase);
+    if (n_out > 0) {
+      for (int k = lane; k < n_out; k += 32)
+        if (wbase + k < W) out[wbase + k] = buf[k];
+      const int keep = (int)(done - flush) + 1;  // <= 7 finished words and the partial one
+      const unsigned moved = lane < keep ? buf[n_out + lane] : 0u;
+      __syncwarp();
+      for (int k = lane; k < n_out + keep; k += 32) buf[k] = k < keep ? moved : 0u;
+      __syncwarp();
+      wbase = flush;
+    }
   }
+  if (nv > 0) {
+    if (lane == 0) or_field(buf, (int)(base - wbase * 32), kEos, kEosBits);
+    base += kEosBits;
+    __syncwarp();
+  }
+  const long long used = (base + 31) >> 5;  // words holding bits
+  for (long long k = wbase + lane; k < used && k < W; k += 32) out[k] = buf[k - wbase];
+  for (long long k = used + lane; k < W; k += 32) out[k] = 0u;
+  if (lane == 0) nbits[row] = (int)base;
 }
 
 }  // namespace
@@ -153,8 +204,8 @@ int m3_pack_encode(const long long* ts, const long long* start, const int* n_val
                    const unsigned long long* pay_bits, const int* pay_n, int L, int T, int W,
                    long long unit, unsigned* words, int* nbits, void* stream) {
   if (L <= 0) return 0;
-  const int blocks = (L + kThreads - 1) / kThreads;
-  pack_encode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (L + kWarps - 1) / kWarps;
+  pack_encode_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       ts, start, n_valid, ctl_bits, ctl_n, pay_bits, pay_n, L, T, W, unit, words, nbits);
   return (int)cudaGetLastError();
 }

@@ -522,6 +522,41 @@ def encode_probe_series() -> list[tuple[list[int], list[float], int]]:
     return out
 
 
+# deltas-of-delta (seconds) on each side of every time-field bucket edge
+PACK_EDGE_DODS = (0, 1, -1, 63, -63, 64, -64, -65, 255, -255, 256, -256, -257, 2047, -2047,
+                  2048, -2048, -2049, 1 << 20, -(1 << 20), (1 << 31) - 1, -((1 << 31) - 1))
+PACK_EDGE_STEPS = (1, 31, 32, 33, 65)  # around E1's 32-step chunks
+
+
+def pack_edge_fields(n_steps: int, n_lanes: int = 24, seed: int = 13):
+    """``pack_encode``'s arguments as numpy arrays (ts i64[L, T], start
+    i64[L], n_valid i32[L], ctl_bits and pay_bits as int64 bit patterns,
+    ctl_n and pay_n i32[L, T]) around the kernel's edges: lane 0 has no
+    valid point, lane 1 one, lane 2 all; the others a random count.  Each
+    lane's deltas-of-delta cycle through ``PACK_EDGE_DODS`` from its own
+    offset, a few with a sub-second part (the unit division truncates);
+    control fields of 0-17 bits, payloads of 0-64 bits with 64 and 0
+    common, and random bits above each width."""
+    rng = np.random.default_rng((seed, n_steps))
+    L, T = n_lanes, n_steps
+    dods = np.asarray(PACK_EDGE_DODS, dtype=np.int64)
+    pick = (np.arange(T)[None, :] + rng.integers(0, len(dods), (L, 1))) % len(dods)
+    dod = dods[pick] * SEC
+    frac = rng.random((L, T)) < 0.1
+    dod[frac] += rng.integers(-SEC + 1, SEC, int(frac.sum()))
+    delta = np.cumsum(dod, axis=1) + 10 * SEC
+    start = START + rng.integers(0, 100, L).astype(np.int64) * SEC
+    ts = start[:, None] + np.cumsum(delta, axis=1)
+    n_valid = rng.integers(0, T + 1, L).astype(np.int32)
+    n_valid[:3] = (0, min(1, T), T)
+    ctl_n = rng.integers(0, 18, (L, T)).astype(np.int32)
+    pay_n = np.where(rng.random((L, T)) < 0.3, 64,
+                     np.where(rng.random((L, T)) < 0.2, 0, rng.integers(1, 65, (L, T))))
+    bits = lambda: rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, (L, T),  # noqa: E731
+                                dtype=np.int64, endpoint=True)
+    return ts, start, n_valid, bits(), ctl_n, bits(), pay_n.astype(np.int32)
+
+
 def encode_batch(series):
     """Left-aligned [L, T] batch of (timestamps, values, start) lanes, as
     the reference's tests pad it (with the lane's last timestamp):
@@ -618,6 +653,38 @@ def long_quantile_rows(rows: int, k: int, seed: int = 10):
     v[:, 0] = np.nan
     v[:, 1] = np.inf
     return v, 2.0 ** rng.integers(0, 7, (rows, k))
+
+
+QUANTILE_TIER_KS = (1, 2, 16, 17, 32, 33, 8193)  # A1c's tier edges; 8,193 sorts in global scratch
+
+
+def quantile_tier_probes(seed: int = 12) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(values, weights) of ``padded_quantiles`` at each K of
+    ``QUANTILE_TIER_KS`` (8 rows a shape, 3 for the longest): ties,
+    -0.0 and +0.0, NaN and real +-inf with weight, power-of-two weights
+    1 to 64 (exact running sums), rows of 1 to K real points padded with
+    +inf of weight 0; row 0 is all padding and row 1 has total 0."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for K in QUANTILE_TIER_KS:
+        F = 3 if K > 1000 else 8
+        v = np.round(rng.standard_normal((F, K)) * 4)
+        pick = rng.random((F, K))
+        v[pick < 0.08] = np.nan
+        v[(pick >= 0.08) & (pick < 0.12)] = np.inf
+        v[(pick >= 0.12) & (pick < 0.16)] = -np.inf
+        v[(pick >= 0.16) & (pick < 0.3)] = -0.0
+        v[(pick >= 0.3) & (pick < 0.4)] = 0.0
+        w = 2.0 ** rng.integers(0, 7, (F, K))
+        n_real = rng.integers(1, K + 1, F)
+        n_real[2] = K
+        for r in range(F):
+            v[r, n_real[r]:] = np.inf
+            w[r, n_real[r]:] = 0.0
+        v[0], w[0] = np.inf, 0.0
+        w[1] = 0.0
+        out.append((v, w))
+    return out
 
 
 def rollup_rounds(n_lanes: int, n_rounds: int, seed: int = 42):

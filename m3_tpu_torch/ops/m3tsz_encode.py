@@ -466,10 +466,15 @@ def pack_encode(timestamps: torch.Tensor, start: torch.Tensor, n_valid: torch.Te
         return pack_encode_plain(*args)
     if not timestamps.is_cuda:
         raise ValueError(f"unsupported device {timestamps.device}")
-    ts, st = timestamps.to(I64).contiguous(), start.to(I64).contiguous()
-    nv = n_valid.to(I32).contiguous()
-    cb, pb = _as_i64(ctl_bits).contiguous(), _as_i64(pay_bits).contiguous()
-    cn, pn = ctl_n.to(I32).contiguous(), pay_n.to(I32).contiguous()
+    return _launch(timestamps.to(I64).contiguous(), start.to(I64).contiguous(),
+                   n_valid.to(I32).contiguous(), _as_i64(ctl_bits).contiguous(),
+                   ctl_n.to(I32).contiguous(), _as_i64(pay_bits).contiguous(),
+                   pay_n.to(I32).contiguous())
+
+
+def _launch(ts, st, nv, cb, cn, pb, pn):
+    """E1 on contiguous tensors of the card, in ``pack_encode``'s types."""
+    L, T = ts.shape
     W = n_words_for(T)
     dev = ts.device
     words = torch.empty((L, W), dtype=torch.uint32, device=dev)

@@ -108,9 +108,19 @@ def test_probe_batches_hit_their_corners():
     assert bool(zero.any())
 
 
-@pytest.mark.parametrize("case", range(2), ids=["24x12", "5x1"])
+@functools.lru_cache(maxsize=None)
+def _quantile_cases():
+    return corpus.quantile_probes() + corpus.quantile_tier_probes()
+
+
+@pytest.mark.parametrize("case", range(2 + len(corpus.QUANTILE_TIER_KS)),
+                         ids=["24x12", "5x1"] + [f"tier K={k}" for k in corpus.QUANTILE_TIER_KS])
 def test_padded_quantiles_match_jax(case):
-    values, weights = corpus.quantile_probes()[case]
+    """The plain version against the reference, bit for bit: the probe
+    matrices, then rows at each edge of the kernel's tiers (K of 1-32 in a
+    warp's registers, 33 in a block's shared memory, 8,193 in global
+    scratch)."""
+    values, weights = _quantile_cases()[case]
     want = jel.padded_quantiles(jnp.asarray(values), jnp.asarray(weights), QS)
     got = tel.padded_quantiles(torch.from_numpy(values), torch.from_numpy(weights), QS)
     assert_same(got, want, "padded_quantiles")

@@ -89,6 +89,23 @@ def test_pack_encode_matches_jax():
     assert int(nbits[n_valid == 0].abs().sum()) == 0  # an empty lane has no bits
 
 
+@pytest.mark.parametrize("n_steps", corpus.PACK_EDGE_STEPS)
+def test_pack_encode_matches_jax_at_edges(n_steps):
+    """``corpus.pack_edge_fields`` (steps around E1's 32-step chunks, lanes
+    of 0, 1 and all valid points, deltas-of-delta on each side of every
+    time-field bucket edge and with sub-second parts, payloads of up to 64
+    bits with bits set above each width) through both sides, bit for bit."""
+    ts, start, n_valid, cb, cn, pb, pn = corpus.pack_edge_fields(n_steps)
+    want_words, want_nbits = jenc._pack_encode_jit(ts, start, n_valid, cb.view(np.uint64), cn,
+                                                   pb.view(np.uint64), pn)
+    words, nbits = tenc.pack_encode(*(torch.from_numpy(x)
+                                      for x in (ts, start, n_valid, cb, cn, pb, pn)))
+    assert words.shape == (len(n_valid), tenc.n_words_for(n_steps))
+    assert_same(words, want_words, "words")
+    assert_same(nbits, want_nbits, "nbits")
+    assert int(nbits[0]) == int(cn[0].sum() + pn[0].sum())  # no start, time fields or EOS
+
+
 @pytest.mark.parametrize("oracle", ["reference scalar", "reference batched", "port scalar"])
 def test_encode_to_streams_matches_scalar(oracle):
     series, (ts, vs, start, n_valid) = _probes()

@@ -1,33 +1,43 @@
-"""Time the port's batched decode (K3, ``ops/m3tsz_decode.py:decode_batched``),
-its quantile by (QK6, ``ops/query_grouped.py:grouped_quantile``), the
-16-query megabatch and A1c (``aggregator/elems.py:padded_quantiles``) of one
-or more checkouts on one CUDA card, one process a checkout, in the order
-given.  Each checkout builds its kernels into its own ``build/``.
+"""Time kernels of the port in one or more checkouts on one CUDA card, one
+process a checkout, in the order given.  Each checkout builds its kernels
+into its own ``build/``.
 
 For each checkout, on data made from seeds:
-- K3 at the read path's shape: 2,000 seed-42 walk streams of 360 points
-  tiled to 1,000,000 lanes; K2 (``decode_downsample_fused``, MEAN: the same
-  decode, few bytes written) beside it;
+- K3 (``ops/m3tsz_decode.py:decode_batched``) at the read path's shape:
+  2,000 seed-42 walk streams of 360 points tiled to 1,000,000 lanes; K2
+  (``decode_downsample_fused``, MEAN: the same decode, few bytes written)
+  beside it;
 - K3 at the fan-out read's shape: 600 walk streams of 720 points tiled to
   150,000 lanes, with ``flag_truncation``;
-- QK6 at the quantile-by shape: [65,536 lanes x 512 steps], 50,000 lanes
-  of the 5m rates of integer counters (30 Poisson increments of a rate
-  drawn per lane, over 300 s: multiples of 1/300, so long runs of ties;
-  2% NaN) in 100 groups of interleaved lanes, 15,536 all-NaN padding lanes
-  on group 0, phi 0.9; ``torch.sort`` along the lanes beside it, and the
-  device time of each of one call's launches (``torch.profiler``);
+- QK6 (``ops/query_grouped.py:grouped_quantile``) at the quantile-by
+  shape: [65,536 lanes x 512 steps], 50,000 lanes of the 5m rates of
+  integer counters (30 Poisson increments of a rate drawn per lane, over
+  300 s: multiples of 1/300, so long runs of ties; 2% NaN) in 100 groups of
+  interleaved lanes, 15,536 all-NaN padding lanes on group 0, phi 0.9;
+  ``torch.sort`` along the lanes beside it, and the device time of each of
+  one call's launches (``torch.profiler``);
 - the megabatch: 16 x sum by (job)(sum_over_time(..)) / sum by
   (job)(count_over_time(..)) (``corpus.megabatch_query``) through
   ``device_expr_pipeline_batched``, each slice held against its solo call;
   beside its time, one call's wall time on the host clock and the sum of
   its launches' device times (``torch.profiler``);
-- A1c on the timer windows' values (100,000 x 10, unit weights) and on
-  64 hot rows of 4,096 weighted points;
+- A1c (``aggregator/elems.py:padded_quantiles``) on the timer windows'
+  values (100,000 x 10, unit weights) and on 64 hot rows of 4,096 weighted
+  points, ``torch.sort(stable)`` + ``cumsum`` + ``gather`` beside it;
+- E1 (``ops/m3tsz_encode.py:pack_encode``) at the encode's shape (2,000
+  seed-42 walks of 360 points at 10s tiled to 250,000 lanes, the value
+  fields from the native grammar), at each seal bucket of a 10,000-lane
+  ``corpus.ragged_block`` and at one storage seal (625 walks of 720 points,
+  one 2h block, padded to [1,024 x 1,024]); the seals' arguments are the
+  ones ``storage/shard.py:encode_block_device`` passes, recorded on their
+  way in; beside each, its byte bound at 3.35 TB/s;
 - the host: its cores and the median time of a fixed Python loop.
-Each kernel's outputs are held against the plain version's (K3 on the
-unique lanes), bit for bit, before it is timed (CUDA events, median of 7).
+Each kernel's outputs are held against the plain version's (K3 and E1 at
+the encode shape on the unique lanes, the tiled ones against those), bit
+for bit, before it is timed (CUDA events, median of 7; A1c and E1 also with
+the stream kept busy ahead, their device time alone).
 
-    python3 tools/k3_qk6_compare.py ROOT [ROOT ...]
+    python3 tools/checkout_compare.py ROOT [ROOT ...]
 
 To compare two checkouts on one card, name them as parent, change, change,
 parent.  Prints the card's name and power limit, then one JSON line a run.
@@ -48,6 +58,10 @@ QUERY_UNIQUE, QUERY_LANES, QUERY_DP = 600, 150_000, 720
 Q_REAL, Q_LANES, Q_STEPS, Q_GROUPS, Q_PHI = 50_000, 65_536, 512, 100, 0.9
 TIMER_WINDOWS, TIMER_PER_WINDOW, TIMER_HOT = 100_000, 10, (64, 4096)
 TIMER_QS = (0.5, 0.9, 0.95, 0.99, 0.999)
+ENC_UNIQUE, ENC_LANES, ENC_DP = 2000, 250_000, 360
+SEAL_LANES, STORE_LANES, STORE_DP = 10_000, 625, 720
+HBM_BYTES_PER_S = 3.35e12
+SEC, BLOCK = 10**9, 2 * 3600 * 10**9
 
 
 def _time_ms(torch, fn, reps: int = 7) -> float:
@@ -58,6 +72,25 @@ def _time_ms(torch, fn, reps: int = 7) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _device_ms(torch, fn, reps: int = 7) -> float:
+    """Median device time of fn alone (ms): ``torch.cuda._sleep`` keeps the
+    stream busy while the host enqueues the events and fn's launches, so
+    the events time the device's work and not the wrapper's host work."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -191,8 +224,81 @@ def child(root: str) -> dict:
         tv, tw = torch.from_numpy(v).cuda(), torch.from_numpy(w).cuda()
         fn = lambda: elems.padded_quantiles(tv, tw, TIMER_QS)  # noqa: E731
         _same(torch, fn(), elems.padded_quantiles_plain(tv, tw, TIMER_QS), tag)
-        res[tag] = {"ms": _time_ms(torch, fn)}
+        library = lambda: (lambda o: (torch.gather(tv, 1, o), torch.cumsum(  # noqa: E731
+            torch.gather(tw, 1, o), dim=1)))(torch.sort(tv, dim=1, stable=True).indices)
+        res[tag] = {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
+                    "library_ms": _time_ms(torch, library)}
+    del tv, tw
+    res.update(_e1(np, torch, corpus))
     return res
+
+
+def _e1_bound_ms(L: int, T: int, W: int) -> float:
+    """Bytes of one pack_encode (inputs read once, outputs written once)."""
+    return (L * T * 32 + L * 12 + L * W * 4 + L * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def _e1(np, torch, corpus) -> dict:
+    from m3_tpu_torch.ops import m3tsz_encode as enc
+    from m3_tpu_torch.storage import shard
+    from m3_tpu_torch.utils import native
+
+    def fields(ts, vs, start, n_valid):
+        cb, cn, pb, pn = native.prepare_value_fields_native(vs, n_valid)
+        host = (ts, start, n_valid, cb.view(np.int64), cn, pb.view(np.int64), pn)
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in host)
+
+    def timed(args, what: str, unique: int = 0) -> dict:
+        fn = lambda: enc.pack_encode(*args)  # noqa: E731
+        words, nbits = fn()
+        L, T = args[0].shape
+        n = unique or L
+        want = enc.pack_encode_plain(*(x[:n] for x in args))
+        _same(torch, words[:n].view(torch.int32), want[0].view(torch.int32), f"{what} words")
+        _same(torch, nbits[:n], want[1], f"{what} nbits")
+        if unique:
+            reps = L // unique
+            _same(torch, words.view(torch.int32).view(reps, unique, -1),
+                  words[:unique].view(torch.int32).expand(reps, unique, -1), f"{what} tiled")
+        return {"L": L, "T": T, "ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
+                "bound_ms": _e1_bound_ms(L, T, words.shape[1])}
+
+    def seal_args(block_start, lanes, times, values, n_lanes) -> list:
+        """pack_encode's arguments of one encode_block_device, recorded."""
+        calls, orig = [], enc.pack_encode
+
+        def record(*args):
+            calls.append(tuple(x.clone() for x in args))
+            return orig(*args)
+
+        enc.pack_encode = record
+        try:
+            shard.encode_block_device(block_start, lanes, times, values, n_lanes, device="cuda")
+        finally:
+            enc.pack_encode = orig
+        return calls
+
+    out = {}
+    ts_u, vs_u = corpus.gen_grids(ENC_UNIQUE, ENC_DP)
+    args = fields(ts_u, vs_u, np.full(ENC_UNIQUE, corpus.START, dtype=np.int64),
+                  np.full(ENC_UNIQUE, ENC_DP, dtype=np.int32))
+    reps = ENC_LANES // ENC_UNIQUE
+    args = tuple(x.repeat((reps,) + (1,) * (x.dim() - 1)) for x in args)
+    out["e1_encode"] = timed(args, "E1 encode", ENC_UNIQUE)
+    del args
+    torch.cuda.empty_cache()
+    buckets = [timed(a, f"E1 seal bucket {a[0].shape}")
+               for a in seal_args(corpus.START, *corpus.ragged_block(SEAL_LANES, ENC_DP),
+                                  SEAL_LANES)]
+    out["e1_seal_buckets"] = {"buckets": buckets,
+                              **{k: sum(b[k] for b in buckets)
+                                 for k in ("ms", "device_ms", "bound_ms")}}
+    b0 = corpus.START - corpus.START % BLOCK
+    ts_s, vs_s = corpus.gen_grids(STORE_LANES, STORE_DP, start=b0 - 10 * SEC)
+    lanes = np.repeat(np.arange(STORE_LANES, dtype=np.int64), STORE_DP)
+    (store,) = seal_args(b0, lanes, ts_s.reshape(-1), vs_s.reshape(-1), STORE_LANES)
+    out["e1_storage_seal"] = timed(store, "E1 storage seal")
+    return out
 
 
 def main(argv: list[str]) -> int:
