@@ -28,9 +28,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    MEAN, STDEV and P99.  Launch counts are reset just before each
    aggregate is driven and read just after; every lane is checked
    against its unique lane, the unique lanes against the plain versions
-   and a few against the scalar oracle.  Then each kernel is timed with
-   CUDA events at these shapes beside its plain version, its bound and,
-   for the quantile kernel, ``torch.sort``;
+   and a few against the scalar oracle.  Then K2 is held against its plain
+   version, twice, on its window probes (n_win 1, 3, 4, 5, 7, 8, 9 around
+   its staged groups of 4 windows, 8 with full_agg; window 1 and window =
+   n_steps; lanes in error inside a window) and at the main shape; each
+   kernel is timed with CUDA events at these shapes beside its plain
+   version, its bound and, for the quantile kernel, ``torch.sort``; and a
+   ``layout`` line per staged kernel (K2, K2 full_agg, K3, T1) gives its
+   staged width, shared memory, registers and resident blocks per SM;
 6. query main — BASELINE config 4, the m3query fan-out read: 50,000
    series x 6h of 10s data in 2h blocks (150,000 streams, n_dp 720,
    n_cap 2160, 355 steps at 60s, range 5m) through
@@ -104,13 +109,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. the write side (rollup flush, timer quantiles, BASELINE config 2, the
    encode and a block seal), as its phases' docstrings say;
 11. tiles parity (run with the parity phases) — T1 against its plain
-   version on the card, bit for bit, twice (``compare_tiles``'s probes);
+   version on the card, bit for bit, twice (``compare_tiles``'s probes,
+   with the tile-group probes: 1, 3, 4, 5, 9 and 17 tiles around its
+   staged groups of 4, on 1, 31, 33 and 129 lanes);
 12. storage — BASELINE config 4's series (cut to 40,000) through a ``Database`` on
    the card: one 2h block of 10s data written, sealed (E1), flushed,
-   aggregated into 5m tiles (T1, twice), the tiles sealed and flushed, a
+   aggregated into 5m tiles (T1, twice; both calls then rerun twice and
+   held against the plain version), the tiles sealed and flushed, a
    restart, and every tile read back through the decoded-block cache (K3)
    and checked against numpy (``storage_main``); then T1 alone at
-   1,000,000 lanes x 720 points, 1m and 5m tiles, beside its plain
+   1,000,000 lanes x 720 points, 1m and 5m tiles, twice, beside its plain
    version, its bound and K3 + ``index_add_``/``scatter_reduce_``;
 13. mesh — the series-sharded paths on one card with 8 virtual shards
    (MK1, its batched form and QK4's sqdev against their plain versions
@@ -342,20 +350,52 @@ def _record(kernel: str, err: float) -> None:
     ERRORS[kernel] = max(ERRORS.get(kernel, 0.0), err)
 
 
+K2_FIELDS = ("sum", "sum_sq", "count", "min", "max", "last", "total", "error")
+
+
+def _k2_flat(out):
+    agg, total, error = out
+    return (*agg, total, error)
+
+
+def compare_k2(words, nbits, n_steps: int, window: int, full: bool, tag: str,
+               int_optimized=True, unit=10**9):
+    """K2 twice (the same bits) and against its plain version, bit for bit."""
+    args = (words, nbits, n_steps, window, int_optimized, unit)
+    name = "decode_downsample_fused" + ("[full_agg]" if full else "")
+    k = twice(lambda: _k2_flat(dec.decode_downsample_fused(*args, full_agg=full)),
+              f"{tag} {name}")
+    p = _k2_flat(dec.decode_downsample_fused_plain(*args, full_agg=full))
+    for field, kt, pt in zip(K2_FIELDS, k, p):
+        _record(name, same_bits(kt, pt, f"{tag} {name}.{field}"))
+
+
+def compare_k2_windows(walks):
+    """K2 in both modes around its staged groups of windows (4; 8 with
+    full_agg), on ``corpus.k2_window_probe_streams`` (61 lanes; lanes
+    stopping in error inside windows): n_win 1, 3, 4, 5, 7, 8, 9 (window
+    1), 9 windows of 4 and one of 36, then 1, 31, 33 and 129 lanes (with
+    walks) at 9 windows of 4."""
+    streams = corpus.k2_window_probe_streams()
+    words, nbits = inputs_from_numpy(*pack_streams(streams), device=DEVICE)
+    for n_steps, window in corpus.K2_WINDOW_CASES:
+        for full in (False, True):
+            compare_k2(words, nbits, n_steps, window, full, f"K2 windows ({n_steps}, {window})")
+    for lanes in (1, 31, 33, 129):
+        w, n = inputs_from_numpy(*pack_streams((streams + walks)[:lanes]), device=DEVICE)
+        for full in (False, True):
+            compare_k2(w, n, 36, 4, full, f"K2 windows, {lanes} lanes")
+    torch.cuda.synchronize()
+    log(f"parity K2 windows: {len(streams)} lanes at (n_steps, window) "
+        f"{corpus.K2_WINDOW_CASES}, and 1, 31, 33, 129 lanes; both modes, twice: bit for bit")
+
+
 def compare_decoders(streams, tag: str, int_optimized=True, unit=10**9, n_steps=N_DP,
                      window=WINDOW):
     dev = torch.device("cuda")
     words, nbits = inputs_from_numpy(*pack_streams(streams), device=dev)
     for full in (False, True):
-        k = dec.decode_downsample_fused(words, nbits, n_steps, window, int_optimized,
-                                        unit, full_agg=full)
-        p = dec.decode_downsample_fused_plain(words, nbits, n_steps, window,
-                                              int_optimized, unit, full_agg=full)
-        name = "decode_downsample_fused" + ("[full_agg]" if full else "")
-        for field, kt, pt in zip(k[0]._fields, k[0], p[0]):
-            _record(name, same_bits(kt, pt, f"{tag} {name}.{field}"))
-        same_bits(k[1], p[1], f"{tag} {name}.count")
-        same_bits(k[2], p[2], f"{tag} {name}.error")
+        compare_k2(words, nbits, n_steps, window, full, tag, int_optimized, unit)
     for flag in (False, True):
         k = dec.decode_batched(words, nbits, n_steps, int_optimized, unit, flag)
         p = dec.decode_batched_plain(words, nbits, n_steps, int_optimized, unit, flag)
@@ -483,24 +523,23 @@ def main_path(walks):
     return words, nbits, results
 
 
-def kernel_times(words, nbits, datapoints: int):
+def kernel_times(words, nbits, datapoints: int, walks):
     """Each kernel at the main path's shapes: its time, its plain version's
-    time (and output, held against it), its bound, and torch.sort for K4.
-    `datapoints` is what this run's data holds (the decoders' total count)."""
+    time (and output, held against it; K2 in both modes also twice, and
+    first on its window probes, ``compare_k2_windows``), its bound, and
+    torch.sort for K4, then the staged kernels' layouts.  `datapoints` is
+    what this run's data holds (the decoders' total count)."""
     L, W = words.shape
     n_win = N_DP // WINDOW
     decode_ops_ms = datapoints * INT32_OPS_PER_DATAPOINT / INT32_OPS_PER_S * 1e3
     in_bytes = words.numel() * 4 + nbits.numel() * 4
     rows = {}
 
+    compare_k2_windows(walks)
     for full in (False, True):
         name = "decode_downsample_fused" + ("[full_agg]" if full else "")
-        k = dec.decode_downsample_fused(words, nbits, N_DP, WINDOW, full_agg=full)
-        p = dec.decode_downsample_fused_plain(words, nbits, N_DP, WINDOW, full_agg=full)
-        for field, kt, pt in zip(k[0]._fields, k[0], p[0]):
-            _record(name, same_bits(kt, pt, f"main {name}.{field}"))
-        same_bits(k[1], p[1], f"main {name}.count")
-        del k, p
+        compare_k2(words, nbits, N_DP, WINDOW, full, "main")
+        torch.cuda.empty_cache()
         ms = time_ms(lambda: dec.decode_downsample_fused(words, nbits, N_DP, WINDOW,
                                                          full_agg=full), reps=7)
         plain_ms = time_ms(lambda: dec.decode_downsample_fused_plain(
@@ -534,7 +573,20 @@ def kernel_times(words, nbits, datapoints: int):
     row("window_quantiles", rows, ms, plain_ms, q_bytes, q_ops_ms, library_ms, "torch.sort")
     del vs, valid, keys, kq, pq
     torch.cuda.empty_cache()
+    log_layouts()
     return rows
+
+
+def log_layouts() -> None:
+    """One line per staged kernel of csrc/m3tsz_decode.cu: its staged width
+    a lane, static shared memory a block, registers a thread and the blocks
+    an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    unit = {"decode_batched": "steps", "aggregate_tiles": "tiles"}
+    for name, lay in dec.kernel_layout().items():
+        log(f"layout {name}: {lay['staged']} {unit.get(name, 'windows')} staged a lane, "
+            f"{lay['smem_bytes']} B shared a block of {lay['threads']} threads, "
+            f"{lay['registers']} registers a thread, {lay['blocks_per_sm']} blocks per SM "
+            f"({lay['blocks_per_sm'] * lay['threads'] // 32} warps)")
 
 
 # --- phase 4: the query kernels vs their plain versions ------------------
@@ -2794,7 +2846,11 @@ def compare_tiles(walks):
     probe streams (error lanes, truncation, garbage), float mode (NaN,
     +-Inf, +-0.0), a millisecond unit, duplicate timestamps and timestamps
     going back across tiles, points 1 ns before the block start and at the
-    grid's end, a block start off the tile grid, 1, 7 and 129 lanes."""
+    grid's end, a block start off the tile grid, 1, 7 and 129 lanes; then
+    ``corpus.tile_group_probe_streams`` around T1's staged groups of 4
+    tiles: 1, 3, 4, 5, 9 and 17 tiles on 1, 31, 33 and 129 lanes (lanes going
+    backwards inside the first group and after groups were written, so the
+    tile-by-tile walk runs after the warp's staged stores)."""
     probes = corpus.probe_streams(N_DP)
     tp = corpus.tile_probe_streams(MIN, 12)
     cases = [
@@ -2811,10 +2867,16 @@ def compare_tiles(walks):
          corpus.START + 100 * SEC + 1, SEC, True),
     ] + [((tp + probes + walks)[:lanes], f"{lanes} lanes", 64, 12, MIN, corpus.START, SEC, True)
          for lanes in (1, 7, 129)]
+    groups = corpus.tile_group_probe_streams()
+    cases += [(groups[:lanes], f"tile groups, {n_tiles} tiles, {lanes} lanes", 64, n_tiles, MIN,
+               corpus.START, SEC, True)
+              for n_tiles in corpus.TILE_GROUP_NTILES for lanes in corpus.TILE_GROUP_LANES]
     for streams, tag, *args in cases:
         compare_tiles_case(streams, tag, *args)
     torch.cuda.synchronize()
-    log(f"tiles parity (T1): {len(cases)} probe sets bit for bit with the plain version, twice")
+    log(f"tiles parity (T1): {len(cases)} probe sets bit for bit with the plain version, twice "
+        f"(the tile-group probes at {corpus.TILE_GROUP_NTILES} tiles x "
+        f"{corpus.TILE_GROUP_LANES} lanes)")
 
 
 # --- phase 13: the storage node, write -> seal -> flush -> AggregateTiles -> read
@@ -2861,7 +2923,8 @@ def storage_main(n_series: int = STORE_SERIES):
     block of 10s data (the 2,000 seed-42 walks tiled), ``tick`` past the
     block (E1 seals every shard), ``flush`` to filesets,
     ``TileAggregator.aggregate_tiles`` at 5m tiles with MEAN, MAX and LAST
-    (T1, twice: the decode bound grows 512 -> 1024), a tick and flush of
+    (T1, twice: the decode bound grows 512 -> 1024; both calls are then run
+    again, twice, and held against the plain version), a tick and flush of
     the tiles, then a restart (a new ``Database`` on the same directory,
     ``bootstrap``) and ``fetch_tagged`` of every tile through the
     decoded-block cache (K3 via ``decode_streams_adaptive``), cold and
@@ -2934,14 +2997,33 @@ def storage_main(n_series: int = STORE_SERIES):
             check(by_id[ids[u]] == want, f"storage: sealed stream {u} differs from the encoder")
         unique_streams = [by_id[ids[u]] for u in range(N_UNIQUE)]
         del src, by_id
-        res = stage("aggregate_tiles", lambda: TileAggregator(db).aggregate_tiles(
-            "raw", "tiles_5m", b0, b0 + STORE_BLOCK,
-            AggregateTilesOptions(tile_nanos=STORE_TILE, agg_types=STORE_AGGS)))
+        t1_calls, t1_real = [], tiles.aggregate_tiles
+
+        def t1_recorded(*a, **kw):  # T1's arguments, kept to hold it against its plain version
+            t1_calls.append((a, kw))
+            return t1_real(*a, **kw)
+
+        tiles.aggregate_tiles = t1_recorded
+        try:
+            res = stage("aggregate_tiles", lambda: TileAggregator(db).aggregate_tiles(
+                "raw", "tiles_5m", b0, b0 + STORE_BLOCK,
+                AggregateTilesOptions(tile_nanos=STORE_TILE, agg_types=STORE_AGGS)))
+        finally:
+            tiles.aggregate_tiles = t1_real
         check((res.n_series, res.n_blocks, res.n_errors, res.n_tiles_written)
               == (n_series, 1, 0, n_series * n_tiles * len(STORE_AGGS)),
               f"storage: aggregate_tiles result {res}")
         check(stages["aggregate_tiles"]["launches"].get("aggregate_tiles", 0) == 2,
               "storage: T1 must run twice (decode bound 512, then 1024)")
+        for a, kw in t1_calls:  # the stage's two calls again, twice, and the plain version
+            what = f"storage T1 at {kw.get('n_steps')} steps"
+            k = twice(lambda: _tiles_flat(tiles.aggregate_tiles(*a, **kw)), what)
+            for field, kt, pt in zip(TILE_FIELDS, k, _tiles_flat(
+                    tiles.aggregate_tiles_plain(*a, **kw))):
+                _record("aggregate_tiles", same_bits(kt, pt, f"{what}: {field}"))
+        log(f"storage parity (T1): the stage's {len(t1_calls)} calls ({len(t1_calls[0][0][0])} "
+            f"lanes) twice the same bits and bit for bit with the plain version")
+        del t1_calls
         stage("tick+flush (tiles)", lambda: (db.tick(now_nanos=b0 + 3 * STORE_BLOCK),
                                              db.flush()))
         db.close()
@@ -3031,7 +3113,8 @@ TILES_CHUNK = 250_000  # lanes per call of the plain and library versions (devic
 def tiles_kernel_times(unique_streams, b0: int, rows):
     """T1 alone at full width: 1,000,000 lanes (the storage phase's 2,000
     unique sealed streams tiled) x 720 points, at 1m (120) and 5m (24)
-    tiles; beside its plain version (held against the kernel bit for bit),
+    tiles, run twice (the same bits); beside its plain version (held
+    against the kernel bit for bit),
     its bound and K3 + index_add_/scatter_reduce_ over the decoded grid."""
     uw, un = pack_streams(unique_streams)
     reps = TILES_LANES // len(unique_streams)
@@ -3040,7 +3123,8 @@ def tiles_kernel_times(unique_streams, b0: int, rows):
     for tile in (MIN, 5 * MIN):
         n_tiles = STORE_BLOCK // tile
         args = (TILES_STEPS, n_tiles, tile, b0)
-        k = _tiles_flat(tiles.aggregate_tiles(words, nbits, *args))
+        k = twice(lambda: _tiles_flat(tiles.aggregate_tiles(words, nbits, *args)),
+                  f"T1 {n_tiles} tiles")
         check(bool((k[6] == STORE_DP).all()) and not bool(k[7].any()),
               f"T1 {n_tiles} tiles: decoded counts / errors")
         check(bool((k[2].sum(dim=1) == STORE_DP).all()), f"T1 {n_tiles} tiles: counts")
@@ -3575,7 +3659,7 @@ def main() -> int:
     log(f"parity phases done at {time.time() - t_start:.1f} s")
 
     words, nbits, results = main_path(walks)
-    rows = kernel_times(words, nbits, results["MEAN"]["datapoints"])
+    rows = kernel_times(words, nbits, results["MEAN"]["datapoints"], walks)
     del words, nbits
     torch.cuda.empty_cache()
     log(f"read main phase done at {time.time() - t_start:.1f} s; peak device memory "

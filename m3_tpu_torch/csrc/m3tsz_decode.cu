@@ -4,8 +4,8 @@
 // Replaces, from m3_tpu/ops/m3tsz_decode.py:
 //   K1  _decode_step (+ _init_state, _window128, _parse_timestamp,
 //       _parse_sig_mult, _parse_xor, _plan_value, _apply_value, _emit_value)
-//       -> decode_step(), a __device__ function shared by K2 and K3;
-//   K2  decode_downsample_fused -> decode_downsample_fused_kernel;
+//       -> decode_step(), a __device__ function shared by K2, K3 and T1;
+//   K2  decode_downsample_fused -> decode_downsample_fused_kernel<full_agg>;
 //   K3  decode_batched          -> decode_batched_kernel;
 // and, from m3_tpu/ops/tiles.py:
 //   T1  aggregate_tiles_kernel  -> aggregate_tiles_kernel (decode inline,
@@ -21,7 +21,8 @@
 // 44 64-bit operations per datapoint, run by one thread per lane (the bytes
 // are small: the compressed words are ~4.5 bits per datapoint, the K2
 // outputs 16-48 bytes per window).  The per-lane word loads are not
-// coalesced across a warp; a warp-per-lane-group layout is later work.
+// coalesced across a warp.  The results leave the SM through per-warp staged
+// tiles in shared memory, in whole sectors (see kPad below).
 //
 // Bit-exactness: build with --fmad=false so `ssq + vz * vz` is a multiply
 // then an add, as in the plain PyTorch version.  Shifts by 64 or more are
@@ -301,79 +302,126 @@ __device__ __forceinline__ double max_ieee(double a, double b) {
   return signbit(a) ? b : a;
 }
 
+// The staged kernels (K2, K3, T1) share one way of storing: a thread
+// walks its own lane, but a thread storing its result cells at lane * n + i
+// touches one 32-byte sector per lane and fills 8 bytes of it, so a warp's
+// store is 32 partly written sectors, and at 1M lanes the open sectors do not
+// fit in L2.  Instead each warp stages a few cells of its 32 lanes in shared
+// memory ([cell][lane], rows padded to kPad elements: conflict-free both
+// ways), then writes each lane's cells as one contiguous run, a whole warp on
+// neighbouring addresses: whole sectors, but where a run's two ends are not
+// sector-aligned, which the neighbouring runs of the same warp complete.  The
+// staged width trades the tile's shared memory against the warps an SM
+// holds: the state machine is latency-bound and wants them.
+constexpr int kPad = 33;  // the staged rows' stride in elements
+
 // K2: decode `window` datapoints per window inline and write only the
-// per-window accumulators, [L, n_win] each.
+// per-window accumulators, [L, n_win] each.  Windows are fixed counts of
+// points, so every lane of a warp closes window w at the same step and the
+// loop over windows is warp-uniform: the warp stages a few windows of its
+// lanes (sum and count, 12 bytes a cell, the count as int32: at most
+// `window`; with full_agg also sum_sq, min, max and last, 44 bytes), then
+// writes each lane's windows of each field as one run.  The tiles are
+// static shared memory, at most 48 KB a block.  Widths as measured on an
+// H100 (PERF.md): the MEAN form at 4 windows (6,336 bytes a block, 9 blocks
+// an SM by its 54 registers) ran 8% faster than at 8; full_agg at 8 (46,464
+// bytes, 4 blocks an SM) 5% faster than at 4.
+constexpr int kK2Windows = 4;      // MEAN form
+constexpr int kK2FullWindows = 8;  // full_agg form
+static_assert(kK2Windows >= 1 && kK2FullWindows >= 1 &&
+                  kK2FullWindows * kPad * 44 * (kThreads / 32) <= 48 * 1024,
+              "K2's full_agg tiles must fit static shared memory");
+
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads) decode_downsample_fused_kernel(
     const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
-    int n_win, int window, bool int_optimized, int64_t unit_nanos, bool full_agg, Divisors div,
+    int n_win, int window, bool int_optimized, int64_t unit_nanos, Divisors div,
     double* __restrict__ sum, int64_t* __restrict__ count, double* __restrict__ sum_sq,
     double* __restrict__ vmin_out, double* __restrict__ vmax_out, double* __restrict__ last_out,
     int32_t* __restrict__ total, bool* __restrict__ error) {
+  constexpr int kFields = kFull ? 5 : 1;  // staged f64 fields: sum (sum_sq, min, max, last)
+  constexpr int kW = kFull ? kK2FullWindows : kK2Windows;
+  __shared__ double tile_f[kThreads / 32][kFields][kW * kPad];
+  __shared__ int32_t tile_n[kThreads / 32][kW * kPad];
+  const int warp = threadIdx.x >> 5, col = threadIdx.x & 31;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const uint32_t* row = words + (size_t)lane * W;
-  const int32_t nb = nbits[lane];
+  const int first = lane - col;  // the warp's first lane
+  if (first >= L) return;        // warp-uniform: the warp writes its tiles together
+  const int n_lanes = L - first < 32 ? L - first : 32;
+  const bool mine = lane < L;
+  const uint32_t* row = words + (size_t)(mine ? lane : first) * W;
+  const int32_t nb = mine ? nbits[lane] : 0;  // a lane past L is done at once
   State st = init_state(row, W, nb);
+  double(*sf)[kW * kPad] = tile_f[warp];
+  int32_t* sn = tile_n[warp];
   int64_t tot = 0;
-  for (int w = 0; w < n_win; ++w) {
-    double s = 0.0, ssq = 0.0, mn = INFINITY, mx = -INFINITY, last = NAN;
-    bool has_last = false;
-    int64_t cnt = 0;
-    for (int j = 0; j < window; ++j) {
-      const bool valid = decode_step(row, W, nb, st, int_optimized, unit_nanos);
-      if (!valid) continue;  // adds +0.0 and 0 in the reference: no change
-      const double v = emit_value(st, div);
-      const bool contrib = !isnan(v);
-      const double vz = contrib ? v : 0.0;
-      s = __dadd_rn(s, vz);
-      cnt += 1;
-      if (full_agg) {
-        ssq = __dadd_rn(ssq, __dmul_rn(vz, vz));
-        if (contrib) {
-          mn = min_ieee(mn, v);
-          mx = max_ieee(mx, v);
+  for (int w0 = 0; w0 < n_win; w0 += kW) {
+    const int nw = n_win - w0 < kW ? n_win - w0 : kW;
+    for (int j = 0; j < nw; ++j) {
+      double s = 0.0, ssq = 0.0, mn = INFINITY, mx = -INFINITY, last = NAN;
+      bool has_last = false;
+      int32_t cnt = 0;
+      for (int k = 0; k < window; ++k) {
+        const bool valid = decode_step(row, W, nb, st, int_optimized, unit_nanos);
+        if (!valid) continue;  // adds +0.0 and 0 in the reference: no change
+        const double v = emit_value(st, div);
+        const bool contrib = !isnan(v);
+        const double vz = contrib ? v : 0.0;
+        s = __dadd_rn(s, vz);
+        cnt += 1;
+        if constexpr (kFull) {
+          ssq = __dadd_rn(ssq, __dmul_rn(vz, vz));
+          if (contrib) {
+            mn = min_ieee(mn, v);
+            mx = max_ieee(mx, v);
+          }
+          last = v;
+          has_last = true;
         }
-        last = v;
-        has_last = true;
+      }
+      const int c = j * kPad + col;
+      sf[0][c] = s;
+      sn[c] = cnt;
+      if constexpr (kFull) {
+        const bool any_c = mn != INFINITY;
+        sf[1][c] = ssq;
+        sf[2][c] = any_c ? mn : NAN;
+        sf[3][c] = any_c ? mx : NAN;
+        sf[4][c] = has_last ? last : NAN;
+      }
+      tot += cnt;
+    }
+    __syncwarp();
+    // lane l's windows w0 .. w0 + nw - 1, contiguous at l * n_win + w0
+    const int cells = n_lanes * nw;
+    for (int i = col; i < cells; i += 32) {
+      const int l = nw == kW ? i / kW : i / nw;
+      const int j = i - l * nw;
+      const int c = j * kPad + l;
+      const size_t o = (size_t)(first + l) * n_win + w0 + j;
+      sum[o] = sf[0][c];
+      count[o] = sn[c];
+      if constexpr (kFull) {
+        sum_sq[o] = sf[1][c];
+        vmin_out[o] = sf[2][c];
+        vmax_out[o] = sf[3][c];
+        last_out[o] = sf[4][c];
       }
     }
-    const size_t o = (size_t)lane * n_win + w;
-    sum[o] = s;
-    count[o] = cnt;
-    if (full_agg) {
-      const bool any_c = mn != INFINITY;
-      sum_sq[o] = ssq;
-      vmin_out[o] = any_c ? mn : NAN;
-      vmax_out[o] = any_c ? mx : NAN;
-      last_out[o] = has_last ? last : NAN;
-    }
-    tot += cnt;
+    __syncwarp();  // the tile is restaged by the next windows
   }
+  if (!mine) return;
   total[lane] = (int32_t)tot;
   error[lane] = st.error;
 }
 
 // K3: decode up to n_steps datapoints per lane into [L, n_steps] grids.
 // scan_len == n_steps + 1 with flag_truncation: the extra step lets a
-// stream holding exactly n_steps records reach its EOS marker.
-//
-// Each thread still walks its own lane; what changes is how the grids leave
-// the SM.  A thread storing its step at lane * n_steps + step would touch one
-// 32-byte sector per lane and fill 8 bytes of it (1 for `valid`), so a warp's
-// store is 32 partly written sectors, and at 1M lanes the open sectors do not
-// fit in L2.  Instead each warp stages kK3Steps steps of its 32 lanes in
-// shared memory ([step][lane], a padded row: conflict-free both ways), then
-// writes each lane's kK3Steps steps as one contiguous run (128 bytes of ts
-// and of vs, a lane's run of valid bytes), a whole warp on neighbouring
-// addresses: whole sectors, but where lane * n_steps is not a multiple of 4
-// (of 32 for `valid`) at a run's two ends, which the neighbouring runs of
-// the same warp complete.  kK3Steps trades the tile's shared memory (~8.4 KB
-// a warp at 16) against the warps an SM holds: the state machine is
-// latency-bound and wants them.
+// stream holding exactly n_steps records reach its EOS marker.  Each warp
+// stages kK3Steps steps of its 32 lanes, then writes each lane's steps as
+// one run (128 bytes of ts and of vs, a lane's run of valid bytes): ~8.4 KB
+// of tiles a warp, static shared memory, 17 bytes a step and lane.
 constexpr int kK3Steps = 16;
-constexpr int kK3Pad = 33;  // the staged rows' stride in elements
-// the tiles are static shared memory, at most 48 KB a block: 17 bytes a
-// step and lane, 4 warps
 static_assert(kK3Steps >= 1 && kK3Steps <= 16, "a tile holds 1-16 steps");
 
 __global__ void __launch_bounds__(kThreads) decode_batched_kernel(
@@ -381,9 +429,9 @@ __global__ void __launch_bounds__(kThreads) decode_batched_kernel(
     int n_steps, int scan_len, bool int_optimized, int64_t unit_nanos, bool flag_truncation,
     Divisors div, int64_t* __restrict__ ts, double* __restrict__ vs, bool* __restrict__ valid,
     int32_t* __restrict__ count, bool* __restrict__ error) {
-  __shared__ int64_t tile_ts[kThreads / 32][kK3Steps * kK3Pad];
-  __shared__ double tile_vs[kThreads / 32][kK3Steps * kK3Pad];
-  __shared__ bool tile_ok[kThreads / 32][kK3Steps * kK3Pad];
+  __shared__ int64_t tile_ts[kThreads / 32][kK3Steps * kPad];
+  __shared__ double tile_vs[kThreads / 32][kK3Steps * kPad];
+  __shared__ bool tile_ok[kThreads / 32][kK3Steps * kPad];
   const int warp = threadIdx.x >> 5, col = threadIdx.x & 31;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int first = lane - col;  // the warp's first lane
@@ -403,9 +451,9 @@ __global__ void __launch_bounds__(kThreads) decode_batched_kernel(
     for (int j = 0; j < nd; ++j) {
       const bool ok = decode_step(row, W, nb, st, int_optimized, unit_nanos);
       if (j < nt) {
-        sts[j * kK3Pad + col] = st.prev_time;
-        svs[j * kK3Pad + col] = emit_value(st, div);
-        sok[j * kK3Pad + col] = ok;
+        sts[j * kPad + col] = st.prev_time;
+        svs[j * kPad + col] = emit_value(st, div);
+        sok[j * kPad + col] = ok;
         cnt += ok;
       }
     }
@@ -417,9 +465,9 @@ __global__ void __launch_bounds__(kThreads) decode_batched_kernel(
       const int l = nt == kK3Steps ? i / kK3Steps : i / nt;
       const int j = i - l * nt;
       const size_t o = (size_t)(first + l) * n_steps + t0 + j;
-      ts[o] = sts[j * kK3Pad + l];
-      vs[o] = svs[j * kK3Pad + l];
-      valid[o] = sok[j * kK3Pad + l];
+      ts[o] = sts[j * kPad + l];
+      vs[o] = svs[j * kPad + l];
+      valid[o] = sok[j * kPad + l];
     }
     __syncwarp();  // the tile is restaged by the next steps
   }
@@ -481,67 +529,162 @@ __device__ __forceinline__ void tile_store(const Tile& a, size_t o, double* sum,
   last[o] = a.last;
 }
 
+// T1's staged group: 4 tiles of a warp's 32 lanes, 44 bytes a cell, 23,232
+// bytes of static shared memory a block of 4 warps.  The decode is latency-
+// bound, so resident warps set T1's rate: 8 tiles (46,464 bytes) allow 4
+// blocks an SM and ran 1.3x slower at 5m tiles on an H100 (PERF.md); at 4
+// tiles the kernel's registers are capped for 6 blocks (80, no spill).
+constexpr int kT1Tiles = 4;
+constexpr int kT1BlocksPerSM = 6;
+static_assert(kT1Tiles >= 1 && kT1Tiles * kPad * 44 * (kThreads / 32) <= 48 * 1024,
+              "T1's tiles must fit static shared memory");
+
+// The same, finalised into a warp's staged tile: cell c of each field row
+// (sum, sum_sq, min, max, last; the count as int32, at most n_steps).
+__device__ __forceinline__ void tile_stage(const Tile& a, int c, double (*f)[kT1Tiles * kPad],
+                                           int32_t* n) {
+  f[0][c] = a.sum;
+  f[1][c] = a.sum_sq;
+  f[2][c] = isinf(a.vmin) ? NAN : a.vmin;
+  f[3][c] = isinf(a.vmax) ? NAN : a.vmax;
+  f[4][c] = a.last;
+  n[c] = (int32_t)a.count;
+}
+
 // Tile index of a point, or -1 when it falls outside [0, n_tiles): the
-// floor of (t - block_start) / tile_nanos on wrapping int64, as jnp's `//`.
-__device__ __forceinline__ int tile_of(int64_t t, int64_t block_start, int64_t tile_nanos,
-                                       int n_tiles) {
-  const int64_t d = (int64_t)((uint64_t)t - (uint64_t)block_start);
+// floor of d / tile_nanos, d = t - block_start on wrapping int64, as jnp's `//`.
+__device__ __forceinline__ int64_t offset_of(int64_t t, int64_t block_start) {
+  return (int64_t)((uint64_t)t - (uint64_t)block_start);
+}
+__device__ __forceinline__ int tile_at(int64_t d, int64_t tile_nanos, int n_tiles) {
   int64_t q = d / tile_nanos;  // truncates toward zero
   if (d % tile_nanos != 0 && d < 0) q -= 1;
   return (q >= 0 && q < n_tiles) ? (int)q : -1;
 }
+__device__ __forceinline__ int tile_of(int64_t t, int64_t block_start, int64_t tile_nanos,
+                                       int n_tiles) {
+  return tile_at(offset_of(t, block_start), tile_nanos, n_tiles);
+}
 
 // T1: decode up to n_steps points of a lane and reduce them into its
 // tiles.  One thread per lane walks its stream once, keeping the current
-// tile in registers and storing each tile once, when it leaves it (tiles
-// it skips are stored empty).  A stream whose tile index goes backwards
-// (timestamps out of order across tiles) cannot be reduced that way
-// without reloading a stored tile's running state, which the stored
-// outputs do not keep (min/max are finalised, the last timestamp is not
-// stored); such a lane is redone tile by tile instead: one walk per tile
-// it touches, each accumulating only that tile's points in stream order
-// and finding the next tile.  Both orders add a tile's points in stream
-// order, so the sums are the reference's sequential scatter-add bit for bit.
-__global__ void __launch_bounds__(kThreads) aggregate_tiles_kernel(
+// tile in registers.  Lanes leave tiles at data-dependent steps, so the unit
+// a warp stages is a group of kT1Tiles tiles, and the loop over groups is
+// warp-uniform: in group g a thread walks until its next in-range point
+// lands at or past the group's end (that point waits in registers, decoded
+// once, and opens its tile when its group does), its stream ends, or its
+// tile index goes backwards.  Each tile it closes or skips goes into the
+// warp's staged group (skipped tiles stay empty); then the warp writes each
+// lane's tiles of the group as runs, as K2 does.
+//
+// A stream whose tile index goes backwards (timestamps out of order across
+// tiles) cannot be reduced that way without reloading a closed tile's
+// running state, which the outputs do not keep (min/max are finalised, the
+// last timestamp is not stored); such a lane stops walking, still takes part
+// in the group loop (its staged cells are overwritten), and after the loop
+// is redone tile by tile: one walk per tile it touches, each accumulating
+// only that tile's points in stream order and finding the next tile, storing
+// directly.  The warp's staged writes of its row were made by other threads;
+// the __syncwarp that ends the group loop orders them before these.  Both
+// orders add a tile's points in stream order, so the sums are the
+// reference's sequential scatter-add bit for bit.
+__global__ void __launch_bounds__(kThreads, kT1BlocksPerSM) aggregate_tiles_kernel(
     const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
     int n_steps, int n_tiles, long long tile_nanos, long long block_start, bool int_optimized,
     int64_t unit_nanos, Divisors div, double* __restrict__ sum, double* __restrict__ sum_sq,
     int64_t* __restrict__ count, double* __restrict__ vmin, double* __restrict__ vmax,
     double* __restrict__ last, int32_t* __restrict__ decoded, bool* __restrict__ error) {
+  __shared__ double tile_f[kThreads / 32][5][kT1Tiles * kPad];
+  __shared__ int32_t tile_n[kThreads / 32][kT1Tiles * kPad];
+  const int warp = threadIdx.x >> 5, col = threadIdx.x & 31;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const uint32_t* row = words + (size_t)lane * W;
-  const int32_t nb = nbits[lane];
+  const int first = lane - col;  // the warp's first lane
+  if (first >= L) return;        // warp-uniform: the warp writes its groups together
+  const int n_lanes = L - first < 32 ? L - first : 32;
+  const bool mine = lane < L;
+  const uint32_t* row = words + (size_t)(mine ? lane : first) * W;
+  const int32_t nb = mine ? nbits[lane] : 0;  // a lane past L is done at once
   const size_t base = (size_t)lane * n_tiles;
+  double(*sf)[kT1Tiles * kPad] = tile_f[warp];
+  int32_t* sn = tile_n[warp];
   const Tile none = empty_tile();
 
-  // fast walk: tiles visited in ascending order
   State st = init_state(row, W, nb);
   Tile a = none;
-  int cur = -1;  // tiles [0, cur) are stored; cur is in registers
-  bool backwards = false;
-  int32_t cnt = 0;
-  for (int step = 0; step < n_steps; ++step) {
-    if (!decode_step(row, W, nb, st, int_optimized, unit_nanos)) break;  // done or error: for good
-    ++cnt;
-    const int64_t t = st.prev_time;
-    const int k = tile_of(t, block_start, tile_nanos, n_tiles);
-    if (k < 0) continue;
-    if (k != cur) {
-      if (k < cur) {
-        backwards = true;
+  int cur = -1;  // the last in-range tile seen; `a` holds it while it is in the group
+  // cur's first offset: a point with lo <= d < lo + tile_nanos is in cur,
+  // with no 64-bit division (lo = cur * tile_nanos <= d cannot overflow);
+  // skipping the division there took T1 at 5m tiles from 14.0 to 10.5 ms
+  // on an H100 (PERF.md)
+  int64_t lo = 0;
+  int32_t cnt = 0;  // steps decoded
+  bool ended = false, backwards = false, pending = false;
+  int64_t pt = 0;  // the pending point: time, value, tile
+  double pv = 0.0;
+  int pk = 0;
+  // one group at least: with no tiles the walk still counts the points
+  const int n_groups = n_tiles > kT1Tiles ? (n_tiles + kT1Tiles - 1) / kT1Tiles : 1;
+  for (int g0 = 0; g0 < n_groups * kT1Tiles; g0 += kT1Tiles) {
+    const int nt = n_tiles - g0 < kT1Tiles ? n_tiles - g0 : kT1Tiles;  // tiles of the group
+    const int g1 = g0 + nt;
+    for (int j = 0; j < nt; ++j) tile_stage(none, j * kPad + col, sf, sn);
+    if (pending && pk < g1) {  // pk >= g0: it was at or past the last group's end
+      cur = pk;
+      lo = (int64_t)cur * tile_nanos;
+      a = none;
+      tile_add(a, pt, pv);
+      pending = false;
+    }
+    while (!ended && !pending && !backwards) {
+      if (cnt == n_steps || !decode_step(row, W, nb, st, int_optimized, unit_nanos)) {
+        ended = true;  // n_steps reached, done or error: for good
         break;
       }
-      if (cur >= 0) tile_store(a, base + cur, sum, sum_sq, count, vmin, vmax, last);
-      for (int e = cur + 1; e < k; ++e) tile_store(none, base + e, sum, sum_sq, count, vmin, vmax, last);
-      cur = k;
-      a = none;
+      ++cnt;
+      const int64_t t = st.prev_time;
+      const int64_t d = offset_of(t, block_start);
+      const bool in_cur = cur >= 0 && d >= lo && (uint64_t)d - (uint64_t)lo < (uint64_t)tile_nanos;
+      const int k = in_cur ? cur : tile_at(d, tile_nanos, n_tiles);
+      if (k < 0) continue;
+      if (k != cur) {
+        if (k < cur) {
+          backwards = true;
+          break;
+        }
+        if (k >= g1) {
+          pending = true;
+          pt = t;
+          pv = emit_value(st, div);
+          pk = k;
+          break;
+        }
+        if (cur >= g0) tile_stage(a, (cur - g0) * kPad + col, sf, sn);
+        cur = k;
+        lo = (int64_t)cur * tile_nanos;
+        a = none;
+      }
+      tile_add(a, t, emit_value(st, div));
     }
-    tile_add(a, t, emit_value(st, div));
+    if (cur >= g0 && !backwards) tile_stage(a, (cur - g0) * kPad + col, sf, sn);
+    __syncwarp();
+    // lane l's tiles g0 .. g1 - 1, contiguous at l * n_tiles + g0
+    const int cells = n_lanes * nt;
+    for (int i = col; i < cells; i += 32) {
+      const int l = nt == kT1Tiles ? i / kT1Tiles : i / nt;
+      const int j = i - l * nt;
+      const int c = j * kPad + l;
+      const size_t o = (size_t)(first + l) * n_tiles + g0 + j;
+      sum[o] = sf[0][c];
+      sum_sq[o] = sf[1][c];
+      count[o] = sn[c];
+      vmin[o] = sf[2][c];
+      vmax[o] = sf[3][c];
+      last[o] = sf[4][c];
+    }
+    __syncwarp();  // the group is restaged next, and orders the slow path's stores
   }
+  if (!mine) return;
   if (!backwards) {
-    if (cur >= 0) tile_store(a, base + cur, sum, sum_sq, count, vmin, vmax, last);
-    for (int e = cur + 1; e < n_tiles; ++e) tile_store(none, base + e, sum, sum_sq, count, vmin, vmax, last);
     decoded[lane] = cnt;
     error[lane] = st.error;
     return;
@@ -596,8 +739,10 @@ int m3_decode_downsample_fused(const uint32_t* words, const int32_t* nbits, int 
                                int full_agg, const double* divisors_host, double* sum,
                                int64_t* count, double* sum_sq, double* vmin, double* vmax,
                                double* last, int32_t* total, bool* error, void* stream) {
-  decode_downsample_fused_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      words, nbits, L, W, n_win, window, int_optimized != 0, unit_nanos, full_agg != 0,
+  auto kernel = full_agg ? decode_downsample_fused_kernel<true>
+                         : decode_downsample_fused_kernel<false>;
+  kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
+      words, nbits, L, W, n_win, window, int_optimized != 0, unit_nanos,
       load_divisors(divisors_host), sum, count, sum_sq, vmin, vmax, last, total, error);
   return (int)cudaGetLastError();
 }
@@ -622,6 +767,33 @@ int m3_aggregate_tiles(const uint32_t* words, const int32_t* nbits, int L, int W
       unit_nanos, load_divisors(divisors_host), sum, sum_sq, count, vmin, vmax, last, decoded,
       error);
   return (int)cudaGetLastError();
+}
+
+// How a staged kernel sits on the card: kernel 0 K2, 1 K2 full_agg, 2 K3,
+// 3 T1.  out = {staged width (windows, steps or tiles), static shared bytes
+// a block, resident blocks per SM, registers a thread, threads a block}.
+int m3_decode_layout(int kernel, int* out) {
+  const void* fn;
+  int width;
+  switch (kernel) {
+    case 0: fn = (const void*)decode_downsample_fused_kernel<false>; width = kK2Windows; break;
+    case 1: fn = (const void*)decode_downsample_fused_kernel<true>; width = kK2FullWindows; break;
+    case 2: fn = (const void*)decode_batched_kernel; width = kK3Steps; break;
+    case 3: fn = (const void*)aggregate_tiles_kernel; width = kT1Tiles; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = width;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = blocks;
+  out[3] = attr.numRegs;
+  out[4] = kThreads;
+  return 0;
 }
 
 const char* m3_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

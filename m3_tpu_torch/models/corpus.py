@@ -247,6 +247,99 @@ def tile_probe_streams(tile: int = 60 * SEC, n_tiles: int = 12, start: int = STA
     return out
 
 
+# T1's CUDA kernel writes its tiles through per-warp staged groups of 4:
+# tile counts around them (1, kT - 1, kT, kT + 1, 2kT + 1, and 17: five
+# groups) and lane counts around a warp
+TILE_GROUP_NTILES = (1, 3, 4, 5, 9, 17)
+TILE_GROUP_LANES = (1, 31, 33, 129)
+
+
+def tile_group_probe_streams(n_lanes: int = 129, tile: int = 60 * SEC,
+                             last_tiles=tuple(n - 1 for n in TILE_GROUP_NTILES),
+                             start: int = START, seed: int = 41) -> list[bytes]:
+    """Streams for T1's staged tile groups, block start ``start``: lane i
+    walks from tile ``i % 13`` (offsets, spacings of 10-90 s that skip
+    tiles, gaps of 9-20 tiles longer than a group, 5-70 points: lanes end in
+    every group, some past the grid, some past 64 steps), except the probes
+    at fixed lanes: a lane whose only point is in tile k for each k of
+    ``last_tiles`` (the last tile of each tile count), duplicate timestamps
+    on every tile boundary, gaps over whole groups, the index going
+    backwards inside the first group and after one and two groups have been
+    written, NaN / +-Inf / -0.0 on a group boundary, no point in range, an
+    empty stream and a stream cut short (an error lane)."""
+    rng = random.Random(seed)
+
+    def enc(ts, vs):
+        return tsz.encode_series([start + t for t in ts], vs, start)
+
+    def at(tiles_secs):  # (tile, second in it) -> offset nanos
+        return [k * tile + s * SEC for k, s in tiles_secs]
+
+    nan, inf = math.nan, math.inf
+    special = {}
+    for i, k in zip((1, 5, 9, 30, 64, 70, 71, 72), last_tiles):
+        special[i] = enc([k * tile + 30 * SEC], [float(k)])
+    # duplicate timestamps on each side of every tile boundary: a tile's
+    # first two points and its last two (the later of those wins `last`)
+    ts, vs = [], []
+    for k in range(1, 19):
+        ts += [k * tile - 10 * SEC, k * tile - 10 * SEC, k * tile, k * tile]
+        vs += [float(k), k + 0.25, float(10 * k), float(10 * k + 1)]
+    special[2] = enc(ts, vs)
+    # gaps over whole groups, from a group's first tile and from its middle
+    special[14] = enc(at([(0, 5), (1, 5), (11, 5), (12, 5), (30, 5)]), [1.0, 2.0, 3.0, 4.0, 5.0])
+    special[20] = enc(at([(3, 1), (3, 2), (13, 1), (16, 59), (26, 0)]), [1.0, -2.0, 3.0, 4.0, 5.0])
+    # backwards inside the first group
+    special[26] = enc(at([(0, 1), (1, 1), (2, 1), (1, 30), (3, 1), (5, 1)]),
+                      [1.0, 2.0, 3.0, 4.0, 5.0, 6.0])
+    # backwards after groups of tiles have been written
+    special[31] = enc(at([(k, 20) for k in range(11)] + [(2, 40), (12, 1), (16, 1)]),
+                      [float(k) for k in range(14)])
+    special[32] = enc(at([(k, 50) for k in range(17)] + [(9, 10), (16, 55)]),
+                      [float(k) for k in range(19)])
+    # NaN, +-Inf and -0.0 on either side of a group boundary
+    special[40] = enc(at([(7, 10), (7, 20), (7, 59), (8, 0), (8, 1), (8, 2), (9, 0)]),
+                      [nan, inf, -0.0, -inf, nan, 2.0, 0.0])
+    # nothing in range; an empty stream; a stream cut short
+    special[96] = enc([-300 * SEC, -200 * SEC], [1.0, 2.0])
+    special[100] = tsz.Encoder(start).finalize()
+    cut = enc(at([(k // 4, 15 * (k % 4)) for k in range(40)]), [float(k) for k in range(40)])
+    special[128] = cut[: len(cut) // 2]
+    out = []
+    for i in range(n_lanes):
+        if i in special:
+            out.append(special[i])
+            continue
+        t = (i % 13) * tile + rng.randrange(60) * SEC
+        v = float(rng.randint(0, 1000))
+        ts, vs = [], []
+        for j in range(rng.randint(5, 70)):
+            ts.append(t)
+            vs.append(v)
+            t += rng.choice((10, 10, 15, 20, 40, 90)) * SEC
+            if i % 5 == 0 and j == 6:
+                t += rng.randint(9, 20) * tile
+            v = max(0.0, v + rng.choice((-2.0, -1.0, 0.0, 1.0, 2.0)))
+        out.append(enc(ts, vs))
+    return out
+
+
+# K2's CUDA kernel writes its windows through per-warp staged groups of 4
+# (8 with full_agg): (n_steps, window) around them, n_win of 1, kW - 1, kW,
+# kW + 1 for both widths, window 1 and window = n_steps, and errors in the
+# middle of a window of 4 and of 36
+K2_WINDOW_CASES = ((1, 1), (3, 1), (4, 1), (5, 1), (7, 1), (8, 1), (9, 1), (36, 4), (36, 36))
+
+
+def k2_window_probe_streams(n_dp: int = 36) -> list[bytes]:
+    """Streams for K2's staged windows: the decoder's probe streams (error
+    lanes, truncation, garbage), a walk cut at 24 lengths (the decoder
+    stops in error at steps all through the grid) and 11 walks: 61 lanes."""
+    (full,) = walk_streams(1, n_dp + 4, seed=8)
+    cuts = [full[: 9 + (len(full) - 9) * k // 24] for k in range(24)]
+    return probe_streams(n_dp) + cuts + walk_streams(11, n_dp, seed=9)
+
+
 # --- the query path -------------------------------------------------------
 
 

@@ -482,7 +482,27 @@ _DECODE_SIGNATURES = {
         _build.P, _build.P, _build.I, _build.I, _build.I, _build.I, _build.I,
         _build.LL, _build.I, _build.P, _build.P, _build.P, _build.P,
         _build.P, _build.P, _build.P],
+    "m3_decode_layout": [_build.I, _build.P],
 }
+
+# the staged kernels of csrc/m3tsz_decode.cu, in m3_decode_layout's order
+_LAYOUT_KERNELS = ("decode_downsample_fused", "decode_downsample_fused[full_agg]",
+                   "decode_batched", "aggregate_tiles")
+
+
+def kernel_layout() -> dict[str, dict[str, int]]:
+    """How K2 (both forms), K3 and T1 sit on the current CUDA card: each
+    one's staged width (windows, steps or tiles a warp stages per lane),
+    static shared bytes a block, resident blocks per SM, registers a thread
+    and threads a block.  Builds the library if needed; needs a card."""
+    lib = _build.library("m3tsz_decode", _DECODE_SIGNATURES)
+    out = {}
+    for i, name in enumerate(_LAYOUT_KERNELS):
+        buf = np.zeros(5, dtype=np.int32)
+        _build.check(lib, lib.m3_decode_layout(i, buf.ctypes.data), f"{name} layout")
+        out[name] = dict(zip(("staged", "smem_bytes", "blocks_per_sm", "registers",
+                              "threads"), buf.tolist()))
+    return out
 
 
 def _check_inputs(words: torch.Tensor, nbits: torch.Tensor, unit_nanos: int):

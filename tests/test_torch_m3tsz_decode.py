@@ -158,6 +158,61 @@ def test_odd_lane_counts_match_jax(lanes):
     assert_same(got[2], want[2], "error")
 
 
+@functools.lru_cache(maxsize=None)
+def _k2_window_jax(n_steps: int, window: int):
+    """The reference's full_agg K2 on ``corpus.k2_window_probe_streams`` at
+    (n_steps, window), numpy, the batch's 61 lanes.  Window 1 is read off
+    one compiled program at 9 steps: its first n windows are the n-step
+    windows, the total is their counts' sum, and a lane is in error after n
+    steps iff it is at 9 and its decoder stopped (at its count of valid
+    steps) within the first n: a decode step that sets the error is the
+    first invalid one, and the flag stays."""
+    streams = corpus.k2_window_probe_streams(N_STEPS)
+    words, nbits = _pack(streams)
+    n = len(streams)
+    if window == 1 and n_steps < 9:
+        agg, total, error = _k2_window_jax(9, 1)
+        agg = type(agg)(*(f[:, :n_steps] for f in agg))
+        return (agg, agg.count.sum(axis=1).astype(np.int32),
+                error & (total < n_steps))
+    agg, total, error = jdec.decode_downsample_fused(words, nbits, n_steps, window,
+                                                     full_agg=True)
+    return (type(agg)(*(np.asarray(f)[:n] for f in agg)), np.asarray(total)[:n],
+            np.asarray(error)[:n])
+
+
+@pytest.mark.parametrize("full_agg", [False, True])
+@pytest.mark.parametrize("n_steps,window", corpus.K2_WINDOW_CASES)
+def test_k2_window_edges_match_jax(n_steps, window, full_agg):
+    """K2's plain version around the CUDA kernel's staged groups of 4
+    windows (8 with full_agg): n_win 1, 3, 4, 5, 7, 8, 9; window 1 and
+    window = n_steps; on lanes
+    that stop in error in the middle of a window.  Without full_agg the
+    sum and count are the reference's full_agg ones (computed alike in both
+    modes) and the other fields NaN."""
+    streams = corpus.k2_window_probe_streams(N_STEPS)
+    words, nbits = pack_streams(streams)
+    got = tdec.decode_downsample_fused(torch.from_numpy(words), torch.from_numpy(nbits),
+                                       n_steps, window, full_agg=full_agg)
+    want = _k2_window_jax(n_steps, window)
+    what = f"K2 ({n_steps}, {window}) full_agg={full_agg}"
+    if full_agg:
+        _agg_same(got[0], want[0], True, what)
+    else:
+        for field in ("sum", "count"):
+            assert_same(getattr(got[0], field), getattr(want[0], field), f"{what}.{field}")
+        for field in ("sum_sq", "min", "max", "last"):
+            assert np.isnan(getattr(got[0], field).numpy()).all(), f"{what}.{field}"
+    assert_same(got[1], want[1], f"{what}.count")
+    assert_same(got[2], want[2], f"{what}.error")
+    assert got[0].count.shape == (len(streams), n_steps // window)
+    err = got[2].numpy()
+    if n_steps > 4:  # error lanes and clean lanes alike
+        assert err.any() and not err.all()
+    if window > 1:  # lanes stop in error inside a window
+        assert ((got[1].numpy() % window != 0) & err).any()
+
+
 @pytest.mark.parametrize("int_optimized", [True, False])
 def test_decode_streams_matches_jax(int_optimized):
     streams = corpus.probe_streams(N_STEPS, int_optimized=int_optimized)

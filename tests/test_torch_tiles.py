@@ -6,7 +6,9 @@
   probe streams (error lanes, truncation, garbage), float mode, a
   millisecond unit, and ``corpus.tile_probe_streams`` (ties at a tile's
   greatest time, timestamps going back across tiles, NaN / +-Inf / +-0.0,
-  the grid's edges) at block starts on and 1 ns off the second grid.
+  the grid's edges) at block starts on and 1 ns off the second grid, and
+  ``corpus.tile_group_probe_streams`` around the CUDA kernel's staged
+  groups of tiles (tile and lane counts about a group and a warp).
   Every field matches bit for bit (f64 as bit patterns, NaN positions
   equal), sums included: XLA:CPU runs the scatter-adds in stream order.
 - The port's ``TileAggregator`` over a port ``Database(device="cpu")``
@@ -138,6 +140,67 @@ def test_tile_probe_corners():
                                        N_STEPS, N_TILES, MIN, START, int_optimized=False)
     assert agg.count[1, 0] == 5
     assert np.signbit(agg.min.numpy()[1, 0]) and not np.signbit(agg.max.numpy()[1, 0])
+
+
+@functools.lru_cache(maxsize=None)
+def _group_jax():
+    """The reference on ``corpus.tile_group_probe_streams`` (129 lanes) in
+    chunks of the file's 32 lanes, at the largest tile count of
+    ``corpus.TILE_GROUP_NTILES``: one compiled program.  A point's tile is
+    ``(t - block_start) // tile`` whatever the tile count, and a count only
+    drops the points at or past its end, so tiles [0, n) of this run are
+    the reference's at n tiles; decoded counts and errors do not depend on
+    the tile count."""
+    streams = corpus.tile_group_probe_streams()
+    n_max = max(corpus.TILE_GROUP_NTILES)
+    parts = []
+    for lo in range(0, len(streams), LANES):
+        chunk = streams[lo:lo + LANES]
+        words, nbits = _pack(chunk)
+        agg, decoded, error = jtiles.aggregate_tiles_kernel(
+            words, nbits, n_steps=N_STEPS, n_tiles=n_max, tile_nanos=MIN, block_start=START)
+        parts.append([np.asarray(f)[:len(chunk)] for f in (*agg, decoded, error)])
+    return [np.concatenate(f) for f in zip(*parts)]
+
+
+@pytest.mark.parametrize("lanes", corpus.TILE_GROUP_LANES)
+@pytest.mark.parametrize("n_tiles", corpus.TILE_GROUP_NTILES)
+def test_tile_groups_match_jax(n_tiles, lanes):
+    """T1's plain version around the CUDA kernel's staged groups of 4 tiles
+    (tile counts 1, 3, 4, 5, 9, 17) and a warp's 32 lanes (1, 31, 33, 129),
+    on ``corpus.tile_group_probe_streams``: every field bit for bit."""
+    streams = corpus.tile_group_probe_streams()[:lanes]
+    words, nbits = pack_streams(streams)
+    agg, decoded, error = ttiles.aggregate_tiles(
+        torch.from_numpy(words), torch.from_numpy(nbits), N_STEPS, n_tiles, MIN, START)
+    want = _group_jax()
+    what = f"{n_tiles} tiles, {lanes} lanes"
+    for field, got, w in zip(("sum", "sum_sq", "count", "min", "max", "last"), agg, want):
+        assert_same(got, w[:lanes, :n_tiles], f"{what}.{field}")
+    assert_same(decoded, want[6][:lanes], f"{what}.decoded_count")
+    assert_same(error, want[7][:lanes], f"{what}.error")
+
+
+def test_tile_group_probe_corners():
+    """The corners the group probes exist for, read off the plain version
+    at 17 tiles."""
+    streams = corpus.tile_group_probe_streams()
+    words, nbits = pack_streams(streams)
+    agg, decoded, error = ttiles.aggregate_tiles(
+        torch.from_numpy(words), torch.from_numpy(nbits), N_STEPS, 17, MIN, START)
+    cnt, last = agg.count.numpy(), agg.last.numpy()
+    first = [int(np.flatnonzero(c)[0]) for c in cnt[[0, 3, 4, 6, 12, 13]]]
+    assert first == [0, 3, 4, 6, 12, 0]  # walkers start in tile i % 13
+    for lane, k in zip((1, 5, 9, 30, 64, 70), (0, 2, 3, 4, 8, 16)):  # one point, in tile k
+        assert cnt[lane].sum() == 1 and cnt[lane, k] == 1
+    # duplicates on each side of a boundary: the later one wins `last`
+    assert cnt[2, 8] == 4 and last[2, 8] == 9.25 and last[2, 7] == 8.25
+    assert agg.sum.numpy()[2, 8] == 80.0 + 81.0 + 9.0 + 9.25
+    assert list(np.flatnonzero(cnt[14])) == [0, 1, 11, 12]  # a gap over a group
+    assert cnt[26, 1] == 2 and cnt[31, 2] == 2 and cnt[32, 9] == 2  # backwards
+    assert np.isnan(agg.min.numpy()[40, 8]) and agg.max.numpy()[40, 8] == 2.0
+    assert cnt[96].sum() == 0 and cnt[100].sum() == 0 and error.numpy()[128]
+    assert (decoded.numpy() == N_STEPS).any()  # lanes truncated at n_steps
 
 
 # --- TileAggregator over a Database ------------------------------------------

@@ -5,8 +5,9 @@ into its own ``build/``.
 For each checkout, on data made from seeds:
 - K3 (``ops/m3tsz_decode.py:decode_batched``) at the read path's shape:
   2,000 seed-42 walk streams of 360 points tiled to 1,000,000 lanes; K2
-  (``decode_downsample_fused``, MEAN: the same decode, few bytes written)
-  beside it;
+  (``decode_downsample_fused``, window 6) beside it in both modes, MEAN
+  (the same decode, sum and count written) and ``full_agg`` (STDEV: six
+  [L, 60] fields);
 - K3 at the fan-out read's shape: 600 walk streams of 720 points tiled to
   150,000 lanes, with ``flag_truncation``;
 - QK6 (``ops/query_grouped.py:grouped_quantile``) at the quantile-by
@@ -31,11 +32,15 @@ For each checkout, on data made from seeds:
   one 2h block, padded to [1,024 x 1,024]); the seals' arguments are the
   ones ``storage/shard.py:encode_block_device`` passes, recorded on their
   way in; beside each, its byte bound at 3.35 TB/s;
+- T1 (``ops/tiles.py:aggregate_tiles``) at ``chip_smoke.py``'s shape of
+  it alone: the 2,000 seed-42 walks of 720 points of one 2h block, encoded
+  as the storage node seals them (stream start = block start), tiled to
+  1,000,000 lanes, decode bound 1,024, at 1m (120) and 5m (24) tiles;
 - the host: its cores and the median time of a fixed Python loop.
-Each kernel's outputs are held against the plain version's (K3 and E1 at
-the encode shape on the unique lanes, the tiled ones against those), bit
-for bit, before it is timed (CUDA events, median of 7; A1c and E1 also with
-the stream kept busy ahead, their device time alone).
+Each kernel's outputs are held against the plain version's (K2, K3, T1 and
+E1 at the encode shape on the unique lanes, the tiled ones against those),
+bit for bit, before it is timed (CUDA events, median of 7; K2, K3, T1, A1c
+and E1 also with the stream kept busy ahead, their device time alone).
 
     python3 tools/checkout_compare.py ROOT [ROOT ...]
 
@@ -60,6 +65,7 @@ TIMER_WINDOWS, TIMER_PER_WINDOW, TIMER_HOT = 100_000, 10, (64, 4096)
 TIMER_QS = (0.5, 0.9, 0.95, 0.99, 0.999)
 ENC_UNIQUE, ENC_LANES, ENC_DP = 2000, 250_000, 360
 SEAL_LANES, STORE_LANES, STORE_DP = 10_000, 625, 720
+T1_UNIQUE, T1_LANES, T1_DP, T1_STEPS = 2000, 1_000_000, 720, 1024
 HBM_BYTES_PER_S = 3.35e12
 SEC, BLOCK = 10**9, 2 * 3600 * 10**9
 
@@ -109,8 +115,23 @@ def _same(torch, a, b, what: str) -> None:
         raise RuntimeError(f"{what}: kernel and reference differ")
 
 
+def _same_tiled(torch, got, want, n_unique: int, what: str) -> None:
+    """The unique lanes of each output against the plain version's, and
+    the tiled lanes against the unique ones."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        reps = g.shape[0] // n_unique
+        _same(torch, g[:n_unique], w, f"{what} output {i}")
+        _same(torch, g[:reps * n_unique].view(reps, n_unique, *g.shape[1:]),
+              g[:n_unique].expand(reps, *g[:n_unique].shape), f"{what} output {i} tiled")
+
+
 def _k3_inputs(np, torch, corpus, pack_streams, n_unique: int, n_lanes: int, n_dp: int):
-    words, nbits = pack_streams(corpus.walk_streams(n_unique, n_dp))
+    return _tiled_inputs(np, torch, pack_streams(corpus.walk_streams(n_unique, n_dp)), n_lanes)
+
+
+def _tiled_inputs(np, torch, packed, n_lanes: int):
+    words, nbits = packed
+    n_unique = words.shape[0]
     reps = -(-n_lanes // n_unique)
     words = torch.from_numpy(np.tile(words, (reps, 1))[:n_lanes]).view(torch.int32).cuda()
     nbits = torch.from_numpy(np.tile(nbits, reps)[:n_lanes]).to(torch.int32).cuda()
@@ -162,17 +183,23 @@ def child(root: str) -> dict:
         got = fn()
         want = dec.decode_batched_plain(words[:n_unique], nbits[:n_unique], n_dp,
                                         flag_truncation=flag)
-        reps = n_lanes // n_unique
-        for field, g, w in zip(("ts", "vs", "valid", "count", "error"), got, want):
-            _same(torch, g[:n_unique], w, f"{name} K3.{field}")
-            _same(torch, g[:reps * n_unique].view(reps, n_unique, *g.shape[1:]),
-                  g[:n_unique].expand(reps, *g[:n_unique].shape), f"{name} K3.{field} tiled")
+        _same_tiled(torch, got, want, n_unique, f"{name} K3")
         del want
-        out = {"ms": _time_ms(torch, fn), "datapoints": int(got[3].sum())}
+        out = {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
+               "datapoints": int(got[3].sum())}
         del got
         if name == "read":
-            k2 = lambda: dec.decode_downsample_fused(words, nbits, n_dp, 6)  # noqa: E731
-            out["k2_simple_ms"] = _time_ms(torch, k2)
+            for key, full in (("k2_simple", False), ("k2_full", True)):
+                k2 = lambda: dec.decode_downsample_fused(  # noqa: E731
+                    words, nbits, n_dp, 6, full_agg=full)
+                got = k2()
+                want = dec.decode_downsample_fused_plain(words[:n_unique], nbits[:n_unique],
+                                                         n_dp, 6, full_agg=full)
+                _same_tiled(torch, (*got[0], *got[1:]), (*want[0], *want[1:]), n_unique,
+                            f"{key} K2")
+                del got, want
+                out[f"{key}_ms"] = _time_ms(torch, k2)
+                out[f"{key}_device_ms"] = _device_ms(torch, k2)
         torch.cuda.empty_cache()
         return out
 
@@ -230,7 +257,34 @@ def child(root: str) -> dict:
                     "library_ms": _time_ms(torch, library)}
     del tv, tw
     res.update(_e1(np, torch, corpus))
+    res.update(_t1(np, torch, corpus))
     return res
+
+
+def _t1(np, torch, corpus) -> dict:
+    from m3_tpu_torch.ops import m3tsz_scalar, tiles
+    from m3_tpu_torch.ops.bitstream import pack_streams
+
+    b0 = corpus.START - corpus.START % BLOCK
+    ts_u, vs_u = corpus.gen_grids(T1_UNIQUE, T1_DP, start=b0 - 10 * SEC)
+    streams = [m3tsz_scalar.encode_series(ts_u[u].tolist(), vs_u[u].tolist(), b0)
+               for u in range(T1_UNIQUE)]
+    words, nbits = _tiled_inputs(np, torch, pack_streams(streams), T1_LANES)
+    out = {}
+    for minutes in (1, 5):
+        tile = minutes * 60 * SEC
+        args = (T1_STEPS, BLOCK // tile, tile, b0)
+        fn = lambda: tiles.aggregate_tiles(words, nbits, *args)  # noqa: E731
+        agg, decoded, error = fn()
+        want = tiles.aggregate_tiles_plain(words[:T1_UNIQUE], nbits[:T1_UNIQUE], *args)
+        _same_tiled(torch, (*agg, decoded, error), (*want[0], *want[1:]), T1_UNIQUE,
+                    f"T1 {minutes}m")
+        if not bool((decoded == T1_DP).all()) or bool(error.any()):
+            raise RuntimeError(f"T1 {minutes}m: decoded counts or errors")
+        del agg, decoded, error, want
+        torch.cuda.empty_cache()
+        out[f"t1_{minutes}m"] = {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn)}
+    return out
 
 
 def _e1_bound_ms(L: int, T: int, W: int) -> float:
