@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit for bit, on seed-42 walks plus probe streams (error lanes, float
    mode, millisecond unit, NaN/+-Inf/-0.0, truncated and garbage streams,
    odd lane counts; K3 also at 1, 31 and 33 steps on 71 lanes, around its
-   staged 16-step tiles) and a quantile grid of NaNs, ties and signed zeros;
+   staged 16-step tiles; K2, K3 and T1 on the decoder's word-reader probes,
+   ``corpus.k1_probe_streams``, in both grammars with rows trimmed to their
+   data) and a quantile grid of NaNs, ties and signed zeros;
 4. query parity — the query slice's kernels (merge QK1, rate family QK2,
    prefix-sum reducers QK3, group-by QK4) against their plain versions on
    the card, on probe batches: counter resets, NaN/+-Inf samples, empty,
@@ -66,7 +68,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    tests' probe lanes, QK11 also on windows of 1-300 samples, and on lanes
    of 32,768 samples at 5m and 1h, and the subquery pack (QK12) against a
    stable sort; bit for bit but the fit's sums (rtol 1e-9 and
-   ``linreg_atol``), twice; then the graphite kernels (QK4's grouped
+   ``linreg_atol``), twice; then every QK3 op code on
+   ``corpus.prefix_probe_lanes`` at 100-6,145 samples (around
+   its chunks and its shared-memory tier: sums rtol 1e-12, the fit 1e-9
+   with ``linreg_conditioning``), twice; then the graphite kernels (QK4's grouped
    NaN-reductions, GK2 percentiles in both forms, GK3 per-lane scans,
    buckets and windows) on their probes, twice, bit for bit but QK4's sums
    (rtol 1e-12);
@@ -428,6 +433,46 @@ def compare_k3_steps(walks):
         f"truncation: ts, vs, valid, count, error bit for bit")
 
 
+K1_STEPS = 40  # past the longest K1 probe stream's 37 points
+
+
+def compare_k1_probes():
+    """K1, the decoder's word reader, inside K2 (both forms), K3 and T1
+    against their plain versions, twice, bit for bit, on
+    ``corpus.k1_probe_streams`` in both grammars: a 36-bit delta-of-delta
+    with a 64-bit float at every bit offset of a word, every dod bucket
+    before every kind of value record, end-of-stream and annotation markers
+    at a word's first and last bits; each batch's rows trimmed to its
+    longest stream's words, so the last records' windows read past the row
+    and the longest row ends at its nbits."""
+    for int_optimized in (True, False):
+        streams = corpus.k1_probe_streams(int_optimized)
+        packed, nb = pack_streams(streams)
+        words, nbits = inputs_from_numpy(
+            np.ascontiguousarray(packed[:, :int((nb.max() + 31) // 32)]), nb, device=DEVICE)
+        tag = f"K1 probes ({'int' if int_optimized else 'float'} grammar)"
+        for flag in (False, True):
+            args = (words, nbits, K1_STEPS, int_optimized, SEC, flag)
+            k = twice(lambda: dec.decode_batched(*args), f"{tag} decode_batched")
+            p = dec.decode_batched_plain(*args)
+            for field, kt, pt in zip(("ts", "vs", "valid", "count", "error"), k, p):
+                _record("decode_batched", same_bits(kt, pt, f"{tag} decode_batched.{field}"))
+        for window in (1, 4, 5, 8):
+            for full in (False, True):
+                compare_k2(words, nbits, K1_STEPS - K1_STEPS % window, window, full, tag,
+                           int_optimized)
+        for n_tiles, tile in ((3, MIN), (9, 30 * SEC), (17, 10 * SEC)):
+            args = (words, nbits, K1_STEPS, n_tiles, tile, corpus.START, SEC, int_optimized)
+            k = twice(lambda: _tiles_flat(tiles.aggregate_tiles(*args)), f"{tag} aggregate_tiles")
+            for field, kt, pt in zip(TILE_FIELDS, k, _tiles_flat(tiles.aggregate_tiles_plain(
+                    *args))):
+                _record("aggregate_tiles", same_bits(kt, pt, f"{tag} aggregate_tiles.{field}"))
+    torch.cuda.synchronize()
+    log(f"parity K1 probes: {len(streams)} streams a grammar, rows trimmed to their data; K3 "
+        f"(both flags), K2 (windows 1, 4, 5, 8, both forms), T1 (3, 9, 17 tiles): bit for bit, "
+        f"twice")
+
+
 def compare_quantile_grid():
     rng = np.random.default_rng(42)
     v = np.round(rng.standard_normal((257, 72)) * 100, 1)
@@ -587,6 +632,16 @@ def log_layouts() -> None:
             f"{lay['smem_bytes']} B shared a block of {lay['threads']} threads, "
             f"{lay['registers']} registers a thread, {lay['blocks_per_sm']} blocks per SM "
             f"({lay['blocks_per_sm'] * lay['threads'] // 32} warps)")
+    # QK3 on the whole queries' lanes (config 4's 2,160 samples) and past its staged tier
+    for name, op in (("sum/avg/count/present", 2), ("last", 6), ("changes/resets", 7),
+                     ("deriv/predict_linear", 9)):
+        for n in (2160, query_temporal.PREFIX_STAGED_MAX_N + 1):
+            lay = query_temporal.prefix_layout(op, n)
+            log(f"layout query_prefix[{name}] at {n} samples: "
+                f"{'staged' if lay['staged'] else 'read in place'}, {lay['smem_bytes']} B shared "
+                f"a block of {lay['threads']} threads, {lay['registers']} registers a thread, "
+                f"{lay['blocks_per_sm']} blocks per SM "
+                f"({lay['blocks_per_sm'] * lay['threads'] // 32} warps)")
 
 
 # --- phase 4: the query kernels vs their plain versions ------------------
@@ -1162,6 +1217,51 @@ def compare_family(t, v, st, ranges, tag: str, phis=FAMILY_PHIS, hw=FAMILY_HW):
             out = twice(lambda: qt.quantile_window(t, v, st, r, phi), f"{tag} qot")
             _record("query_quantile_window", same_bits(out, qt.quantile_window_plain(
                 t, v, st, r, phi), f"{tag} quantile_over_time {phi} {r // SEC}s"))
+
+
+def compare_prefix_probes():
+    """QK3's op codes against their plain versions, twice, on
+    ``corpus.prefix_probe_lanes`` at 100, 256, 257, 6,144 and 6,145 samples
+    (under one term a chunk, exactly one, the last lane staged in shared
+    memory, the first read in place), ranges of 93s and 10m: the bounds, counts, last and
+    changes/resets bit for bit, sum and avg at rtol 1e-12, the fit at rtol
+    1e-9 and atol 1e-9 or 16 times ``linreg_conditioning`` on every lane
+    (thousands of samples' t * t sums cancel in a short window; predict_linear
+    scaled by 1 + |horizon| + range)."""
+    qt = query_temporal
+    for n_cap in corpus.PREFIX_PROBE_CAPS:
+        t, v, st = (torch.from_numpy(x).to(DEVICE) for x in corpus.prefix_probe_lanes(n_cap))
+        tag = f"prefix probes {n_cap}"
+        for r in EXPR_RANGES:
+            _, want_l, want_r = qt.window_bounds_plain(t, st, r)
+            for red in qt.REDUCERS:
+                out, left, right = twice(lambda: qt.reduce_window(t, v, st, r, red,
+                                                                  with_bounds=True), f"{tag} {red}")
+                same_bits(left, want_l, f"{tag} {red} left")
+                same_bits(right, want_r, f"{tag} {red} right")
+                want = qt.reduce_plain(t, v, st, r, red)
+                what = f"{tag} {red} {r // SEC}s"
+                _record("query_reduce", same_bits(out, want, what) if red in BIT_EXACT_REDUCERS
+                        else close(out, want, 1e-12, what))
+            for resets in (False, True):
+                out = twice(lambda: qt.changes_window(t, v, st, r, resets), f"{tag} changes")
+                _record("query_changes", same_bits(out, qt.changes_plain(t, v, st, r, resets),
+                                                   f"{tag} changes {resets} {r // SEC}s"))
+            slope, intercept = qt.linreg_plain(t, v, st, r)
+            kappa = 16 * qt.linreg_conditioning(t, v, st, r)
+            out = twice(lambda: qt.linreg_window(t, v, st, r, False), f"{tag} deriv")
+            _record("query_linreg", close(out, slope, 1e-9, f"{tag} deriv {r // SEC}s",
+                                          kappa.clamp(min=1e-9)))
+            for h in FAMILY_HORIZONS:
+                out = twice(lambda: qt.linreg_window(t, v, st, r, True, h), f"{tag} predict")
+                _record("query_linreg", close(
+                    out, intercept + slope * h, 1e-9, f"{tag} predict_linear {h} {r // SEC}s",
+                    (kappa * (1.0 + abs(h) + r * 1e-9)).clamp(min=1e-9)))
+    torch.cuda.synchronize()
+    log(f"expr parity prefix op codes (QK3): corpus.prefix_probe_lanes at "
+        f"{corpus.PREFIX_PROBE_CAPS} samples (+-Inf, all-NaN, unsorted, counters, +-0.0 runs, "
+        f"the 1.5e9 canary, short lanes), 93s and 10m: bounds, counts, last, changes/resets bit "
+        f"for bit, sums rtol 1e-12, the fit 1e-9 with linreg_conditioning, twice")
 
 
 def _subq_cells(rows: int, S: int, n_valid: int, seed: int):
@@ -3634,6 +3734,7 @@ def main() -> int:
     for lanes in (1, 7, 129):
         compare_decoders((probes + walks)[:lanes], f"{lanes} lanes")
     compare_k3_steps(walks)
+    compare_k1_probes()
     compare_quantile_grid()
     compare_query(corpus.query_probe_corpus(), "probes")
     compare_query(corpus.query_probe_corpus(tiered=True), "two-tier")
@@ -3643,6 +3744,7 @@ def main() -> int:
     compare_expr_kernels()
     compare_quantile_chunks()
     compare_family_kernels()
+    compare_prefix_probes()
     compare_graphite_kernels()
     enc_probes = corpus.encode_probe_series()
     ts_w, vs_w = corpus.gen_grids(64, N_DP)

@@ -42,20 +42,26 @@ struct Divisors {
   double d[kMaxMult + 1];  // MULT_DIVISORS, passed by value from the host
 };
 
+// The decoder's state: the JAX state's fields, and the lane's bit reader.
+// The reader keeps the five words of the lane's row that hold the 128-bit
+// window at the cursor in registers, words base .. base + 4 with base =
+// cursor >> 5, and reads the window from them by funnel shifts
+// (__funnelshift_l).  When a record carries the cursor into the next word,
+// the words move down one register and one word is loaded: ~0.15 loads a
+// point on 4.5-bit records, where the five-load design made 5.  (A sixth
+// word loaded one word ahead gained nothing on an H100: the loads hit L1.)
 struct State {
   int32_t cursor;  // bit position
   bool started, done, error, is_float;
   int64_t prev_time, prev_delta, int_val;
   uint64_t prev_float, prev_xor;
   int32_t sig, mult;
+  uint32_t w0, w1, w2, w3, w4;  // words cursor / 32 + 0 .. 4 (0 past W)
 };
 
 // Logical shifts that yield 0 for a count outside [0, 63], as XLA's do.
 __device__ __forceinline__ uint64_t shl(uint64_t x, int n) {
   return (unsigned)n >= 64u ? 0ull : x << n;
-}
-__device__ __forceinline__ uint64_t shr(uint64_t x, int n) {
-  return (unsigned)n >= 64u ? 0ull : x >> n;
 }
 // Two's-complement wrap-around, as the JAX int64 arithmetic does.
 __device__ __forceinline__ int64_t wadd(int64_t a, int64_t b) {
@@ -70,22 +76,13 @@ __device__ __forceinline__ int clz64(uint64_t x) {  // clz64(0) == 64
 __device__ __forceinline__ int ctz64(uint64_t x) {  // ctz64(0) == 0
   return x == 0 ? 0 : __ffsll((long long)x) - 1;
 }
-__device__ __forceinline__ bool bit_at(uint64_t w, int pos) {  // pos 0 = MSB
-  return (w >> (63 - pos)) & 1ull;
+// Bits of a 32-bit control word c, bit 0 its MSB.
+__device__ __forceinline__ bool bit_at(uint32_t c, int pos) { return (c >> (31 - pos)) & 1u; }
+__device__ __forceinline__ int field_at(uint32_t c, int pos, int width) {
+  return (int)((c >> (32 - width - pos)) & ((1u << width) - 1u));
 }
-__device__ __forceinline__ uint64_t field_at(uint64_t w, int pos, int width) {
-  return (w >> (64 - width - pos)) & ((1ull << width) - 1ull);
-}
-// Sign-extended `nbits` field after `skip` bits from the window top.
-__device__ __forceinline__ int64_t sext(uint64_t w, int skip, int nbits) {
-  return ((int64_t)(w << skip)) >> (64 - nbits);
-}
-// Top n (0..64) bits of w, right-aligned; n == 0 yields 0.
-__device__ __forceinline__ uint64_t take_top(uint64_t w, int n) {
-  return n == 0 ? 0ull : shr(w, 64 - n);
-}
-__device__ __forceinline__ uint64_t load_word(const uint32_t* row, int W, int idx) {
-  return (idx >= 0 && idx < W) ? (uint64_t)__ldg(row + idx) : 0ull;
+__device__ __forceinline__ uint32_t load_word(const uint32_t* row, int W, int idx) {
+  return idx < W ? __ldg(row + idx) : 0u;  // idx >= 0
 }
 
 __device__ __forceinline__ State init_state(const uint32_t* row, int W, int32_t nbits) {
@@ -96,13 +93,18 @@ __device__ __forceinline__ State init_state(const uint32_t* row, int W, int32_t 
   st.done = nbits < 64 + 11;
   st.error = false;
   st.is_float = false;
-  st.prev_time = (int64_t)((load_word(row, W, 0) << 32) | load_word(row, W, 1));
+  st.prev_time = (int64_t)(((uint64_t)load_word(row, W, 0) << 32) | load_word(row, W, 1));
   st.prev_delta = 0;
   st.int_val = 0;
   st.prev_float = 0;
   st.prev_xor = 0;
   st.sig = 0;
   st.mult = 0;
+  st.w0 = load_word(row, W, 2);
+  st.w1 = load_word(row, W, 3);
+  st.w2 = load_word(row, W, 4);
+  st.w3 = load_word(row, W, 5);
+  st.w4 = load_word(row, W, 6);
   return st;
 }
 
@@ -111,25 +113,25 @@ struct Plan {
   bool full_float, int_active, xor_active, xor_zero, add, set_float, sig_mult_active;
 };
 
-// sig/mult update block + sign bit at bit `base` of cwin (iterator.go:145-168).
-__device__ __forceinline__ void parse_sig_mult(uint64_t cwin, int base, const State& st, Plan& p) {
-  const bool s_upd = bit_at(cwin, base);
-  const bool s_nonzero = bit_at(cwin, base + 1);
-  const int sig_field = (int)field_at(cwin, base + 2, 6);
+// sig/mult update block + sign bit at bit `base` of c (iterator.go:145-168).
+__device__ __forceinline__ void parse_sig_mult(uint32_t c, int base, const State& st, Plan& p) {
+  const bool s_upd = bit_at(c, base);
+  const bool s_nonzero = bit_at(c, base + 1);
+  const int sig_field = field_at(c, base + 2, 6);
   const int k = s_upd ? (s_nonzero ? 8 : 2) : 1;
   p.new_sig = s_upd ? (s_nonzero ? sig_field + 1 : 0) : st.sig;
-  const bool m_upd = bit_at(cwin, base + k);
-  const int mult_field = (int)field_at(cwin, base + k + 1, 3);
+  const bool m_upd = bit_at(c, base + k);
+  const int mult_field = field_at(c, base + k + 1, 3);
   const int m = m_upd ? 4 : 1;
   p.new_mult = m_upd ? mult_field : st.mult;
-  p.add = bit_at(cwin, base + k + m);
+  p.add = bit_at(c, base + k + m);
   p.ctrl = base + k + m + 1;
 }
 
-// Float XOR record with its opcode at window bit 0 (float_encoder_iterator.go:117-166).
-__device__ __forceinline__ void parse_xor(uint64_t xwin, uint64_t prev_xor, Plan& p) {
-  const bool x0 = bit_at(xwin, 0);
-  const bool x1 = bit_at(xwin, 1);
+// Float XOR record with its opcode at bit 0 of x (float_encoder_iterator.go:117-166).
+__device__ __forceinline__ void parse_xor(uint32_t x, uint64_t prev_xor, Plan& p) {
+  const bool x0 = bit_at(x, 0);
+  const bool x1 = bit_at(x, 1);
   p.xor_zero = !x0;
   if (!x0) {
     p.ctrl = 1;
@@ -141,16 +143,18 @@ __device__ __forceinline__ void parse_xor(uint64_t xwin, uint64_t prev_xor, Plan
     p.payload_len = 64 - clz64(prev_xor) - prev_trail;
     p.trail = prev_trail;
   } else {
-    const int u_lead = (int)field_at(xwin, 2, 6);
-    const int u_mlen = (int)field_at(xwin, 8, 6) + 1;
+    const int u_lead = field_at(x, 2, 6);
+    const int u_mlen = field_at(x, 8, 6) + 1;
     p.ctrl = 14;
     p.payload_len = u_mlen;
     p.trail = 64 - u_lead - u_mlen;
   }
 }
 
-// Value-record control bits, cwin top-aligned at the record (_plan_value).
-__device__ __forceinline__ Plan plan_value(uint64_t cwin, const State& st, bool int_optimized) {
+// Value-record control bits (_plan_value).  c holds the 32 bits at the
+// record; the longest control run is 16 bits (an int update: 3 + 8 + 4 + 1),
+// so no field reaches past it.
+__device__ __forceinline__ Plan plan_value(uint32_t c, const State& st, bool int_optimized) {
   Plan p;
   p.ctrl = 0;
   p.payload_len = 0;
@@ -166,19 +170,19 @@ __device__ __forceinline__ Plan plan_value(uint64_t cwin, const State& st, bool 
       p.payload_len = 64;
       p.full_float = true;
     } else {
-      parse_xor(cwin, st.prev_xor, p);
+      parse_xor(c, st.prev_xor, p);
       p.xor_active = true;
     }
     return p;
   }
   if (!st.started) {  // mode bit, then raw float or sig/mult + diff (iterator.go:88-106)
-    if (bit_at(cwin, 0)) {
+    if (bit_at(c, 0)) {
       p.ctrl = 1;
       p.payload_len = 64;
       p.full_float = true;
       p.set_float = true;
     } else {
-      parse_sig_mult(cwin, 1, st, p);
+      parse_sig_mult(c, 1, st, p);
       p.payload_len = p.new_sig;
       p.int_active = true;
       p.sig_mult_active = true;
@@ -187,83 +191,99 @@ __device__ __forceinline__ Plan plan_value(uint64_t cwin, const State& st, bool 
     return p;
   }
   // next value, int-optimized (iterator.go:108-143)
-  if (!bit_at(cwin, 0)) {  // opcodeUpdate
-    if (bit_at(cwin, 1)) {  // repeat: nothing changes
+  if (!bit_at(c, 0)) {  // opcodeUpdate
+    if (bit_at(c, 1)) {  // repeat: nothing changes
       p.ctrl = 2;
-    } else if (bit_at(cwin, 2)) {  // switch to float
+    } else if (bit_at(c, 2)) {  // switch to float
       p.ctrl = 3;
       p.payload_len = 64;
       p.full_float = true;
       p.set_float = true;
     } else {  // int state update
-      parse_sig_mult(cwin, 3, st, p);
+      parse_sig_mult(c, 3, st, p);
       p.payload_len = p.new_sig;
       p.int_active = true;
       p.sig_mult_active = true;
       p.set_float = false;
     }
   } else if (st.is_float) {  // XOR record after the no-update bit
-    parse_xor(cwin << 1, st.prev_xor, p);
+    parse_xor(c << 1, st.prev_xor, p);
     p.ctrl += 1;
     p.xor_active = true;
   } else {  // int diff with the tracked sig
     p.ctrl = 2;
     p.payload_len = st.sig;
     p.int_active = true;
-    p.add = bit_at(cwin, 1);
+    p.add = bit_at(c, 1);
   }
   return p;
 }
 
+// The value: a float's bits, or the int over 10^mult, correctly rounded as
+// the reference's int_val / MULT_DIVISORS[m]; at mult 0 the divisor is 1.0
+// and the quotient the int itself, exactly, so no division is made.
 __device__ __forceinline__ double emit_value(const State& st, const Divisors& div) {
   if (st.is_float) return __longlong_as_double((long long)st.prev_float);
   const int m = st.mult < 0 ? 0 : (st.mult > kMaxMult ? kMaxMult : st.mult);
-  return (double)st.int_val / div.d[m];
+  return m == 0 ? (double)st.int_val : (double)st.int_val / div.d[m];
 }
 
 // K1: decode one datapoint of one lane.  Returns `valid`.  A lane that is
 // done or in error keeps its state unchanged, exactly as the masked JAX
 // step leaves it, so it returns at once.
+//
+// The window's 32-bit words at the cursor (bit 0 = the cursor) come from
+// the reader's registers: window word j = __funnelshift_l(w[j+1], w[j], off)
+// with off = cursor & 31 (the JAX kernel's _window128, 128 bits from five
+// words).  The timestamp header and dod read window word 0 (the 32-bit dod
+// also word 1), the value's control bits the 32 bits at t_len, and the
+// payload the <= 64 bits at t_len + ctrl: a record is at most 116 bits, so
+// no read passes window word 3.
 __device__ __forceinline__ bool decode_step(const uint32_t* row, int W, int32_t nbits, State& st,
                                             bool int_optimized, int64_t unit_nanos) {
   if (st.done || st.error) return false;
   const int base = st.cursor >> 5;
   const int off = st.cursor & 31;
-  const uint64_t w01 = (load_word(row, W, base) << 32) | load_word(row, W, base + 1);
-  const uint64_t w23 = (load_word(row, W, base + 2) << 32) | load_word(row, W, base + 3);
-  const uint64_t w45 = load_word(row, W, base + 4) << 32;
-  uint64_t hi = w01, lo = w23;
-  if (off != 0) {  // the aligned case would shift by 64
-    hi = (w01 << off) | (w23 >> (64 - off));
-    lo = (w23 << off) | (w45 >> (64 - off));
-  }
+  const uint32_t h0 = __funnelshift_l(st.w1, st.w0, off);
+  const uint32_t h1 = __funnelshift_l(st.w2, st.w1, off);
 
   // delta-of-delta timestamp with marker look-ahead (timestamp_iterator.go:136-284)
-  const bool is_marker = (hi >> 55) == 0x100ull;
-  const uint64_t marker_val = (hi >> 53) & 3ull;
-  if (is_marker) {
-    if (marker_val == 0) st.done = true;  // end of stream
-    else st.error = true;                 // annotation or time-unit marker
+  if ((h0 >> 23) == 0x100u) {  // the 9-bit marker opcode
+    if (((h0 >> 21) & 3u) == 0) st.done = true;  // end of stream
+    else st.error = true;                        // annotation or time-unit marker
     return false;
   }
-  const int lead_ones = clz64(~hi);
-  int64_t dod;
+  const int lead_ones = __clz(~h0);
+  int32_t dod;
   int t_len;
   switch (lead_ones) {
     case 0: dod = 0; t_len = 1; break;
-    case 1: dod = sext(hi, 2, 7); t_len = 9; break;
-    case 2: dod = sext(hi, 3, 9); t_len = 12; break;
-    case 3: dod = sext(hi, 4, 12); t_len = 16; break;
-    default: dod = sext(hi, 4, 32); t_len = 36; break;
+    case 1: dod = (int32_t)(h0 << 2) >> 25; t_len = 9; break;
+    case 2: dod = (int32_t)(h0 << 3) >> 23; t_len = 12; break;
+    case 3: dod = (int32_t)(h0 << 4) >> 20; t_len = 16; break;
+    default: dod = (int32_t)__funnelshift_l(h1, h0, 4); t_len = 36; break;
   }
-  st.prev_delta = wadd(st.prev_delta, wmul(dod, unit_nanos));
+  if (dod != 0) st.prev_delta = wadd(st.prev_delta, wmul(dod, unit_nanos));
   st.prev_time = wadd(st.prev_time, st.prev_delta);
 
-  const uint64_t cwin = shl(hi, t_len < 63 ? t_len : 63);
-  const Plan p = plan_value(cwin, st, int_optimized);
-  const int skip = t_len + p.ctrl;  // _mid_window: skip == 0 keeps hi
-  const uint64_t mid = skip == 0 ? hi : (shl(hi, skip) | shr(lo, 64 - skip));
-  const uint64_t payload = take_top(mid, p.payload_len);
+  const uint32_t h2 = __funnelshift_l(st.w3, st.w2, off);
+  const uint32_t c = t_len < 32 ? __funnelshift_l(h1, h0, t_len) : __funnelshift_l(h2, h1, t_len);
+  const Plan p = plan_value(c, st, int_optimized);
+  // the payload: the top payload_len (<= 64) bits of the 64 at skip
+  const int skip = t_len + p.ctrl;  // 1 .. 52
+  uint64_t payload = 0;
+  if (p.payload_len > 0) {
+    const bool far = skip >= 32;
+    const uint32_t x0 = far ? h1 : h0, x1 = far ? h2 : h1;
+    const uint32_t m0 = __funnelshift_l(x1, x0, skip);
+    if (p.payload_len <= 32) {
+      payload = m0 >> (32 - p.payload_len);
+    } else {
+      const uint32_t x2 = far ? __funnelshift_l(st.w4, st.w3, off) : h2;
+      const uint32_t m1 = __funnelshift_l(x2, x1, skip);
+      payload = ((uint64_t)m0 << (p.payload_len - 32)) | ((uint64_t)m1 >> (64 - p.payload_len));
+    }
+  }
 
   // _apply_value
   if (p.int_active) {
@@ -285,8 +305,19 @@ __device__ __forceinline__ bool decode_step(const uint32_t* row, int W, int32_t 
   st.is_float = p.set_float;
   st.cursor += t_len + p.ctrl + p.payload_len;
   st.started = true;
-  if (st.cursor > nbits) st.error = true;  // not done here: done only on EOS
-  return !st.error;
+  if (st.cursor > nbits) {  // not done here: done only on EOS
+    st.error = true;
+    return false;
+  }
+  // refill: one word a word crossed (at most 4: off + 116 bits)
+  for (int next = base + 5; next < (st.cursor >> 5) + 5; ++next) {
+    st.w0 = st.w1;
+    st.w1 = st.w2;
+    st.w2 = st.w3;
+    st.w3 = st.w4;
+    st.w4 = load_word(row, W, next);
+  }
+  return true;
 }
 
 // IEEE-754 minimum/maximum on non-NaN operands: -0.0 orders below +0.0,
@@ -324,16 +355,20 @@ constexpr int kPad = 33;  // the staged rows' stride in elements
 // writes each lane's windows of each field as one run.  The tiles are
 // static shared memory, at most 48 KB a block.  Widths as measured on an
 // H100 (PERF.md): the MEAN form at 4 windows (6,336 bytes a block, 9 blocks
-// an SM by its 54 registers) ran 8% faster than at 8; full_agg at 8 (46,464
+// an SM by its registers) ran 8% faster than at 8; full_agg at 8 (46,464
 // bytes, 4 blocks an SM) 5% faster than at 4.
 constexpr int kK2Windows = 4;      // MEAN form
 constexpr int kK2FullWindows = 8;  // full_agg form
+// The MEAN form's registers are capped for 9 blocks an SM (56 a thread):
+// uncapped, the word reader took it to 59 and 8 blocks, 4% slower on an H100
+// (PERF.md).  full_agg's tiles allow 4 blocks whatever its registers.
+constexpr int kK2BlocksPerSM = 9;
 static_assert(kK2Windows >= 1 && kK2FullWindows >= 1 &&
                   kK2FullWindows * kPad * 44 * (kThreads / 32) <= 48 * 1024,
               "K2's full_agg tiles must fit static shared memory");
 
 template <bool kFull>
-__global__ void __launch_bounds__(kThreads) decode_downsample_fused_kernel(
+__global__ void __launch_bounds__(kThreads, kFull ? 1 : kK2BlocksPerSM) decode_downsample_fused_kernel(
     const uint32_t* __restrict__ words, const int32_t* __restrict__ nbits, int L, int W,
     int n_win, int window, bool int_optimized, int64_t unit_nanos, Divisors div,
     double* __restrict__ sum, int64_t* __restrict__ count, double* __restrict__ sum_sq,
@@ -613,9 +648,10 @@ __global__ void __launch_bounds__(kThreads, kT1BlocksPerSM) aggregate_tiles_kern
   Tile a = none;
   int cur = -1;  // the last in-range tile seen; `a` holds it while it is in the group
   // cur's first offset: a point with lo <= d < lo + tile_nanos is in cur,
-  // with no 64-bit division (lo = cur * tile_nanos <= d cannot overflow);
-  // skipping the division there took T1 at 5m tiles from 14.0 to 10.5 ms
-  // on an H100 (PERF.md)
+  // one below lo + 2 * tile_nanos in the next tile, with no 64-bit division
+  // (lo = cur * tile_nanos <= d cannot overflow); skipping the division
+  // inside a tile took T1 at 5m tiles from 14.0 to 10.5 ms on an H100
+  // (PERF.md)
   int64_t lo = 0;
   int32_t cnt = 0;  // steps decoded
   bool ended = false, backwards = false, pending = false;
@@ -643,8 +679,12 @@ __global__ void __launch_bounds__(kThreads, kT1BlocksPerSM) aggregate_tiles_kern
       ++cnt;
       const int64_t t = st.prev_time;
       const int64_t d = offset_of(t, block_start);
-      const bool in_cur = cur >= 0 && d >= lo && (uint64_t)d - (uint64_t)lo < (uint64_t)tile_nanos;
-      const int k = in_cur ? cur : tile_at(d, tile_nanos, n_tiles);
+      // cur itself, or the tile after it (a lane's usual next tile), with no
+      // 64-bit division: lo <= d < lo + 2 * tile_nanos, lo = cur * tile_nanos
+      const uint64_t into = (uint64_t)d - (uint64_t)lo;
+      const bool near = cur >= 0 && d >= lo && into < 2 * (uint64_t)tile_nanos;
+      const int k = !near ? tile_at(d, tile_nanos, n_tiles)
+                          : into < (uint64_t)tile_nanos ? cur : (cur + 1 < n_tiles ? cur + 1 : -1);
       if (k < 0) continue;
       if (k != cur) {
         if (k < cur) {

@@ -34,7 +34,8 @@ The fused expression interpreter:
   corners of the four kernels of the interpreter's slice;
   ``temporal_probe_lanes``: those of the rest of the temporal family
   (stddev/stdvar, changes/resets, deriv/predict_linear, holt_winters,
-  quantile_over_time);
+  quantile_over_time); ``prefix_probe_lanes``: QK3's prefix op codes at the
+  lane lengths its kernel's chunks and shared-memory tier split on;
 - ``graphite_labels``: graphite paths as labels (``__name__`` and one
   ``__g<i>__`` per component) for the builder's ``gsel``/``gagg``/``gcall``
   nodes; ``graphite_probe_matrix``: the graphite kernels' probe corners;
@@ -338,6 +339,105 @@ def k2_window_probe_streams(n_dp: int = 36) -> list[bytes]:
     (full,) = walk_streams(1, n_dp + 4, seed=8)
     cuts = [full[: 9 + (len(full) - 9) * k // 24] for k in range(24)]
     return probe_streams(n_dp) + cuts + walk_streams(11, n_dp, seed=9)
+
+
+def _bits_written(enc: tsz.Encoder) -> int:
+    w = enc.w
+    return len(w.buf) * 8 - (8 - w.bitpos if w.bitpos else 0)
+
+
+def _encoder_at(offset: int, int_optimized: bool, rng: random.Random):
+    """(an encoder, its last time and value) whose next record starts at
+    bit ``offset`` of a 32-bit word: a few records of changing values, then
+    repeats (zero delta-of-delta, the value repeated: 3 bits in the int
+    grammar, 2 in the float grammar, so the changing values' records set
+    the parity).  Tries preambles from ``rng`` until one lands there."""
+    for attempt in range(256):
+        enc = tsz.Encoder(START, int_optimized=int_optimized)
+        t, v = START, float(rng.randint(0, 100))
+        for _ in range(1 + attempt % 5):
+            t += 10 * SEC
+            v = round(v + rng.uniform(-9, 9), rng.randint(0, 3))
+            enc.encode(t, v)
+        for _ in range(32):
+            if _bits_written(enc) % 32 == offset:
+                return enc, t, v
+            t += 10 * SEC
+            enc.encode(t, v)
+    raise ValueError(f"no preamble reaches bit {offset}")
+
+
+def k1_probe_streams(int_optimized: bool = True, seed: int = 19) -> list[bytes]:
+    """Streams for the decoder's word reader (K1 in csrc/m3tsz_decode.cu):
+    for each bit offset 0-31 of a word, a stream whose record at that
+    offset is the longest there is: a 36-bit delta-of-delta and a 64-bit
+    float (a switch to float in the int grammar, a full-width XOR in the
+    float grammar), straddling three or four words, followed by a few
+    records; streams whose end-of-stream marker starts at a word's bit 0,
+    ends at its bit 31 or straddles two words, and whose annotation marker
+    (an error lane) does the same.  Some end on a word boundary, so that a
+    row trimmed to its words ends at their ``nbits`` and the last records'
+    128-bit windows read past the row."""
+    rng = random.Random(seed)
+    out = []
+    for offset in range(32):
+        enc, t, v = _encoder_at(offset, int_optimized, rng)
+        t += 100_000 * SEC + rng.randint(1, 9) * SEC  # the dod leaves the 12-bit bucket
+        v = math.pi * rng.randint(1, 10**6) * (-1.0) ** offset
+        enc.encode(t, v)
+        for _ in range(3 + offset % 4):
+            t += 10 * SEC
+            v = -v * 1.0000001 if offset % 2 else float(rng.randint(0, 100))
+            enc.encode(t, v)
+        out.append(enc.finalize())
+    # every delta-of-delta bucket (1, 9, 12, 16 and 36 bits) before every
+    # kind of value record (repeat, int diff, a diff of 31-33 significant
+    # bits, a decimal multiplier update, a float switch, an XOR) in random
+    # order: the value's control bits and payload at every skip they can
+    # have, 32 included (a 16-bit dod before an int update of sig and mult)
+    for _ in range(12):
+        enc = tsz.Encoder(START, int_optimized=int_optimized)
+        t, delta, v = START, 10 * SEC, float(rng.randint(0, 1000))
+        for _ in range(30):
+            delta = max(SEC, delta + rng.choice((0, 0, 1, -1, 100, -100, 1000, -1000, 100_000))
+                        * SEC)
+            t += delta
+            kind = rng.randrange(6)
+            if kind == 1:
+                v = float(int(v) + rng.randint(-9, 9))
+            elif kind == 2:
+                v = float(int(v) + rng.choice((-1, 1)) * rng.randint(2**30, 2**33))
+            elif kind == 3:
+                v = rng.randint(-10**6, 10**6) / 10 ** rng.randint(1, 6)
+            elif kind == 4:
+                v = math.pi * rng.randint(1, 10**6)
+            elif kind == 5:
+                v = -v * (1.0 + rng.random())
+            enc.encode(t, v)
+        out.append(enc.finalize())
+    # the longest stream, ending on a word boundary: its row ends at its nbits
+    enc = tsz.Encoder(START, int_optimized=int_optimized)
+    t = START
+    for i in range(30):
+        t += (100_000 if i % 2 else 10) * SEC + i * SEC
+        enc.encode(t, math.pi * rng.randint(1, 10**6))
+    for _ in range(8):
+        if len(enc.finalize()) % 4 == 0:
+            break
+        t += 10 * SEC
+        enc.encode(t, -math.e * rng.randint(1, 10**6))
+    else:
+        raise ValueError("no word-aligned end")
+    out.append(enc.finalize())
+    marker_bits = tsz.MARKER_OPCODE_BITS + tsz.MARKER_VALUE_BITS
+    for offset in (0, 32 - marker_bits, 31, 28):
+        enc, _, _ = _encoder_at(offset, int_optimized, rng)
+        out.append(enc.finalize())  # the end-of-stream marker at `offset`
+        enc, t, _ = _encoder_at(offset, int_optimized, rng)
+        enc.encode(t + 10 * SEC, 6.0, annotation=b"k1")  # the annotation marker at `offset`
+        enc.encode(t + 20 * SEC, 7.0)
+        out.append(enc.finalize())
+    return out
 
 
 # --- the query path -------------------------------------------------------
@@ -1226,6 +1326,61 @@ def temporal_probe_lanes(n_cap: int = 192, seed: int = 37):
     half = n_cap // 2
     times[7, :half] = START + (np.arange(half, dtype=np.int64) + 1) * 10 * SEC
     values[7, :half] = walk[:half]
+    steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
+    return times, values, steps
+
+
+# QK3's kernel (csrc/query_temporal.cu, prefix_kernel) scans a lane in 256
+# chunks and stages lanes of up to 6,144 samples in shared memory: lane
+# lengths below one term a chunk, of exactly one term a chunk (256 terms:
+# the windows' right ends reach the table's total; 257 samples give the
+# pair flags 256), at the staged limit and one past it
+PREFIX_PROBE_CAPS = (100, 256, 257, 6144, 6145)
+
+
+def prefix_probe_lanes(n_cap: int, seed: int = 43):
+    """Merged lanes for the prefix op codes (sum, avg, count, present, last,
+    changes, resets, deriv, predict_linear): ``(times i64[8, n_cap], values,
+    steps i64[S])`` at 10s.  Lanes: a walk with 20% NaN holes and +Inf and
+    -Inf samples; an all-NaN lane; a counter with resets and repeats; -1,
+    -0.0, +0.0 and 1 in runs; an unsorted lane (a walk whose times go back
+    in places: an error lane, its bounds JAX's bisection's); the 1.5e9 +
+    N(0, 1) canary; and lanes of 5 and of 200 samples (INT64_MAX / NaN
+    tails).  Steps every 60s from before the first sample to after the
+    last.
+
+    Values carry two decimals (the canary three) on lanes of at most 256
+    samples and are integers on longer ones, as ``long_lanes``' are: on
+    thousands of fractional samples two summation orders of the prefix
+    sums differ by an ulp of the running sum, which the prefix-difference
+    form turns into a relative error past 1e-12 (the reference's XLA cumsum
+    and torch.cumsum differ so at 6,144 samples; ROADMAP.md queue 3)."""
+    rng = np.random.default_rng(seed)
+    n_lanes = 8
+    decimals = 2 if n_cap <= 256 else 0
+    times = np.full((n_lanes, n_cap), INT64_MAX, dtype=np.int64)
+    values = np.full((n_lanes, n_cap), np.nan)
+    grid = START + (np.arange(n_cap, dtype=np.int64) + 1) * 10 * SEC
+    walk = np.round(np.cumsum(rng.standard_normal(n_cap)) * 3, decimals)
+    holes = walk.copy()
+    pick = rng.random(n_cap)
+    holes[pick < 0.2] = np.nan
+    holes[(pick >= 0.2) & (pick < 0.23)] = np.inf
+    holes[(pick >= 0.23) & (pick < 0.26)] = -np.inf
+    counter = np.cumsum(rng.integers(0, 3, n_cap) * rng.integers(0, 50, n_cap)).astype(np.float64)
+    for r in rng.choice(n_cap, min(3, n_cap), replace=False):
+        counter[r:] -= counter[r] - rng.integers(0, 10)
+    zeros = np.repeat(rng.choice([-1.0, -0.0, 0.0, 1.0], n_cap),
+                      rng.integers(1, 4, n_cap))[:n_cap]
+    canary = 1.5e9 + np.round(rng.standard_normal(n_cap), decimals and 3)
+    rows = (holes, np.full(n_cap, np.nan), counter, zeros, walk, canary)
+    for lane, v in enumerate(rows):
+        times[lane], values[lane] = grid, v
+    back = rng.choice(n_cap, max(1, n_cap // 20), replace=False)
+    times[4, back] -= rng.integers(1, 40, len(back)) * 10 * SEC
+    for lane, n in ((6, 5), (7, 200)):
+        n = min(n, n_cap)
+        times[lane, :n], values[lane, :n] = grid[:n], walk[:n]
     steps = START + np.arange(-1, n_cap // 6 + 3, dtype=np.int64) * 60 * SEC
     return times, values, steps
 

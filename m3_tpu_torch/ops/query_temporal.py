@@ -14,10 +14,14 @@ Port of ``m3_tpu/models/query_pipeline.py``: ``_window_bounds_device``,
 - On a CUDA tensor ``rate``, ``instant``, ``reduce_window``,
   ``changes_window``, ``linreg_window``, ``minmax_window``,
   ``stdvar_window`` and ``holt_winters_window`` launch
-  ``csrc/query_temporal.cu`` (a few blocks per SM, each taking lanes in
-  turn; a lane's prefix sums in the block's slice of a global scratch
-  buffer, so lanes have no length limit; one thread per step; QK5, QK9 and
-  QK10 walk each window directly), and ``quantile_window`` launches QK11 in
+  ``csrc/query_temporal.cu``: QK2 (rate, instant) a few blocks per SM, each
+  taking lanes in turn, a counter's prefix sums in the block's slice of a
+  global scratch buffer, one thread per step; QK3 (the reducers, changes,
+  the fit) one block a lane, its times and values staged in shared memory
+  (up to ``PREFIX_STAGED_MAX_N`` samples; longer lanes read in place), the
+  prefix sums scanned in one pass over chunks and kept as chunk totals, not
+  rows; QK5, QK9 and QK10 walk each window directly.  ``quantile_window``
+  launches QK11 in
   ``csrc/query_select.cu`` (a warp per (lane, 32-step tile) stages the run
   of samples its windows cover; a window of at most 32 samples is sorted
   in its thread's registers, longer ones through one sort of the run), or
@@ -34,6 +38,7 @@ is a plain integer argument of the kernel, never part of its build.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -411,8 +416,10 @@ def _check_reducer(reducer: str) -> None:
 
 _LANES = [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.I, _build.I, _build.LL]
 _SIGNATURES = {
-    "m3_query_temporal": _LANES + [_build.I, _build.I, _build.I, _build.D, _build.P, _build.P,
-                                   _build.P, _build.P, _build.P, _build.I, _build.P],
+    "m3_query_temporal": _LANES + [_build.I, _build.I, _build.I, _build.P, _build.P, _build.P,
+                                   _build.P, _build.I, _build.P],
+    "m3_query_prefix": _LANES + [_build.I, _build.D, _build.P, _build.P, _build.P, _build.P],
+    "m3_query_prefix_layout": [_build.I, _build.LL, _build.P],
     "m3_query_minmax": _LANES + [_build.I, _build.P, _build.I, _build.P],
     "m3_query_stdvar": _LANES + [_build.I, _build.P, _build.I, _build.P],
     "m3_query_holt_winters": _LANES + [_build.D, _build.D, _build.P, _build.I, _build.P],
@@ -421,10 +428,12 @@ _QUANTILE_SIGNATURES = {
     "m3_quantile_window": _LANES + [_build.D, _build.P, _build.P, _build.LL, _build.P,
                                     _build.P, _build.P, _build.I, _build.I, _build.P],
 }
-# 128-thread blocks per SM; each block's prefix scratch is [N + 1] (four f64
-# rows for deriv/predict_linear: 73 MB at the serving shapes, past L2, which
-# measured faster than fewer blocks whose scratch stays in it)
+# 128-thread blocks per SM of QK2 (and QK5, QK9, QK10); each QK2 block's
+# prefix scratch is [N + 1]
 BLOCKS_PER_SM = 8
+# QK3 stages a lane's times and values in shared memory up to this many
+# samples (csrc/query_temporal.cu: kStagedMaxN) and reads longer lanes in place
+PREFIX_STAGED_MAX_N = 6144
 
 
 def _check_lanes(times, values, steps):
@@ -443,6 +452,8 @@ def _n_blocks(L: int, dev, per_sm: int = BLOCKS_PER_SM) -> int:
 
 def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, is_rate: bool,
             kernel: str, with_bounds: bool, horizon: float = 0.0):
+    """One launch of QK2 (op codes 0-1, ``temporal_kernel``) or QK3 (op
+    codes 2-10, ``prefix_kernel``: one block a lane, no scratch)."""
     t, v, st = _check_lanes(times, values, steps)
     L, N = t.shape
     S = st.shape[0]
@@ -454,20 +465,32 @@ def _launch(times, values, steps, range_nanos: int, op: int, is_counter: bool, i
         right = torch.empty((L, S), dtype=I64, device=dev)
     if L and S:
         lib = _build.library("query_temporal", _SIGNATURES)
-        n_blocks = _n_blocks(L, dev)
-        rows = 4 if op in (_OP_DERIV, _OP_PREDICT) else 1
-        prefix = torch.empty((n_blocks, rows, N + 1), dtype=F64, device=dev)
-        prefix_counts = torch.empty((n_blocks, N + 1), dtype=torch.int32, device=dev)
-        rc = lib.m3_query_temporal(
-            t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
-            int(range_nanos), op, int(is_counter), int(is_rate), float(horizon), out.data_ptr(),
-            None if left is None else left.data_ptr(),
-            None if right is None else right.data_ptr(),
-            prefix.data_ptr(), prefix_counts.data_ptr(), n_blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bounds = (None if left is None else left.data_ptr(),
+                  None if right is None else right.data_ptr())
+        lanes = (t.data_ptr(), v.data_ptr(), st.data_ptr(), L, N, S, search_levels(N),
+                 int(range_nanos), op)
+        if op in (_OP_RATE, _OP_INSTANT):
+            n_blocks = _n_blocks(L, dev)
+            prefix = torch.empty((n_blocks, N + 1), dtype=F64, device=dev)
+            rc = lib.m3_query_temporal(*lanes, int(is_counter), int(is_rate), out.data_ptr(),
+                                       *bounds, prefix.data_ptr(), n_blocks, stream)
+        else:
+            rc = lib.m3_query_prefix(*lanes, float(horizon), out.data_ptr(), *bounds, stream)
         _build.check(lib, rc, kernel)
         _build.count_launch(kernel)
     return (out, left, right) if with_bounds else out
+
+
+def prefix_layout(op: int, n: int) -> dict[str, int]:
+    """How QK3's kernel for op code ``op`` sits on the current CUDA card on
+    lanes of ``n`` samples: staged (1) or read in place (0), dynamic shared
+    bytes a block, resident blocks per SM, registers a thread and threads a
+    block.  Builds the library if needed; needs a card."""
+    lib = _build.library("query_temporal", _SIGNATURES)
+    buf = (ctypes.c_int * 5)()
+    _build.check(lib, lib.m3_query_prefix_layout(op, n, buf), "query_prefix layout")
+    return dict(zip(("staged", "smem_bytes", "blocks_per_sm", "registers", "threads"), buf))
 
 
 def _plain_bounds(out, times, steps, range_nanos, with_bounds):

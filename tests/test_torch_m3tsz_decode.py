@@ -27,6 +27,7 @@ from m3_tpu.ops import m3tsz_decode as jdec
 from m3_tpu_torch.models import corpus
 from m3_tpu_torch.ops import decode_counter
 from m3_tpu_torch.ops import m3tsz_decode as tdec
+from m3_tpu_torch.ops import m3tsz_scalar
 from m3_tpu_torch.ops.bitstream import pack_streams
 
 N_STEPS = 36
@@ -247,3 +248,81 @@ def test_input_validation():
         tdec.decode_batched(tw, tn[:1], 6)
     with pytest.raises(ValueError, match="uint32"):
         tdec.decode_batched(tw.to(torch.int64), tn, 6)
+
+
+# --- the decoder's word reader (K1) ------------------------------------------
+
+K1_STEPS = 40  # past the longest probe stream's 37 points
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_batch(int_optimized: bool):
+    """``corpus.k1_probe_streams`` packed into [64, W] words, W the longest
+    stream's words: no padding words, so the last records' 128-bit windows
+    read past the row (zeros, as the reference's one-hot read gives) and
+    the longest rows end at their ``nbits``."""
+    streams = corpus.k1_probe_streams(int_optimized)
+    words, nbits = pack_streams(streams)
+    words = words[:, :int((nbits.max() + 31) // 32)]
+    words = np.pad(words, ((0, LANES - len(streams)), (0, 0)))
+    return words, np.pad(nbits, (0, LANES - len(streams))), len(streams)
+
+
+@pytest.mark.parametrize("flag_truncation", [False, True])
+@pytest.mark.parametrize("int_optimized", [True, False])
+def test_k1_probes_decode_batched_match_jax(int_optimized, flag_truncation):
+    """K3's plain version against the reference on the word reader's probes
+    (a 36-bit delta-of-delta with a 64-bit float at every bit offset of a
+    word, end-of-stream and annotation markers at a word's first and last
+    bits, rows that end at their data): bit for bit."""
+    words, nbits, _ = _k1_batch(int_optimized)
+    want = jdec.decode_batched(words, nbits, K1_STEPS, int_optimized=int_optimized,
+                               flag_truncation=flag_truncation)
+    got = tdec.decode_batched(torch.from_numpy(words), torch.from_numpy(nbits), K1_STEPS,
+                              int_optimized=int_optimized, flag_truncation=flag_truncation)
+    for field, g, w in zip(("ts", "vs", "valid", "count", "error"), got, want):
+        assert_same(g, w, f"K1 probes int_optimized={int_optimized}.{field}")
+
+
+@pytest.mark.parametrize("full_agg", [False, True])
+@pytest.mark.parametrize("int_optimized", [True, False])
+def test_k1_probes_downsample_match_jax(int_optimized, full_agg):
+    """K2's plain version against the reference on the word reader's probes,
+    windows of 4 points (the fields and sum_sq as the module note says)."""
+    words, nbits, _ = _k1_batch(int_optimized)
+    want = jdec.decode_downsample_fused(words, nbits, K1_STEPS, 4, int_optimized=int_optimized,
+                                        full_agg=True)
+    got = tdec.decode_downsample_fused(torch.from_numpy(words), torch.from_numpy(nbits),
+                                       K1_STEPS, 4, int_optimized=int_optimized,
+                                       full_agg=full_agg)
+    what = f"K1 probes K2 int_optimized={int_optimized} full_agg={full_agg}"
+    if full_agg:
+        _agg_same(got[0], want[0], True, what)
+    else:
+        for field in ("sum", "count"):
+            assert_same(getattr(got[0], field), getattr(want[0], field), f"{what}.{field}")
+    assert_same(got[1], want[1], f"{what}.count")
+    assert_same(got[2], want[2], f"{what}.error")
+
+
+@pytest.mark.parametrize("int_optimized", [True, False])
+def test_k1_probes_reach_the_corners(int_optimized):
+    """The probes decode (the scalar oracle agrees with the batched plain
+    version on every clean lane), hold error lanes (the annotation markers)
+    and clean ones, rows that end exactly at their nbits (the longest
+    among them), and a 100,000 s gap in each of the first 44 lanes (the 32
+    offsets' long records and the 12 mixed streams)."""
+    words, nbits, n = _k1_batch(int_optimized)
+    ts, vs, valid, count, error = tdec.decode_batched(
+        torch.from_numpy(words), torch.from_numpy(nbits), K1_STEPS, int_optimized=int_optimized)
+    error = error.numpy()[:n]
+    assert error.any() and not error.all()
+    assert (nbits[:n] == 32 * words.shape[1]).any() and (nbits[:n] % 32 == 0).sum() > 2
+    gaps = np.diff(ts.numpy()[:44], axis=1)
+    assert (gaps >= 100_000 * SEC).any(axis=1).all()
+    streams = corpus.k1_probe_streams(int_optimized)
+    for lane in np.flatnonzero(~error):
+        got_t = ts.numpy()[lane][valid.numpy()[lane]]
+        want_t = [p.t_nanos for p in m3tsz_scalar.Decoder(
+            streams[lane], int_optimized=int_optimized)] if streams[lane] else []
+        assert list(got_t) == want_t[:K1_STEPS], lane

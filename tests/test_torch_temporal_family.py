@@ -354,3 +354,87 @@ def test_subq_grid_check():
         query_merge.check_subq_grid(torch.from_numpy(back), torch.from_numpy(valid))
     with pytest.raises(ValueError, match="host"):
         query_merge.check_subq_grid(torch.from_numpy(sub).to("meta"), torch.from_numpy(valid))
+
+
+# --- QK3's prefix op codes at the lane lengths its kernel splits on ----------
+
+# corpus.prefix_probe_lanes at lanes of 100 samples (under one term a chunk of
+# the kernel's 256), 256 and 257 (one term a chunk), 6,144 (the last staged
+# in shared memory) and 6,145 (read in place)
+PREFIX_CAPS = corpus.PREFIX_PROBE_CAPS
+PREFIX_CASES = ([(fn, {}) for fn in query_temporal.REDUCERS + query_temporal.CHANGES_FNS
+                 + ("deriv",)] + [("predict_linear", {"horizon": h}) for h in HORIZONS])
+BIT_EXACT_REDUCERS = ("count_over_time", "present_over_time", "last_over_time")
+
+
+@functools.lru_cache(maxsize=None)
+def _prefix_lanes(n_cap: int):
+    return corpus.prefix_probe_lanes(n_cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _prefix_jax(n_cap: int) -> dict:
+    """Every prefix case at both ranges through the jitted reference, one
+    compiled program a lane length."""
+    t, v, st = _prefix_lanes(n_cap)
+
+    def run(t, v, st, ranges):
+        return {(_case_id(fn, kw), i): jq._temporal_eval(fn, t, v, st, ranges[i], **kw)
+                for fn, kw in PREFIX_CASES for i in range(len(RANGES))}
+
+    res = jax.jit(run)(jnp.asarray(t), jnp.asarray(v), jnp.asarray(st),
+                       jnp.asarray(RANGES, dtype=jnp.int64))
+    return {k: np.asarray(x) for k, x in res.items()}
+
+
+@pytest.mark.parametrize("range_nanos", RANGES)
+@pytest.mark.parametrize("fn,kw", PREFIX_CASES, ids=[_case_id(fn, kw) for fn, kw in PREFIX_CASES])
+@pytest.mark.parametrize("n_cap", PREFIX_CAPS)
+def test_prefix_probes_match_jax(n_cap, fn, kw, range_nanos):
+    """QK3's op codes (plain versions) against the reference on
+    ``corpus.prefix_probe_lanes``: counts, last and changes/resets bit for
+    bit, sum and avg at rtol 1e-12 (atol 1e-12), the fit at rtol 1e-9 and
+    atol 1e-9 or 16 times ``linreg_conditioning`` (scaled for
+    predict_linear as ``check_temporal`` does), on every lane: the prefix
+    sums of t * t over thousands of samples cancel in a short window as the
+    1e9-offset lanes' do; cells where the reference departs from its own
+    contract on +-Inf samples (``reference_deviates``) are left out, as in
+    ``check_temporal``."""
+    t, v, st = _prefix_lanes(n_cap)
+    got = tq._temporal_eval(fn, *(torch.from_numpy(x) for x in (t, v, st)), range_nanos, **kw)
+    want = _prefix_jax(n_cap)[_case_id(fn, kw), RANGES.index(range_nanos)]
+    what = f"{fn} {kw} at {n_cap} samples, {range_nanos // SEC}s"
+    if fn in BIT_EXACT_REDUCERS:
+        assert_same(got, want, what)
+    elif fn in query_temporal.REDUCERS:
+        tol = np.full(want.shape, 1e-12)
+        _close_cells(got.numpy(), want, tol, tol, what)
+    else:  # the fit, on every lane: long lanes' t * t sums cancel as the canary's do
+        h = kw.get("horizon", 0.0)
+        scale = 1.0 if fn == "deriv" else 1.0 + abs(h) + range_nanos * 1e-9
+        kappa = query_temporal.linreg_conditioning(
+            *(torch.from_numpy(x) for x in (t, v, st)), range_nanos).numpy()
+        atol = np.maximum(1e-9, 16 * kappa * scale)
+        dev = reference_deviates(fn, t, v, st, range_nanos)
+        _close_cells(got.numpy()[~dev], want[~dev], np.full(want.shape, 1e-9)[~dev], atol[~dev],
+                     what)
+    assert np.isfinite(want).any() and np.isnan(want).any()
+
+
+@pytest.mark.parametrize("n_cap", PREFIX_CAPS)
+def test_prefix_probes_reach_the_corners(n_cap):
+    """The probe lanes hold what their docstring says at each length: lanes
+    past and short of the kernel's tiers (n_cap itself), +-Inf samples, an
+    all-NaN lane, an unsorted lane whose bisected bounds are not monotone,
+    and the short lanes' empty windows."""
+    t, v, st = _prefix_lanes(n_cap)
+    assert t.shape[1] == n_cap and np.isinf(v[0]).any() and np.isnan(v[1]).all()
+    assert (np.diff(t[4]) < 0).any()
+    _, left, right = query_temporal.window_bounds_plain(
+        torch.from_numpy(t), torch.from_numpy(st), RANGES[1])
+    n = (right - left).numpy()
+    assert (n[6] == 0).any() and (n[7] == 0).any() and (n[6] > 0).any()
+    assert (n[0] > 2).any()
+    if n_cap > 256:  # the long lanes' values are integers (the docstring's reason)
+        fin = np.isfinite(v)
+        assert (v[fin] == np.round(v[fin])).all()

@@ -36,11 +36,21 @@ For each checkout, on data made from seeds:
   it alone: the 2,000 seed-42 walks of 720 points of one 2h block, encoded
   as the storage node seals them (stream start = block start), tiled to
   1,000,000 lanes, decode bound 1,024, at 1m (120) and 5m (24) tiles;
+- QK3 (``ops/query_temporal.py``: ``reduce_window``, ``changes_window``,
+  ``linreg_window``) at the whole queries' shapes: 600 seed-42 walks of
+  2,160 points at 10s (config 4's three 2h blocks a series) tiled to
+  50,000 lanes, padded with empty lanes to 65,536; sum_over_time[5m] on
+  the 50,000 lanes at the fan-out read's 355 steps of 60s, changes[15m] and
+  deriv[15m] on the 65,536 lanes at 512 steps (the 355 padded by repeating
+  the last); QK2's rate[5m] and irate[5m] beside them (its code is not
+  QK3's); each with a digest of its output's bits, to hold checkouts'
+  results against each other;
 - the host: its cores and the median time of a fixed Python loop.
 Each kernel's outputs are held against the plain version's (K2, K3, T1 and
 E1 at the encode shape on the unique lanes, the tiled ones against those),
-bit for bit, before it is timed (CUDA events, median of 7; K2, K3, T1, A1c
-and E1 also with the stream kept busy ahead, their device time alone).
+bit for bit (QK3's sums and QK2 at rtol 1e-12, the fit at rtol 1e-9),
+before it is timed (CUDA events, median of 7; K2, K3, T1, A1c, E1, QK3 and
+QK2 also with the stream kept busy ahead, their device time alone).
 
     python3 tools/checkout_compare.py ROOT [ROOT ...]
 
@@ -50,6 +60,7 @@ parent.  Prints the card's name and power limit, then one JSON line a run.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -66,6 +77,7 @@ TIMER_QS = (0.5, 0.9, 0.95, 0.99, 0.999)
 ENC_UNIQUE, ENC_LANES, ENC_DP = 2000, 250_000, 360
 SEAL_LANES, STORE_LANES, STORE_DP = 10_000, 625, 720
 T1_UNIQUE, T1_LANES, T1_DP, T1_STEPS = 2000, 1_000_000, 720, 1024
+QK3_UNIQUE, QK3_REAL, QK3_LANES, QK3_N, QK3_STEPS, QK3_PADDED = 600, 50_000, 65_536, 2160, 355, 512
 HBM_BYTES_PER_S = 3.35e12
 SEC, BLOCK = 10**9, 2 * 3600 * 10**9
 
@@ -258,7 +270,60 @@ def child(root: str) -> dict:
     del tv, tw
     res.update(_e1(np, torch, corpus))
     res.update(_t1(np, torch, corpus))
+    res.update(_qk3(np, torch, corpus))
     return res
+
+
+def _close(torch, a, b, rtol: float, what: str) -> None:
+    an, bn = torch.isnan(a), torch.isnan(b)
+    fin = torch.isfinite(b)
+    if not (torch.equal(an, bn) and torch.equal(a[~fin & ~bn], b[~fin & ~bn])
+            and bool(((a[fin] - b[fin]).abs() <= 1e-12 + rtol * b[fin].abs()).all())):
+        raise RuntimeError(f"{what}: kernel and plain version differ beyond rtol {rtol}")
+
+
+def _qk3(np, torch, corpus) -> dict:
+    from m3_tpu_torch.ops import query_temporal as qt
+
+    ts_u, vs_u = corpus.gen_grids(QK3_UNIQUE, QK3_N)
+    reps = -(-QK3_REAL // QK3_UNIQUE)
+    times = np.full((QK3_LANES, QK3_N), np.iinfo(np.int64).max, dtype=np.int64)
+    values = np.full((QK3_LANES, QK3_N), np.nan)
+    times[:QK3_REAL] = np.tile(ts_u, (reps, 1))[:QK3_REAL]
+    values[:QK3_REAL] = np.tile(vs_u, (reps, 1))[:QK3_REAL]
+    last = int(ts_u[0, -1])
+    steps = last - np.arange(QK3_STEPS - 1, -1, -1, dtype=np.int64) * 60 * SEC
+    padded = np.concatenate([steps, np.full(QK3_PADDED - QK3_STEPS, last, dtype=np.int64)])
+    t, v = torch.from_numpy(times).cuda(), torch.from_numpy(values).cuda()
+    st, sp = torch.from_numpy(steps).cuda(), torch.from_numpy(padded).cuda()
+    tr, vr = t[:QK3_REAL], v[:QK3_REAL]
+    m5, m15 = 300 * SEC, 900 * SEC
+    cases = (
+        ("qk3_sum_5m", lambda: qt.reduce_window(tr, vr, st, m5, "sum_over_time"),
+         lambda: qt.reduce_plain(tr, vr, st, m5, "sum_over_time"), 1e-12),
+        ("qk3_changes_15m", lambda: qt.changes_window(t, v, sp, m15, False),
+         lambda: qt.changes_plain(t, v, sp, m15, False), None),
+        ("qk3_deriv_15m", lambda: qt.linreg_window(t, v, sp, m15, False),
+         lambda: qt.linreg_plain(t, v, sp, m15)[0], 1e-9),
+        ("qk2_rate_5m", lambda: qt.rate(tr, vr, st, m5), lambda: qt.rate_plain(
+            tr, vr, st, m5, True, True), 1e-12),
+        ("qk2_irate_5m", lambda: qt.instant(tr, vr, st, m5), lambda: qt.instant_plain(
+            tr, vr, st, m5, True), None),
+    )
+    out = {}
+    for name, fn, plain, rtol in cases:
+        got, want = fn(), plain()
+        if rtol is None:
+            _same(torch, got, want, name)
+        else:
+            _close(torch, got, want, rtol, name)
+        # the output's bits, to hold one checkout's against another's
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+        del got, want
+        torch.cuda.empty_cache()
+        out[name] = {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
+                     "sha256": digest}
+    return out
 
 
 def _t1(np, torch, corpus) -> dict:
