@@ -2434,13 +2434,25 @@ def compare_pack_edges():
         f"bit for bit with its plain version and twice")
 
 
-def compare_elems(batches, tag: str, n_slots: int = 64):
+def _paths_since(before: dict) -> dict:
+    """A1a's calls by path since ``before`` (a copy of elems.A1A_PATHS)."""
+    return {k: elems.A1A_PATHS[k] - before[k] for k in before}
+
+
+def _sorted_by_slot(batch):
+    """The batch stably sorted by flat: each slot keeps its samples' order."""
+    order = np.argsort(batch[0], kind="stable")
+    return tuple(x[order] for x in batch)
+
+
+def _elem_steps(batches, tag: str, n_slots: int):
     """A1a and A1b against their plain versions on a run of ingest batches
-    (each kernel also re-run from the same state for the same bits)."""
+    (each kernel also re-run from the same state for the same bits); the
+    state after each scatter and each flush, and the flushes, on the host."""
     st_k = elems.init_state(n_slots // 8, 8, DEVICE)
     st_p = elems.ElemState(*(x.clone() for x in st_k))
     rng = np.random.default_rng(17)
-    dropped = 0
+    dropped, steps = 0, []
     for b, host in enumerate(batches):
         batch = [torch.from_numpy(x).to(DEVICE) for x in host]
         again = elems.ElemState(*(x.clone() for x in st_k))
@@ -2453,6 +2465,7 @@ def compare_elems(batches, tag: str, n_slots: int = 64):
         for name, x, y, z in zip(elems.ElemState._fields, st_k, again, st_p):
             same_bits(x, y, f"{tag} batch {b} scatter_update.{name}: second run")
             _record("scatter_update", same_bits(x, z, f"{tag} batch {b} scatter_update.{name}"))
+        steps.append([x.cpu() for x in st_k])
         flats = torch.from_numpy(np.sort(rng.choice(n_slots, 20, replace=False))).to(DEVICE)
         again = elems.ElemState(*(x.clone() for x in st_k))
         ok = elems.gather_reset(st_k, flats)
@@ -2463,11 +2476,149 @@ def compare_elems(batches, tag: str, n_slots: int = 64):
             _record("gather_reset", same_bits(x, z, f"{tag} batch {b} gather_reset.{name}"))
         for name, x, z in zip(elems.ElemState._fields, st_k, st_p):
             _record("gather_reset", same_bits(x, z, f"{tag} batch {b} reset state.{name}"))
+        steps.append([x.cpu() for x in ok] + [x.cpu() for x in st_k])
     check(dropped > 0, f"{tag}: no stale sample was dropped")
-    torch.cuda.synchronize()
+    return steps, dropped
+
+
+def compare_elems(batches, tag: str, n_slots: int = 64):
+    """A1a and A1b against their plain versions, twice, on a run of ingest
+    batches in two forms: as given (unsorted, duplicate slots: A1a's
+    grouped path) and stably sorted by flat (each slot's samples in the
+    same order: A1a's run path); the two forms' states and flushes are
+    held against each other after every step."""
+    forms = (("as given", list(batches)), ("sorted by slot", [_sorted_by_slot(b) for b in batches]))
+    runs, notes = [], []
+    for form, bs in forms:
+        before = dict(elems.A1A_PATHS)
+        _build.reset_launches()
+        steps, dropped = _elem_steps(bs, f"{tag} {form}", n_slots)
+        torch.cuda.synchronize()
+        paths = _paths_since(before)
+        in_order = sum(bool((np.diff(b[0]) >= 0).all()) for b in bs)
+        want = {"runs": 2 * in_order, "grouped": 2 * (len(bs) - in_order)}
+        check(paths == want, f"{tag} {form}: A1a paths {paths}, expected {want}")
+        launches = dict(_build.LAUNCHES)
+        check(launches == {"scatter_update": 2 * len(bs), "gather_reset": 2 * len(bs)},
+              f"{tag} {form}: launches {launches}")
+        check(paths["grouped" if form == "as given" else "runs"] > 0,
+              f"{tag} {form}: A1a paths {paths}")
+        runs.append(steps)
+        notes.append(f"{form}: A1a paths {paths}, launches {launches}")
+    for k, (a, b) in enumerate(zip(*runs)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_bits(x, y, f"{tag} step {k} field {i}: the sorted form against the given form")
     log(f"write parity slots {tag}: {len(batches)} batches of {len(batches[0][0])} samples over "
         f"{n_slots} slots ({dropped} stale): A1a and A1b bit for bit with their plain versions "
-        f"and twice")
+        f"and twice, in both forms ({'; '.join(notes)}); the forms' states and flushes the "
+        f"same bits")
+
+
+def _syncs_beside_the_check(fn):
+    """(fn(), the slot checks it read): fn runs with torch's sync debug mode
+    set to "error", so any other sync raises; each read of a slot check
+    (``elems._read_check``) runs with the mode off and is counted."""
+    reads, orig = [], elems._read_check
+
+    def counted(words, state):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(1)
+            return orig(words, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    elems._read_check = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(), len(reads)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        elems._read_check = orig
+
+
+def _sort_count(fn):
+    """(fn(), the calls of torch.sort inside fn)."""
+    calls, orig = [], torch.sort
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    torch.sort = counted
+    try:
+        return fn(), len(calls)
+    finally:
+        torch.sort = orig
+
+
+def compare_slot_checks():
+    """The slot check on the card against torch's min, max and order on
+    index sets of 1 to 1,000,000 (negative and 2^40-scale indices, ties,
+    one step down at each end); then an index outside the state raises
+    ValueError from A1a (both paths) and A1b with the state's bits
+    untouched; then the host syncs and sorts of one call of each path."""
+    rng = np.random.default_rng(23)
+    cases = [np.asarray([5]), np.asarray([-3]), np.arange(1000), np.arange(1000)[::-1].copy(),
+             np.sort(rng.integers(-(1 << 40), 1 << 40, 4096)),
+             rng.integers(-(1 << 40), 1 << 40, 4096), np.repeat(np.arange(500), 3),
+             np.arange(1_000_000), np.sort(rng.integers(0, 1 << 20, 1_000_000))]
+    for base in cases[-2:]:
+        for at in (1, base.size - 1):
+            down = base.copy()
+            down[at] = down[at - 1] - 1
+            cases.append(down)
+    for c in cases:
+        t = torch.from_numpy(c.astype(np.int64)).to(DEVICE)
+        got = elems._decode_check(elems._slot_check(t)[:3].tolist())
+        want = (int(t.min()), int(t.max()), bool((t[1:] >= t[:-1]).all()))
+        check(got == want, f"slot check on {c.size} indices: {got}, expected {want}")
+    state = elems.init_state(8, 8, DEVICE)
+    host = corpus.elem_probe_batches()[0]
+    elems.scatter_update(state, *(torch.from_numpy(x).to(DEVICE) for x in host))
+    before = [x.clone() for x in state]
+    sorted_host = _sorted_by_slot(host)
+    for what, (flat, rest) in {
+            "A1a in slot order, one past the end": (np.append(sorted_host[0][:-1], 64),
+                                                     sorted_host[1:]),
+            "A1a unsorted, one below 0": (np.append(host[0][:-1], -1), host[1:])}.items():
+        args = [torch.from_numpy(x).to(DEVICE) for x in (flat, *rest)]
+        try:
+            elems.scatter_update(state, *args)
+            check(False, f"{what}: no ValueError")
+        except ValueError:
+            pass
+        for name, x, y in zip(elems.ElemState._fields, state, before):
+            same_bits(x, y, f"{what}: state.{name} changed")
+    try:
+        elems.gather_reset(state, torch.tensor([3, 64], dtype=torch.int64, device=DEVICE))
+        check(False, "A1b, one past the end: no ValueError")
+    except ValueError:
+        pass
+    for name, x, y in zip(elems.ElemState._fields, state, before):
+        same_bits(x, y, f"A1b out of range: state.{name} changed")
+    # in slot order A1a and A1b sync only to read their slot check, and
+    # neither sorts; the grouped path's unique_consecutive syncs as well
+    args = [torch.from_numpy(x).to(DEVICE) for x in sorted_host]
+    flats = torch.arange(20, dtype=torch.int64, device=DEVICE)
+    counts = {}
+    for what, fn in (("scatter_update in slot order", lambda: elems.scatter_update(state, *args)),
+                     ("gather_reset", lambda: elems.gather_reset(state, flats))):
+        (_, n_sort), n_read = _syncs_beside_the_check(lambda: _sort_count(fn))
+        check((n_read, n_sort) == (1, 0), f"{what}: {n_read} reads of the check, {n_sort} sorts")
+        counts[what] = (n_read, n_sort)
+    args = [torch.from_numpy(x).to(DEVICE) for x in host]
+    try:
+        _syncs_beside_the_check(lambda: elems.scatter_update(state, *args))
+        grouped = "no other sync that torch reports"
+    except RuntimeError as e:
+        grouped = f"another sync ({str(e).splitlines()[0]})"
+    log(f"write parity slot check: {len(cases)} index sets of 1-1,000,000 agree with torch's "
+        f"min/max/order; out-of-range indices raise ValueError in A1a (both paths) and A1b with "
+        f"the state untouched; under torch's sync debug mode \"error\" (reads, sorts) a call: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; the grouped path: {grouped}")
 
 
 def compare_padded_quantiles():
@@ -2541,6 +2692,7 @@ def rollup_main():
         f"{len(rounds)} rounds of seed-42 values; set up in {time.time() - t0:.1f} s")
     t = corpus.START
     upd, lat, windows, launches = [], [], 0, {}
+    paths0 = dict(elems.A1A_PATHS)
     for i, vals in enumerate(rounds):
         times = np.full(n, t + 5 * SEC, dtype=np.int64)
         _build.reset_launches()
@@ -2569,11 +2721,14 @@ def rollup_main():
             for kernel, c in got.items():
                 launches[kernel] = launches.get(kernel, 0) + c
         t += res
+    paths = _paths_since(paths0)
+    check(paths == {"runs": len(rounds), "grouped": 0}, f"rollup: A1a paths {paths}")
     lat_a = np.asarray(lat)
     res_ = {"update_ms_p50": float(np.median(upd)), "flush_ms_p50": float(np.quantile(lat_a, 0.5)),
             "flush_ms_p99": float(np.quantile(lat_a, 0.99)),
             "windows_per_s": windows / (lat_a.sum() / 1e3), "launches": launches}
-    log(f"rollup main: {ROLLUP_ROUNDS} rounds of {n} lanes; launches {launches}; update "
+    log(f"rollup main: {ROLLUP_ROUNDS} rounds of {n} lanes; launches {launches}; A1a paths "
+        f"{paths} (warm-up included); update "
         f"{res_['update_ms_p50']:.3f} ms (median); flush p50 {res_['flush_ms_p50']:.3f} ms, p99 "
         f"{res_['flush_ms_p99']:.3f} ms (host clock, as bench.py; the reference's SLO is p99 <= "
         f"{ROLLUP_SLO_MS:.0f} ms, not a gate here); {res_['windows_per_s']:.0f} windows/s; every "
@@ -2612,7 +2767,7 @@ def flush_stages(pool, lanes, vals, t):
     t0 = time.perf_counter()
     np.where(np.isinf(out.min), np.nan, out.min), np.where(np.isinf(out.max), np.nan, out.max)
     stages["NaN fill of min/max"] = time.perf_counter() - t0
-    _check_single_sample_windows(elems.FlushedWindows(flats // pool.windows, *out[:6], out.last),
+    _check_single_sample_windows(elems.FlushedWindows(pool.lanes_of(flats), *out[:6], out.last),
                                  vals, t, lanes.size, "staged flush")
     ms = {k: v * 1e3 for k, v in stages.items()}
     log("rollup flush stages (host clock, ms): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
@@ -2657,44 +2812,77 @@ def profile_round(pool, lanes, vals, t):
 
 
 def slot_kernel_times(pool, batch, rows):
-    """A1a (and its grouping glue) and A1b at the rollup's shapes: 1M
-    samples into 1M of 8M slots, and a flush of those 1M slots."""
-    state = pool._state
-    n = batch[0].numel()
+    """A1a and A1b at the rollup's shapes (1M samples into 1M of 8M slots,
+    then a flush of those 1M slots) and at config 2's (100,000 samples into
+    the 131,072 x 8 pool that ``Aggregator`` grows to, grown here the same
+    way, then a flush of those 100,000)."""
+    _slot_times(pool._state, batch, rows, "")
+    del pool, batch
+    torch.cuda.empty_cache()
+    pool = ElemPool(60 * SEC, device=DEVICE)
+    for _ in range(CONFIG2_SERIES):
+        pool.alloc_lane()
+    lanes = np.arange(CONFIG2_SERIES, dtype=np.int64)
+    _, _, values, t = corpus.config2_batch(CONFIG2_SERIES, 0, 0)
+    starts = pool.window_start(np.full(CONFIG2_SERIES, t, dtype=np.int64))
+    host = (pool._flat(lanes, starts), starts, np.full(CONFIG2_SERIES, t, dtype=np.int64), values)
+    log(f"config 2 pool: {pool.capacity} lanes x {pool.windows} windows")
+    _slot_times(pool._state, tuple(torch.from_numpy(x).to(DEVICE) for x in host), rows,
+                "[config 2]")
+
+
+def _slot_times(state, batch, rows, shape: str):
+    """A1a on one batch in slot order (one sample a slot) into a copy of
+    ``state``, then A1b on those slots, each against its plain version bit
+    for bit.  The rows' times are those of the earlier rows: A1a's kernel
+    alone, A1b's whole call, between events.  Beside them: device times
+    alone, A1a's whole call, the slot check, and the grouped path's glue and
+    kernel on the same batch."""
+    flat = batch[0]
+    n = flat.numel()
     a = elems.ElemState(*(x.clone() for x in state))
     b = elems.ElemState(*(x.clone() for x in state))
+    before = dict(elems.A1A_PATHS)
     dk = elems.scatter_update(a, *batch)
+    check(elems.A1A_PATHS["runs"] == before["runs"] + 1, f"scatter_update{shape}: not the run path")
     dp = elems.scatter_update_plain(b, *batch)
-    check(int(dk) == int(dp), "full-size scatter_update stale counts")
+    check(int(dk) == int(dp), f"full-size scatter_update{shape} stale counts")
     for name, x, y in zip(elems.ElemState._fields, a, b):
-        _record("scatter_update", same_bits(x, y, f"full-size scatter_update.{name}"))
-    order, slots, offsets = elems.group_by_slot(batch[0])
+        _record("scatter_update", same_bits(x, y, f"full-size scatter_update{shape}.{name}"))
     dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    glue_ms = time_ms(lambda: elems.group_by_slot(batch[0]), reps=7)
-    ms = time_ms(lambda: elems._scatter_kernel(a, order, slots, offsets, *batch[1:], dropped),
-                 reps=7)
+    kernel = lambda: elems._scatter_kernel(a, flat, None, None, *batch[1:], dropped)  # noqa: E731
+    order, slots, offsets = elems.group_by_slot(flat)
+    grouped = lambda: elems._scatter_kernel(  # noqa: E731
+        a, slots, offsets, order, *batch[1:], dropped)
+    ms = time_ms(kernel, reps=7)
+    t = {"kernel device": device_ms(kernel), "call": time_ms(
+        lambda: elems.scatter_update(a, *batch), reps=7),
+         "slot check and read": time_ms(lambda: elems._slot_check(flat)[:3].tolist(), reps=7),
+         "grouping glue": time_ms(lambda: elems.group_by_slot(flat), reps=7),
+         "grouped kernel": time_ms(grouped, reps=7), "grouped kernel device": device_ms(grouped)}
     plain_ms = time_ms(lambda: elems.scatter_update_plain(b, *batch), reps=3)
-    S = slots.numel()
-    # the function's batch is 32 B a sample (the kernel reads the order in
-    # flat's place); the touched slots' eight fields are read and written once
-    row("scatter_update", rows, ms, plain_ms, n * 32 + S * 8 * 8 * 2,
+    # the run path reads flat, start, times and values once (32 B a sample);
+    # the touched slots' eight fields are read and written once
+    row(f"scatter_update{shape}", rows, ms, plain_ms, n * 32 + n * 8 * 8 * 2,
         n * 20 / FP64_OPS_PER_S * 1e3)
-    log(f"time scatter_update grouping glue (stable torch.sort + unique_consecutive + cumsum, "
-        f"{n} samples): {glue_ms:.3f} ms")
+    log(f"time scatter_update{shape} ({n} samples in slot order): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in t.items()) + " (between events unless 'device')")
 
-    flats = slots
     # the timing runs above added into a and b unequally: flush equal copies
     b = elems.ElemState(*(x.clone() for x in a))
-    ok = elems.gather_reset(a, flats)
-    op = elems.gather_reset_plain(b, flats)
+    ok = elems.gather_reset(a, flat)
+    op = elems.gather_reset_plain(b, flat)
     for name, x, y in zip(elems.ElemState._fields, ok, op):
-        _record("gather_reset", same_bits(x, y, f"full-size gather_reset.{name}"))
+        _record("gather_reset", same_bits(x, y, f"full-size gather_reset{shape}.{name}"))
     for name, x, y in zip(elems.ElemState._fields, a, b):
-        _record("gather_reset", same_bits(x, y, f"full-size reset state.{name}"))
-    F = flats.numel()
-    row("gather_reset", rows, time_ms(lambda: elems.gather_reset(a, flats), reps=7),
-        time_ms(lambda: elems.gather_reset_plain(b, flats), reps=3), F * 8 + F * 8 * 8 * 3, 0.0)
-    del a, b, ok, op
+        _record("gather_reset", same_bits(x, y, f"full-size reset{shape} state.{name}"))
+    out = elems.ElemState(*(torch.empty_like(x) for x in ok))
+    kernel = lambda: elems._gather_kernel(a, flat, True, out)  # noqa: E731
+    row(f"gather_reset{shape}", rows, time_ms(lambda: elems.gather_reset(a, flat), reps=7),
+        time_ms(lambda: elems.gather_reset_plain(b, flat), reps=3), n * 8 + n * 8 * 8 * 3, 0.0)
+    log(f"time gather_reset{shape} ({n} consecutive slots): kernel {time_ms(kernel, reps=7):.4f} "
+        f"ms, kernel device {device_ms(kernel):.4f} ms (the row's time is the whole call)")
+    del a, b, ok, op, out
     torch.cuda.empty_cache()
 
 
@@ -2787,6 +2975,7 @@ def aggregator_main():
     agg = Aggregator(device=DEVICE)
     cpu = Aggregator(device="cpu")
     _build.reset_launches()
+    paths0 = dict(elems.A1A_PATHS)
     add_ms, flush_ms = [], []
     for w in range(CONFIG2_WINDOWS):
         acc = np.zeros(n)
@@ -2819,10 +3008,14 @@ def aggregator_main():
     launches = dict(_build.LAUNCHES)
     for kernel in ("scatter_update", "gather_reset"):
         check(launches.get(kernel, 0) > 0, f"config 2: {kernel} not launched")
+    paths = _paths_since(paths0)
+    check(paths == {"runs": launches["scatter_update"], "grouped": 0},
+          f"config 2: A1a paths {paths}")
     res = {"launches": launches, "add_ms_p50": float(np.median(add_ms)),
            "flush_ms_p50": float(np.median(flush_ms)), "flush_ms_max": float(max(flush_ms))}
     log(f"aggregator config 2: {n} series x {CONFIG2_WINDOWS} windows x {CONFIG2_BATCHES} batches; "
-        f"launches {launches}; add_untimed_batch {res['add_ms_p50']:.3f} ms per 10s batch "
+        f"launches {launches}; A1a paths {paths}; add_untimed_batch {res['add_ms_p50']:.3f} ms "
+        f"per 10s batch "
         f"(median), flush_before {res['flush_ms_p50']:.3f} ms (median; max "
         f"{res['flush_ms_max']:.3f}) (host clock); the first {CONFIG2_CPU_SERIES} series equal "
         f"the CPU run bit for bit, every value equals numpy's")
@@ -3753,6 +3946,7 @@ def main() -> int:
     for lanes in (1, 7, 33, 129):
         compare_encode((enc_probes + walks_w)[:lanes], f"{lanes} lanes")
     compare_pack_edges()
+    compare_slot_checks()
     compare_elems(corpus.elem_probe_batches(), "probes")
     compare_elems(corpus.elem_probe_batches(n=4096, n_batches=3, seed=6), "dense")
     compare_padded_quantiles()

@@ -6,16 +6,23 @@ src/aggregator/aggregator/generic_elem.go:119 findOrCreate, :202 AddUnion,
 :267 Consume; src/aggregator/aggregation/{counter.go,gauge.go,timer.go}).
 Here the elems of one resolution are eight dense tensors on the device:
 lane = one (metric, aggregation key) pair, each lane owning a ring of W
-window slots.  Ingest is one scatter over a sample batch (A1a), flush a
-gather + slot reset (A1b), and timer quantiles a padded sort + weighted
-nearest-rank pick (A1c).  Slot state is the reference's moment vector:
-sum / sum_sq / count / min / max / last(+time) (ref: counter.go:42-75,
-gauge.go:45-80).
+window slots, laid out slot-major: flat = slot * capacity + lane (the
+reference's is lane-major, lane * W + slot), so a batch of one window over
+consecutive lanes touches consecutive slots.  Ingest is one scatter over
+a sample batch (A1a), flush a gather + slot reset (A1b), and timer
+quantiles a padded sort + weighted nearest-rank pick (A1c).  Slot state is
+the reference's moment vector: sum / sum_sq / count / min / max /
+last(+time) (ref: counter.go:42-75, gauge.go:45-80).
 
 - On CUDA state, ``scatter_update``, ``gather_reset`` and
   ``padded_quantiles`` launch the kernels of ``csrc/aggregator_elems.cu``;
-  they raise if a kernel cannot be built or launched.  The state is
-  updated in place (the reference donates it to its jitted functions).
+  they raise if a kernel cannot be built or launched.  A1a and A1b check
+  their slot indices on the card (min, max, order) and read the check back
+  in the call's one sync; an index outside the state raises
+  ``ValueError`` with the state untouched (A1a launches after the read,
+  A1b before it, behind a guard that reads the check on the card).  The
+  state is updated in place (the reference donates it to its jitted
+  functions).
 - On CPU state they run the plain PyTorch versions beside them, which fix
   the same arithmetic order on any device: the samples of a slot are
   applied in arrival order, one pass per rank within the slot.
@@ -58,7 +65,8 @@ _DTYPES = (I64, F64, F64, I64, F64, F64, I64, F64)
 
 
 class ElemState(NamedTuple):
-    """Flattened [cap * W] window-slot state."""
+    """Flattened [W * cap] window-slot state (the pool's flat = slot *
+    capacity + lane; the kernels take any flat indices)."""
 
     win_start: torch.Tensor  # i64, EMPTY when slot is free
     sum: torch.Tensor  # f64
@@ -89,6 +97,11 @@ def _min_ieee(a, b):
 
 def _max_ieee(a, b):
     return torch.where(a > b, a, torch.where(b > a, b, torch.where(torch.signbit(a), b, a)))
+
+
+# A1a's calls on the card by path: "runs" (a batch in slot order, no sort)
+# and "grouped" (group_by_slot first)
+A1A_PATHS = {"runs": 0, "grouped": 0}
 
 
 def group_by_slot(flat: torch.Tensor):
@@ -144,9 +157,11 @@ def scatter_update_plain(state: ElemState, flat, start, times, values) -> torch.
 
 
 _SIGNATURES = {
+    "m3_slot_check": [_build.P, _build.LL, _build.P, _build.P],
     "m3_scatter_update": [_build.P, _build.P, _build.P, _build.LL, _build.P, _build.P,
                           _build.P, _build.P, _build.P, _build.P],
-    "m3_gather_reset": [_build.P, _build.P, _build.LL, _build.I, _build.P, _build.P],
+    "m3_gather_reset": [_build.P, _build.P, _build.LL, _build.I, _build.P, _build.P, _build.LL,
+                        _build.P],
     "m3_padded_quantiles": [_build.P, _build.P, _build.LL, _build.I, _build.I, _build.P,
                             _build.I, _build.I, _build.P, _build.P, _build.P, _build.P],
 }
@@ -170,12 +185,44 @@ def _check_state(state: ElemState, *batch: torch.Tensor) -> torch.device:
     return dev
 
 
-def _check_slots(lo: torch.Tensor, hi: torch.Tensor, state: ElemState) -> None:
-    """Raise unless slot indices lo..hi lie in the state (the kernels
-    index it without bounds checks)."""
-    if int(lo) < 0 or int(hi) >= state.win_start.numel():
-        raise ValueError(f"slot indices {int(lo)}..{int(hi)} outside the state's "
+_SIGN = 1 << 63
+_U64 = (1 << 64) - 1
+
+
+def _from_key(key: int) -> int:
+    """The i64 whose order key (its bits with the sign flipped, as u64) is
+    ``key``."""
+    x = (key & _U64) ^ _SIGN
+    return x - (1 << 64) if x >= _SIGN else x
+
+
+def _decode_check(raw: list[int]) -> tuple[int, int, bool]:
+    """(min, max, non-decreasing) from the slot check's first three words:
+    the greatest ~key, the greatest key, the unsorted flag."""
+    return _from_key(~raw[0]), _from_key(raw[1]), raw[2] == 0
+
+
+def _slot_check(flat: torch.Tensor) -> torch.Tensor:
+    """Launch the slot check on ``flat`` (a contiguous i64 [N] CUDA tensor,
+    N > 0): its i64[4] words on the card, unread (``_read_check``); the
+    fourth is a zero for A1a's stale count."""
+    words = torch.empty(4, dtype=I64, device=flat.device)
+    lib = _lib()
+    rc = lib.m3_slot_check(flat.data_ptr(), flat.numel(), words.data_ptr(),
+                           torch.cuda.current_stream(flat.device).cuda_stream)
+    _build.check(lib, rc, "slot_check")
+    return words
+
+
+def _read_check(words: torch.Tensor, state: ElemState) -> bool:
+    """Read the slot check (the call's one sync) and raise unless its slots
+    lie in the state, which the kernels index without bounds checks; True
+    if they are non-decreasing."""
+    lo, hi, in_order = _decode_check(words[:3].tolist())
+    if lo < 0 or hi >= state.win_start.numel():
+        raise ValueError(f"slot indices {lo}..{hi} outside the state's "
                          f"{state.win_start.numel()} slots")
+    return in_order
 
 
 def _pointers(state: ElemState) -> np.ndarray:
@@ -187,7 +234,15 @@ def scatter_update(state: ElemState, flat: torch.Tensor, start: torch.Tensor,
     """One ingest batch into ``state``, in place: flat i64[N] slot indices,
     start i64[N] window starts, times i64[N], values f64[N].  Returns the
     number of samples dropped as stale (older than their slot's epoch), an
-    i64 scalar tensor."""
+    i64 scalar tensor.
+
+    On the card A1a takes one of two paths, after the slot check (one
+    sync): a batch in slot order (``flat`` non-decreasing) goes straight to
+    the kernel, which finds each slot's run itself; any other batch is
+    grouped by ``group_by_slot`` first (a stable sort; its
+    ``unique_consecutive`` syncs once more).  Both apply a slot's samples in
+    batch order, the order of the reference's scatter, so both give the
+    bits of ``scatter_update_plain``."""
     dev = _check_state(state, flat, start, times, values)
     if not (flat.dim() == 1 and start.shape == times.shape == values.shape == flat.shape):
         raise ValueError("flat, start, times and values must be one [N] shape")
@@ -195,24 +250,33 @@ def scatter_update(state: ElemState, flat: torch.Tensor, start: torch.Tensor,
     values = values.to(F64)
     if dev.type == "cpu":
         return scatter_update_plain(state, flat, start, times, values)
-    dropped = torch.zeros((), dtype=I64, device=dev)
     if flat.numel() == 0:
-        return dropped
-    order, slots, offsets = group_by_slot(flat)
-    _check_slots(slots[0], slots[-1], state)
-    _scatter_kernel(state, order, slots, offsets, start.contiguous(), times.contiguous(),
-                    values.contiguous(), dropped)
+        return torch.zeros((), dtype=I64, device=dev)
+    flat = flat.contiguous()
+    start, times, values = start.contiguous(), times.contiguous(), values.contiguous()
+    words = _slot_check(flat)
+    dropped = words[3]
+    if _read_check(words, state):
+        A1A_PATHS["runs"] += 1
+        _scatter_kernel(state, flat, None, None, start, times, values, dropped)
+    else:
+        A1A_PATHS["grouped"] += 1
+        order, slots, offsets = group_by_slot(flat)
+        _scatter_kernel(state, slots, offsets, order, start, times, values, dropped)
     return dropped
 
 
-def _scatter_kernel(state: ElemState, order, slots, offsets, start, times, values,
+def _scatter_kernel(state: ElemState, slots, offsets, order, start, times, values,
                     dropped) -> None:
-    """Launch A1a on a batch that ``group_by_slot`` has grouped and whose
-    slots lie in the state; adds the stale count into ``dropped``."""
+    """Launch A1a on a batch whose slots lie in the state; adds the stale
+    count into ``dropped``.  Grouped by ``group_by_slot``: ``slots``,
+    ``offsets`` and ``order`` as it returns them; in slot order: ``slots``
+    is the batch's flat itself and ``offsets`` and ``order`` are None."""
     ptrs = _pointers(state)
     lib = _lib()
     rc = lib.m3_scatter_update(ptrs.ctypes.data, slots.data_ptr(),
-                               offsets.data_ptr(), len(slots), order.data_ptr(),
+                               None if offsets is None else offsets.data_ptr(), len(slots),
+                               None if order is None else order.data_ptr(),
                                start.data_ptr(), times.data_ptr(), values.data_ptr(),
                                dropped.data_ptr(),
                                torch.cuda.current_stream(slots.device).cuda_stream)
@@ -236,22 +300,39 @@ def gather_reset_plain(state: ElemState, flats: torch.Tensor, reset: bool = True
 
 def gather_reset(state: ElemState, flats: torch.Tensor, reset: bool = True) -> ElemState:
     """The slots ``flats`` (i64[F], unique) of ``state`` as an ElemState of
-    [F] tensors; with ``reset`` the slots are then emptied in place."""
+    [F] tensors; with ``reset`` the slots are then emptied in place.  On
+    the card one call launches the slot check and A1b behind its guard (a
+    coalesced copy where the flats are consecutive); then the check's read,
+    the call's one sync: out-of-range flats raise there, the state
+    untouched."""
     dev = _check_state(state, flats)
     flats = flats.to(I64).contiguous()
     if dev.type == "cpu":
         return gather_reset_plain(state, flats, reset)
     n = flats.numel()
-    out = ElemState(*(torch.empty(n, dtype=dt, device=dev) for dt in _DTYPES))
+    ints = torch.empty((3, n), dtype=I64, device=dev).unbind()
+    floats = torch.empty((5, n), dtype=F64, device=dev).unbind()
+    out = ElemState(ints[0], *floats[:2], ints[1], *floats[2:4], ints[2], floats[4])
     if n:
-        _check_slots(flats.min(), flats.max(), state)
-        ptrs, out_ptrs = _pointers(state), _pointers(out)
-        lib = _lib()
-        rc = lib.m3_gather_reset(ptrs.ctypes.data, flats.data_ptr(), n, int(reset),
-                                 out_ptrs.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, rc, "gather_reset")
-        _build.count_launch("gather_reset")
+        words = torch.empty(4, dtype=I64, device=dev)
+        _gather_kernel(state, flats, reset, out, words)
+        _read_check(words, state)
     return out
+
+
+def _gather_kernel(state: ElemState, flats: torch.Tensor, reset: bool, out: ElemState,
+                   words: torch.Tensor | None = None) -> None:
+    """Launch A1b into ``out``.  With ``words`` (i64[4] on the card) the
+    entry first runs the slot check of flats into them and the copy touches
+    nothing unless every flat lies in the state; without, the flats must."""
+    ptrs, out_ptrs = _pointers(state), _pointers(out)
+    lib = _lib()
+    rc = lib.m3_gather_reset(ptrs.ctypes.data, flats.data_ptr(), flats.numel(), int(reset),
+                             out_ptrs.ctypes.data, None if words is None else words.data_ptr(),
+                             state.win_start.numel(),
+                             torch.cuda.current_stream(flats.device).cuda_stream)
+    _build.check(lib, rc, "gather_reset")
+    _build.count_launch("gather_reset")
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +460,8 @@ class ElemPool:
 
     Replaces the reference's metricList of elems
     (ref: src/aggregator/aggregator/list.go:155) for one resolution.  The
-    state lives on ``device`` (default ``cuda``)."""
+    state lives on ``device`` (default ``cuda``), slot-major: window slot
+    s of lane l is flat s * capacity + l (``_flat``, ``lanes_of``)."""
 
     def __init__(self, resolution_nanos: int, capacity: int = 256,
                  windows: int = 8, timer_reservoir_cap: int = 1 << 20,
@@ -429,19 +511,31 @@ class ElemPool:
         return lane
 
     def _grow(self, new_cap: int) -> None:
-        extra = init_state(new_cap - self.capacity, self.windows, self.device)
-        self._state = ElemState(*(torch.cat([a, b]) for a, b in zip(self._state, extra)))
+        """Widen each window's row of lanes to ``new_cap`` (slot-major: the
+        [W, capacity] state becomes [W, new_cap]), the reservoir's flats
+        with it."""
+        old, w = self.capacity, self.windows
+
+        def widen(x: torch.Tensor, empty) -> torch.Tensor:
+            y = torch.full((w, new_cap), empty, dtype=x.dtype, device=x.device)
+            y[:, :old] = x.view(w, old)
+            return y.view(-1)
+
+        self._state = ElemState(*(widen(x, empty)
+                                  for x, (_, empty) in zip(self._state, _EMPTY_OF)))
+        self._timer_chunks = [((flat // old) * new_cap + flat % old, start, val, wt)
+                              for flat, start, val, wt in self._timer_chunks]
         self.capacity = new_cap
 
     def _grow_windows(self, new_w: int) -> None:
-        """Re-layout to a wider ring (lane-major flat = lane*W + slot)."""
-        old_w, res = self.windows, self.resolution
+        """Re-layout to a wider ring (slot-major flat = slot * capacity +
+        lane)."""
+        cap, res = self.capacity, self.resolution
         st = ElemState(*(x.cpu().numpy() for x in self._state))
         occ = np.nonzero(st.win_start != EMPTY)[0]
-        lanes = occ // old_w
         starts = st.win_start[occ]
-        nf = lanes * new_w + (starts // res) % new_w
-        n = self.capacity * new_w
+        nf = ((starts // res) % new_w) * cap + self.lanes_of(occ)
+        n = cap * new_w
         host = ElemState(
             win_start=np.full(n, EMPTY, np.int64),
             sum=np.zeros(n), sum_sq=np.zeros(n),
@@ -453,7 +547,7 @@ class ElemPool:
             dst[nf] = src[occ]
         self._state = ElemState(*(torch.from_numpy(x).to(self.device) for x in host))
         self._timer_chunks = [
-            ((flat // old_w) * new_w + (start // res) % new_w, start, val, w)
+            (((start // res) % new_w) * cap + self.lanes_of(flat), start, val, w)
             for flat, start, val, w in self._timer_chunks]
         self.windows = new_w
 
@@ -464,7 +558,12 @@ class ElemPool:
 
     def _flat(self, lanes: np.ndarray, starts: np.ndarray) -> np.ndarray:
         slot = (starts // self.resolution) % self.windows
-        return lanes * self.windows + slot
+        return slot * self.capacity + lanes
+
+    def lanes_of(self, flats: np.ndarray) -> np.ndarray:
+        """The lanes of flat slot indices (the inverse of ``_flat`` given
+        the window)."""
+        return flats % self.capacity
 
     def update(self, lanes: np.ndarray, times: np.ndarray,
                values: np.ndarray, timer_mask: np.ndarray | None = None,
@@ -547,7 +646,7 @@ class ElemPool:
         out = ElemState(*(x.cpu().numpy() for x in out))
         empty_min = np.isinf(out.min)
         return FlushedWindows(
-            lanes=flats // self.windows,
+            lanes=self.lanes_of(flats),
             starts=out.win_start,
             sum=out.sum,
             sum_sq=out.sum_sq,
@@ -594,6 +693,8 @@ class ElemPool:
         m = self.timer_summary_size
         flat, start, val, w = self._concat_reservoir()
         n_slots = np.int64(self.capacity * self.windows)
+        # orders groups by (window, lane) here as in the reference's
+        # lane-major pool, so the seeded coins fall on the same groups
         slot_key = (start // self.resolution) * n_slots + flat
         level = np.round(np.log2(w)).astype(np.int64)
         # done rows can never overflow again this compaction: after the

@@ -2,24 +2,45 @@
 //
 // Replace m3_tpu/aggregator/elems.py: _scatter_update (A1a), _gather_reset
 // (A1b) and padded_quantiles (A1c).  The state of one resolution is eight
-// flat [capacity * windows] arrays (win_start, sum, sum_sq, count, min, max,
+// flat [windows * capacity] arrays (win_start, sum, sum_sq, count, min, max,
 // last_time, last); it stays on the card and the kernels update it in place
-// (the reference donates it to the jitted functions).
+// (the reference donates it to the jitted functions).  The pool lays the
+// slots out slot-major (flat = slot * capacity + lane), so a batch of one
+// window over consecutive lanes touches consecutive slots: a warp's 32
+// accesses to a field are one contiguous 256 B, whole sectors, in A1a's
+// reads and writes and A1b's gathers and resets.  The kernels take flat
+// indices and do not depend on the layout.
+//
+// The slot check, before A1a or A1b touches the state: one pass over the
+// flat indices gives their min, their max and whether they are
+// non-decreasing (atomics on order-preserving u64 keys into a zeroed
+// buffer), which the wrapper reads back in one sync; a slot outside the
+// state raises there.  A1a launches after that read (the order picks its
+// path); A1b's entry launches the check and then the copy behind a guard
+// (it reads the check on the card and touches nothing when a slot lies
+// outside), so one call from the host, and the read waits for the copy.
 //
 // A1a, one ingest batch.  No floating-point atomics: their order is not
 // fixed, so neither bit-for-bit parity nor run-to-run repeatability would
-// hold.  The wrapper groups the batch by slot in arrival order (a stable
-// sort of the slot keys, index preparation); one thread per touched slot
-// then walks its samples in that order and does what the reference's
-// scatters do: newest epoch wins, moments reset when the epoch changed,
-// NaN-excluded sum/sum_sq (added in arrival order, no FMA: the file is
-// built with --fmad=false), count including NaN, IEEE min/max (-0.0 below
-// +0.0), last_time the greatest kept time, last the value of the last-
-// arriving kept sample at that time, and the stale count.  Bound: bytes
-// (the batch and the touched slots, read once and written once).
+// hold.  One thread per touched slot walks the slot's samples in batch
+// order and does what the reference's scatters do: newest epoch wins,
+// moments reset when the epoch changed, NaN-excluded sum/sum_sq (added in
+// arrival order, no FMA: the file is built with --fmad=false), count
+// including NaN, IEEE min/max (-0.0 below +0.0), last_time the greatest
+// kept time, last the value of the last-arriving kept sample at that time,
+// and the stale count (an integer atomic).  Two ways to the slots:
+// - a batch in slot order (flat non-decreasing, as the rollup's and config
+//   2's are): the kernel finds its own runs, a thread at each i with
+//   flat[i] != flat[i - 1] walking its run, the samples read in place;
+// - any other batch: the wrapper groups it by slot in arrival order (a
+//   stable sort of the slot keys, index preparation), one thread per
+//   segment reading its samples through the order.
+// Bound: bytes (the batch and the touched slots, read once and written
+// once).
 //
 // A1b, flush.  One thread per flushed slot (the flats are unique) copies
-// the eight fields out and, with `reset`, writes the empty slot back.
+// the eight fields out, in the order of the flats, and, with `reset`,
+// writes the empty slot back: consecutive flats make it a coalesced copy.
 // Bound: bytes.
 //
 // A1c, weighted nearest-rank quantiles of an inf-padded [F, K] matrix.
@@ -58,7 +79,9 @@
 namespace {
 
 constexpr long long kEmpty = -(1ll << 62);
+constexpr unsigned long long kSign = 1ull << 63;
 constexpr int kThreads = 128;
+constexpr long long kCheckBlocks = 1024;  // the slot check's grid, grid-stride past it
 constexpr int kMaxQ = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // A1c's tiers: rows of at most kWarpK samples in registers, 32 / P rows a
@@ -88,19 +111,19 @@ struct State {
   double* last;
 };
 
-__global__ void __launch_bounds__(kThreads) scatter_update_kernel(
-    State s, const long long* __restrict__ seg_slot, const long long* __restrict__ seg_off,
-    long long n_segs, const long long* __restrict__ order, const long long* __restrict__ start,
-    const long long* __restrict__ times, const double* __restrict__ values,
-    unsigned long long* __restrict__ dropped) {
-  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n_segs) return;
-  const long long slot = seg_slot[g];
-  const long long lo = seg_off[g], hi = seg_off[g + 1];
+// The samples lo..hi - 1 of one slot, in batch order (through `order` when
+// kIndexed, else in place), applied to the slot.
+template <bool kIndexed>
+__device__ __forceinline__ void apply_samples(State s, long long slot, long long lo, long long hi,
+                                              const long long* __restrict__ order,
+                                              const long long* __restrict__ start,
+                                              const long long* __restrict__ times,
+                                              const double* __restrict__ values,
+                                              unsigned long long* __restrict__ dropped) {
   const long long resident = s.win_start[slot];
   long long epoch = resident;
   for (long long k = lo; k < hi; ++k) {
-    const long long st = start[order[k]];
+    const long long st = start[kIndexed ? order[k] : k];
     epoch = st > epoch ? st : epoch;
   }
   const bool changed = epoch != resident;
@@ -113,7 +136,7 @@ __global__ void __launch_bounds__(kThreads) scatter_update_kernel(
   double last = changed ? NAN : s.last[slot];
   unsigned long long drop = 0;
   for (long long k = lo; k < hi; ++k) {
-    const long long i = order[k];
+    const long long i = kIndexed ? order[k] : k;
     const double v = values[i];
     const bool keep = start[i] == epoch;
     const bool contrib = keep && !isnan(v);
@@ -128,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) scatter_update_kernel(
     drop += !keep;
   }
   for (long long k = lo; k < hi; ++k) {
-    const long long i = order[k];
+    const long long i = kIndexed ? order[k] : k;
     if (start[i] == epoch && times[i] == lt) last = values[i];
   }
   s.win_start[slot] = epoch;
@@ -142,10 +165,45 @@ __global__ void __launch_bounds__(kThreads) scatter_update_kernel(
   if (drop) atomicAdd(dropped, drop);  // an integer count: any order is exact
 }
 
+// A batch grouped by slot: one thread per segment.
+__global__ void __launch_bounds__(kThreads) scatter_update_kernel(
+    State s, const long long* __restrict__ seg_slot, const long long* __restrict__ seg_off,
+    long long n_segs, const long long* __restrict__ order, const long long* __restrict__ start,
+    const long long* __restrict__ times, const double* __restrict__ values,
+    unsigned long long* __restrict__ dropped) {
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n_segs) return;
+  apply_samples<true>(s, seg_slot[g], seg_off[g], seg_off[g + 1], order, start, times, values,
+                      dropped);
+}
+
+// A batch in slot order: the thread at the head of each run walks it.
+__global__ void __launch_bounds__(kThreads) scatter_runs_kernel(
+    State s, const long long* __restrict__ flat, long long n, const long long* __restrict__ start,
+    const long long* __restrict__ times, const double* __restrict__ values,
+    unsigned long long* __restrict__ dropped) {
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n) return;
+  const long long slot = flat[g];
+  if (g > 0 && flat[g - 1] == slot) return;
+  long long hi = g + 1;
+  while (hi < n && flat[hi] == slot) ++hi;
+  apply_samples<false>(s, slot, g, hi, nullptr, start, times, values, dropped);
+}
+
+// True when the slot check's min and max (its words 0 and 1) lie in
+// [0, n_slots).
+__device__ __forceinline__ bool slots_inside(const unsigned long long* __restrict__ check,
+                                             long long n_slots) {
+  const long long lo = (long long)(~check[0] ^ kSign), hi = (long long)(check[1] ^ kSign);
+  return lo >= 0 && hi < n_slots;
+}
+
 __global__ void __launch_bounds__(kThreads) gather_reset_kernel(
-    State s, const long long* __restrict__ flats, long long n, int reset, State out) {
+    State s, const long long* __restrict__ flats, long long n, int reset, State out,
+    const unsigned long long* __restrict__ check, long long n_slots) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n || (check != nullptr && !slots_inside(check, n_slots))) return;
   const long long f = flats[i];
   out.win_start[i] = s.win_start[f];
   out.sum[i] = s.sum[f];
@@ -164,6 +222,34 @@ __global__ void __launch_bounds__(kThreads) gather_reset_kernel(
     s.max[f] = -INFINITY;
     s.last_time[f] = kEmpty;
     s.last[f] = NAN;
+  }
+}
+
+// The slot check: out[0] the greatest ~key, out[1] the greatest key of the
+// flats (key = the bits with the sign flipped, so u64 order is i64 order:
+// the min and max), out[2] nonzero when some flat[i] < flat[i - 1].  out is
+// zeroed ahead; a warp's values fold by shuffles, then one atomic each.
+// out[3] (zeroed too) is A1a's stale count.
+__global__ void __launch_bounds__(kThreads) slot_check_kernel(
+    const long long* __restrict__ flat, long long n, unsigned long long* __restrict__ out) {
+  unsigned long long lo = 0, hi = 0, unsorted = 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    const long long x = flat[i];
+    const unsigned long long key = (unsigned long long)x ^ kSign;
+    lo = max(lo, ~key);
+    hi = max(hi, key);
+    if (i > 0 && flat[i - 1] > x) unsorted = 1;
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    lo = max(lo, __shfl_xor_sync(kFull, lo, d));
+    hi = max(hi, __shfl_xor_sync(kFull, hi, d));
+    unsorted |= __shfl_xor_sync(kFull, unsorted, d);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(&out[0], lo);
+    atomicMax(&out[1], hi);
+    if (unsorted) atomicOr(&out[2], 1ull);
   }
 }
 
@@ -485,39 +571,72 @@ __global__ void __launch_bounds__(kBlockTierThreads) quantiles_scratch_kernel(
   }
 }
 
+// Zero out u64[4], then the slot check of flat i64[n] into it.
+cudaError_t launch_slot_check(const long long* flat, long long n, unsigned long long* out,
+                              cudaStream_t st) {
+  const cudaError_t rc = cudaMemsetAsync(out, 0, 4 * sizeof(unsigned long long), st);
+  if (rc != cudaSuccess || n <= 0) return rc;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  slot_check_kernel<<<(unsigned)(blocks < kCheckBlocks ? blocks : kCheckBlocks), kThreads, 0,
+                      st>>>(flat, n, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// State: eight device pointers in ElemState order.  Batch grouped by slot:
-// seg_slot i64[n_segs], seg_off i64[n_segs + 1] into order i64[N] (sample
-// indices, arrival order within a slot); start/times i64[N], values f64[N];
-// dropped u64[1] accumulates the stale count.  Returns cudaGetLastError().
+// flat i64[n] -> out u64[4] (zeroed here first): the greatest ~key, the
+// greatest key (key = flat ^ 2^63), nonzero if flat is not non-decreasing,
+// and a zero for A1a's stale count.  Returns cudaGetLastError().
+int m3_slot_check(const long long* flat, long long n, unsigned long long* out, void* stream) {
+  return (int)launch_slot_check(flat, n, out, (cudaStream_t)stream);
+}
+
+// State: eight device pointers in ElemState order.  A batch grouped by
+// slot: seg_slot i64[n] (the touched slots), seg_off i64[n + 1] into order
+// i64[N] (sample indices, arrival order within a slot).  A batch in slot
+// order: seg_slot is flat i64[n] itself (non-decreasing), n = N, and
+// seg_off and order are null.  start/times i64[N], values f64[N]; dropped
+// u64[1] accumulates the stale count.  Returns cudaGetLastError().
 int m3_scatter_update(void* const* state, const long long* seg_slot, const long long* seg_off,
-                      long long n_segs, const long long* order, const long long* start,
+                      long long n, const long long* order, const long long* start,
                       const long long* times, const double* values, unsigned long long* dropped,
                       void* stream) {
-  if (n_segs <= 0) return 0;
+  if ((seg_off == nullptr) != (order == nullptr)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
   State s{(long long*)state[0], (double*)state[1], (double*)state[2], (long long*)state[3],
           (double*)state[4],    (double*)state[5], (long long*)state[6], (double*)state[7]};
-  const long long blocks = (n_segs + kThreads - 1) / kThreads;
-  scatter_update_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      s, seg_slot, seg_off, n_segs, order, start, times, values, dropped);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (order == nullptr)
+    scatter_runs_kernel<<<blocks, kThreads, 0, st>>>(s, seg_slot, n, start, times, values,
+                                                     dropped);
+  else
+    scatter_update_kernel<<<blocks, kThreads, 0, st>>>(s, seg_slot, seg_off, n, order, start,
+                                                       times, values, dropped);
   return (int)cudaGetLastError();
 }
 
 // flats i64[n] (unique) -> out: eight device pointers of [n]; resets the
-// slots when `reset`.  Returns cudaGetLastError().
+// slots when `reset`.  With `check` (u64[4]) the slot check of flats is
+// launched into it first and the copy does nothing unless every flat lies
+// in [0, n_slots).  Returns cudaGetLastError().
 int m3_gather_reset(void* const* state, const long long* flats, long long n, int reset,
-                    void* const* out, void* stream) {
+                    void* const* out, unsigned long long* check, long long n_slots,
+                    void* stream) {
+  if (check != nullptr) {
+    const cudaError_t rc = launch_slot_check(flats, n, check, (cudaStream_t)stream);
+    if (rc != cudaSuccess) return (int)rc;
+  }
   if (n <= 0) return 0;
   State s{(long long*)state[0], (double*)state[1], (double*)state[2], (long long*)state[3],
           (double*)state[4],    (double*)state[5], (long long*)state[6], (double*)state[7]};
   State o{(long long*)out[0], (double*)out[1], (double*)out[2], (long long*)out[3],
           (double*)out[4],    (double*)out[5], (long long*)out[6], (double*)out[7]};
   const long long blocks = (n + kThreads - 1) / kThreads;
-  gather_reset_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(s, flats, n, reset,
-                                                                               o);
+  gather_reset_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      s, flats, n, reset, o, check, n_slots);
   return (int)cudaGetLastError();
 }
 

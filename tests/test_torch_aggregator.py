@@ -11,7 +11,9 @@ exact.
 
 Shapes are fixed so that each JAX function compiles once per shape:
 ingest batches of 256 samples over 64 slots, flushes of 20 slots, and two
-quantile matrices.
+quantile matrices.  The probe batches also run stably sorted by slot (the
+order A1a's run path takes on the card; on the CPU both orders take the
+plain version), which must give the unsorted run's bits.
 """
 
 import functools
@@ -51,16 +53,24 @@ def _same_array(got: np.ndarray, want: np.ndarray, what: str):
     assert_same(torch.from_numpy(np.ascontiguousarray(got)), np.asarray(want), what)
 
 
+def _by_slot(batch):
+    """The batch stably sorted by its slot key (its first array)."""
+    order = np.argsort(batch[0], kind="stable")
+    return tuple(x[order] for x in batch)
+
+
 @functools.lru_cache(maxsize=None)
-def _slot_runs():
-    """Every probe batch through both sides: after each batch, the scatter
-    results (state, dropped), then a flush of N_FLUSH slots (gathered
-    fields, state after the reset)."""
+def _slot_runs(by_slot: bool = False):
+    """Every probe batch through both sides (sorted by slot if
+    ``by_slot``): after each batch, the scatter results (state, dropped),
+    then a flush of N_FLUSH slots (gathered fields, state after the
+    reset)."""
     jstate = jel.init_state(N_SLOTS // 8, 8)
     tstate = tel.init_state(N_SLOTS // 8, 8, device="cpu")
     rng = np.random.default_rng(17)
     runs = []
-    for flat, start, times, values in corpus.elem_probe_batches(N_SLOTS):
+    batches = corpus.elem_probe_batches(N_SLOTS)
+    for flat, start, times, values in map(_by_slot, batches) if by_slot else batches:
         jstate, jdrop = jel._scatter_update(jstate, *(jnp.asarray(x)
                                                       for x in (flat, start, times, values)))
         tdrop = tel.scatter_update(tstate, *(torch.from_numpy(x)
@@ -76,9 +86,11 @@ def _slot_runs():
     return runs
 
 
-@pytest.mark.parametrize("kernel", ["scatter_update", "gather_reset"])
+@pytest.mark.parametrize("kernel", ["scatter_update", "gather_reset", "scatter_update/by slot",
+                                    "gather_reset/by slot"])
 def test_slot_kernels_match_jax(kernel):
-    for k, (scatter, gather) in enumerate(_slot_runs()):
+    kernel, _, form = kernel.partition("/")
+    for k, (scatter, gather) in enumerate(_slot_runs(bool(form))):
         if kernel == "scatter_update":
             jstate, jdrop, tstate, tdrop = scatter
             assert tdrop == jdrop, f"batch {k}: dropped {tdrop} != {jdrop}"
@@ -90,6 +102,40 @@ def test_slot_kernels_match_jax(kernel):
                 assert_same(t, j, f"batch {k} gathered {name}")
             for name, t, j in zip(tel.ElemState._fields, tstate, jstate):
                 assert_same(t, j, f"batch {k} state.{name} after the reset")
+
+
+@pytest.mark.parametrize("step", ["scatter", "gather"])
+def test_batches_by_slot_give_the_unsorted_bits(step):
+    """Sorted stably by slot, each slot's samples keep their order, so the
+    states and flushes are those of the batches as given."""
+    for k, (given, by_slot) in enumerate(zip(_slot_runs(), _slot_runs(True))):
+        if step == "scatter":
+            a, b = given[0][2] + [given[0][3]], by_slot[0][2] + [by_slot[0][3]]
+        else:
+            a, b = given[1][2] + given[1][3], by_slot[1][2] + by_slot[1][3]
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(torch.as_tensor(y), torch.as_tensor(x).numpy(), f"batch {k} {step} {i}")
+
+
+def _check_words(flat: np.ndarray) -> list[int]:
+    """The slot check kernel's three words for ``flat``, as the card
+    writes them (u64 atomics on keys with the sign flipped), read as i64."""
+    keys = flat.astype(np.int64).view(np.uint64) ^ np.uint64(1 << 63)
+    return [int((~keys).max().view(np.int64)), int(keys.max().view(np.int64)),
+            int(bool((np.diff(flat) < 0).any()))]
+
+
+@pytest.mark.parametrize("case", ["one", "negative", "ascending", "ties", "one step down",
+                                  "wide"])
+def test_slot_check_words_decode(case):
+    """The wrapper's reading of the slot check: min, max and order."""
+    rng = np.random.default_rng(3)
+    flat = {"one": np.asarray([5]), "negative": np.asarray([-7, -7, -2]),
+            "ascending": np.arange(1000), "ties": np.repeat(np.arange(50), 4),
+            "one step down": np.concatenate([np.arange(10), [3], np.arange(10, 20)]),
+            "wide": rng.integers(-(1 << 62), 1 << 62, 4096)}[case]
+    want = (int(flat.min()), int(flat.max()), bool((np.diff(flat) >= 0).all()))
+    assert tel._decode_check(_check_words(flat)) == want
 
 
 def test_probe_batches_hit_their_corners():
@@ -186,6 +232,93 @@ def test_elem_pool_matches_jax():
         for name, tv, jv in zip(tel.FlushedWindows._fields, t[0], j[0]):
             _same_array(tv, jv, f"round {r} {name}")
         _same_array(t[1], j[1], f"round {r} quantiles")
+
+
+def _layout_run(mod, by_slot: bool, **kw):
+    """An ElemPool through 8 rounds of 256-sample batches that hit what the
+    slot layout touches: 40 lanes to start (capacity 16 grown to 64), 60
+    more allocated after round 2's update and 40 after round 5's (capacity
+    128, then 256) while windows and the timer reservoir are occupied; a
+    ring of 2 grown by a third open window in round 3; two hot timer lanes
+    (7 and 11, 40 samples each in window r) whose reservoir groups compact
+    in one pass; late samples from round 1.  ``by_slot`` sorts each batch
+    stably by (window, lane), the slot order of a batch whose windows do
+    not wrap the ring."""
+    pool = mod.ElemPool(10 * SEC, capacity=16, windows=2, timer_reservoir_cap=96,
+                        timer_summary_size=8, **kw)
+    for _ in range(40):
+        pool.alloc_lane()
+    rng = np.random.default_rng(37)
+    out = []
+    for r in range(8):
+        t = T0 + r * 10 * SEC
+        lanes = np.concatenate([np.repeat([7, 11], 40), rng.integers(0, pool.n_lanes, 176)])
+        times = t + rng.integers(0, 20, 256) * SEC
+        times[:80] = t + rng.integers(0, 10, 80) * SEC
+        if r == 3:
+            times[-24:-8] = t + rng.integers(20, 30, 16) * SEC  # a third open window
+        if r:
+            times[-8:] = t - 10 * SEC - rng.integers(1, 10, 8) * SEC  # late
+        values = np.round(rng.lognormal(2, 1, 256), 1)
+        values[rng.random(256) < 0.05] = np.nan
+        if by_slot:
+            order = np.lexsort((lanes, times - times % (10 * SEC)))
+            lanes, times, values = lanes[order], times[order], values[order]
+        pool.update(lanes, times, values, lanes % 4 == 3)
+        for _ in range({2: 60, 5: 40}.get(r, 0)):
+            pool.alloc_lane()
+        fw = pool.flush_before(t + 10 * SEC)
+        q = pool.timer_quantiles(fw, QS) if fw is not None else None
+        pool.purge_timer_reservoir()
+        out.append((fw, q, pool.dropped_stale, pool.windows, pool.capacity))
+    return out, pool.n_timer_compactions
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_pools(by_slot: bool):
+    return _layout_run(jel, by_slot), _layout_run(tel, by_slot, device="cpu")
+
+
+def _same_pool_runs(got, want):
+    (tout, tcomp), (jout, jcomp) = got, want
+    assert tcomp == jcomp and tcomp > 0, (tcomp, jcomp)
+    for r, (j, t) in enumerate(zip(jout, tout)):
+        assert (j[0] is None) == (t[0] is None), r
+        assert t[2:] == j[2:], f"round {r}: dropped/windows/capacity {t[2:]} != {j[2:]}"
+        if j[0] is None:
+            continue
+        for name, tv, jv in zip(tel.FlushedWindows._fields, t[0], j[0]):
+            _same_array(tv, jv, f"round {r} {name}")
+        _same_array(t[1], j[1], f"round {r} quantiles")
+
+
+@pytest.mark.parametrize("form", ["as given", "by slot"])
+def test_elem_pool_layout_matches_jax(form):
+    """Capacity and ring growth with windows and a reservoir occupied, and
+    two hot timer lanes compacting in one window, against the reference's
+    lane-major pool, bit for bit; in the by-slot form the batches are the
+    same samples sorted."""
+    jrun, trun = _layout_pools(form == "by slot")
+    out, _ = trun
+    assert [o[3:] for o in out] == [(2, 64)] * 2 + [(2, 128)] + [(4, 128)] * 2 + [(4, 256)] * 3
+    assert all(o[0] is not None for o in out)
+    _same_pool_runs(trun, jrun)
+
+
+def test_elem_pool_by_slot_gives_the_unsorted_windows():
+    """The pool's flushes and quantiles do not depend on the order of a
+    batch across slots."""
+    _same_pool_runs(_layout_pools(True)[1], _layout_pools(False)[1])
+
+
+def test_pool_flat_is_slot_major():
+    pool = tel.ElemPool(10 * SEC, capacity=16, windows=4, device="cpu")
+    lanes = np.arange(16)
+    starts = np.full(16, T0 - T0 % (10 * SEC) + 30 * SEC)
+    flat = pool._flat(lanes, starts)
+    slot = (starts[0] // (10 * SEC)) % 4
+    assert np.array_equal(flat, slot * 16 + lanes)
+    assert np.array_equal(pool.lanes_of(flat), lanes)
 
 
 def _staged(mod, types=(), policies=(), pipeline=None):

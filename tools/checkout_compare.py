@@ -45,6 +45,15 @@ For each checkout, on data made from seeds:
   the last); QK2's rate[5m] and irate[5m] beside them (its code is not
   QK3's); each with a digest of its output's bits, to hold checkouts'
   results against each other;
+- A1a and A1b (``aggregator/elems.py``: ``scatter_update``,
+  ``gather_reset``) at the rollup's shape (1,000,000 samples, one a lane,
+  into a pool of 1,000,000 lanes x 8 windows, then a flush of those slots)
+  and config 2's (100,000 into the 131,072 x 8 pool ``Aggregator`` grows
+  to, grown the same way, then a flush of those): each checkout's
+  ``ElemPool`` maps the lanes to its own flats; the whole wrapper calls
+  (between events: they sync) and each kernel alone through its C entry,
+  on the arguments the checkout's wrapper passes (device alone too); the
+  flush's bits as a digest;
 - the host: its cores and the median time of a fixed Python loop.
 Each kernel's outputs are held against the plain version's (K2, K3, T1 and
 E1 at the encode shape on the unique lanes, the tiled ones against those),
@@ -52,10 +61,12 @@ bit for bit (QK3's sums and QK2 at rtol 1e-12, the fit at rtol 1e-9),
 before it is timed (CUDA events, median of 7; K2, K3, T1, A1c, E1, QK3 and
 QK2 also with the stream kept busy ahead, their device time alone).
 
-    python3 tools/checkout_compare.py ROOT [ROOT ...]
+    python3 tools/checkout_compare.py [--only SECTION,...] ROOT [ROOT ...]
 
 To compare two checkouts on one card, name them as parent, change, change,
-parent.  Prints the card's name and power limit, then one JSON line a run.
+parent.  Sections: k3 (K3 and K2), qk6, megabatch, a1c, e1, t1, qk3, a1
+(A1a and A1b); all by default.  Prints the card's name and power limit,
+then one JSON line a run.
 """
 
 from __future__ import annotations
@@ -80,6 +91,8 @@ T1_UNIQUE, T1_LANES, T1_DP, T1_STEPS = 2000, 1_000_000, 720, 1024
 QK3_UNIQUE, QK3_REAL, QK3_LANES, QK3_N, QK3_STEPS, QK3_PADDED = 600, 50_000, 65_536, 2160, 355, 512
 HBM_BYTES_PER_S = 3.35e12
 SEC, BLOCK = 10**9, 2 * 3600 * 10**9
+A1_SHAPES = {"rollup": (10 * SEC, 1_000_000, 1_000_000), "config2": (60 * SEC, 256, 100_000)}
+SECTIONS = ("k3", "qk6", "megabatch", "a1c", "e1", "t1", "qk3", "a1")
 
 
 def _time_ms(torch, fn, reps: int = 7) -> float:
@@ -172,7 +185,7 @@ def _host_loop_ms() -> float:
     return statistics.median(times)
 
 
-def child(root: str) -> dict:
+def child(root: str, only: tuple[str, ...] = SECTIONS) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -215,9 +228,27 @@ def child(root: str) -> dict:
         torch.cuda.empty_cache()
         return out
 
-    res["k3_read"] = k3_case("read", READ_UNIQUE, READ_LANES, READ_DP, False)
-    res["k3_query"] = k3_case("query", QUERY_UNIQUE, QUERY_LANES, QUERY_DP, True)
+    if "k3" in only:
+        res["k3_read"] = k3_case("read", READ_UNIQUE, READ_LANES, READ_DP, False)
+        res["k3_query"] = k3_case("query", QUERY_UNIQUE, QUERY_LANES, QUERY_DP, True)
+    if "qk6" in only:
+        res["qk6"] = _qk6(np, torch, query_grouped)
+    if "megabatch" in only:
+        res["megabatch"] = _megabatch(torch, corpus, qp)
+    if "a1c" in only:
+        res.update(_a1c(np, torch, corpus, elems))
+    if "e1" in only:
+        res.update(_e1(np, torch, corpus))
+    if "t1" in only:
+        res.update(_t1(np, torch, corpus))
+    if "qk3" in only:
+        res.update(_qk3(np, torch, corpus))
+    if "a1" in only:
+        res.update(_a1(np, torch, elems))
+    return res
 
+
+def _qk6(np, torch, query_grouped) -> dict:
     rng = np.random.default_rng(7)
     x = np.full((Q_LANES, Q_STEPS), np.nan)
     lam = rng.gamma(2.0, 1.0, (Q_REAL, 1)) * 30
@@ -231,12 +262,15 @@ def child(root: str) -> dict:
     want = query_grouped.grouped_quantile_plain(xt, torch.from_numpy(groups).cuda(), Q_GROUPS,
                                                 Q_PHI)
     _same(torch, fn(), want, "QK6")
-    res["qk6"] = {"ms": _time_ms(torch, fn),
-                  "sort_ms": _time_ms(torch, lambda: torch.sort(xt, dim=0, stable=True)),
-                  "launches_us": _device_us(torch, fn)}
+    out = {"ms": _time_ms(torch, fn),
+           "sort_ms": _time_ms(torch, lambda: torch.sort(xt, dim=0, stable=True)),
+           "launches_us": _device_us(torch, fn)}
     del xt, want
     torch.cuda.empty_cache()
+    return out
 
+
+def _megabatch(torch, corpus, qp) -> dict:
     queries = [corpus.megabatch_query(seed) for seed in range(16)]
     plan = queries[0][0]
     inputs = corpus.expr_inputs_from_numpy(*corpus.stack_queries([q[1] for q in queries]), "cuda")
@@ -252,10 +286,12 @@ def child(root: str) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     launches = _device_us(torch, fn)
-    res["megabatch"] = {"ms": _time_ms(torch, fn), "wall_ms": statistics.median(walls),
-                        "device_ms": sum(us for _, us in launches) / 1e3,
-                        "launches": len(launches)}
+    return {"ms": _time_ms(torch, fn), "wall_ms": statistics.median(walls),
+            "device_ms": sum(us for _, us in launches) / 1e3, "launches": len(launches)}
 
+
+def _a1c(np, torch, corpus, elems) -> dict:
+    res = {}
     values = corpus.timer_windows(TIMER_WINDOWS, TIMER_PER_WINDOW)[2]
     for tag, (v, w) in (("a1c_timer", (values.reshape(TIMER_WINDOWS, TIMER_PER_WINDOW),
                                        np.ones((TIMER_WINDOWS, TIMER_PER_WINDOW)))),
@@ -268,10 +304,73 @@ def child(root: str) -> dict:
         res[tag] = {"ms": _time_ms(torch, fn), "device_ms": _device_ms(torch, fn),
                     "library_ms": _time_ms(torch, library)}
     del tv, tw
-    res.update(_e1(np, torch, corpus))
-    res.update(_t1(np, torch, corpus))
-    res.update(_qk3(np, torch, corpus))
+    torch.cuda.empty_cache()
     return res
+
+
+def _a1(np, torch, elems) -> dict:
+    """A1a and A1b of one checkout at the rollup's and config 2's shapes."""
+    out = {}
+    for shape, (res, cap, n) in A1_SHAPES.items():
+        pool = elems.ElemPool(res, capacity=cap, windows=8, device="cuda")
+        for _ in range(n):
+            pool.alloc_lane()
+        rng = np.random.default_rng(16)
+        lanes = np.arange(n, dtype=np.int64)
+        t = np.full(n, 1_700_000_000 * SEC, dtype=np.int64)
+        host = (pool._flat(lanes, pool.window_start(t)), pool.window_start(t), t + 5 * SEC,
+                np.round(rng.random(n) * 100, 2))
+        batch = tuple(torch.from_numpy(x).cuda() for x in host)
+        state = pool._state
+        plain = elems.ElemState(*(x.clone() for x in state))
+        elems.scatter_update(state, *batch)
+        elems.scatter_update_plain(plain, *batch)
+        for i, (x, y) in enumerate(zip(state, plain)):
+            _same(torch, x, y, f"A1a {shape} field {i}")
+        del plain
+        flat = batch[0]
+        lib, ptrs = elems._lib(), elems._pointers(state)
+        dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+        if hasattr(elems, "_slot_check"):  # the run path: the batch is in slot order
+            args = (flat.data_ptr(), None, n, None)
+        else:
+            order, slots, offsets = elems.group_by_slot(flat)
+            args = (slots.data_ptr(), offsets.data_ptr(), len(slots), order.data_ptr())
+
+        def scatter():
+            rc = lib.m3_scatter_update(ptrs.ctypes.data, *args, batch[1].data_ptr(),
+                                       batch[2].data_ptr(), batch[3].data_ptr(),
+                                       dropped.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"A1a {shape}: {rc}")
+
+        gout = elems.ElemState(*(torch.empty(n, dtype=x.dtype, device="cuda") for x in state))
+        out_ptrs = elems._pointers(gout)
+
+        # the change's entry also takes the slot check's words (None: no
+        # guard) and the state's size
+        guard = (None, state.win_start.numel()) if len(
+            lib.m3_gather_reset.argtypes) == 8 else ()
+
+        def gather():
+            rc = lib.m3_gather_reset(ptrs.ctypes.data, flat.data_ptr(), n, 1,
+                                     out_ptrs.ctypes.data, *guard,
+                                     torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"A1b {shape}: {rc}")
+
+        got = elems.gather_reset(state, flat)
+        digest = hashlib.sha256(b"".join(x.cpu().numpy().tobytes() for x in got)).hexdigest()
+        out[f"a1a_{shape}"] = {
+            "call_ms": _time_ms(torch, lambda: elems.scatter_update(state, *batch)),
+            "kernel_ms": _time_ms(torch, scatter), "kernel_device_ms": _device_ms(torch, scatter)}
+        out[f"a1b_{shape}"] = {
+            "call_ms": _time_ms(torch, lambda: elems.gather_reset(state, flat)),
+            "kernel_ms": _time_ms(torch, gather), "kernel_device_ms": _device_ms(torch, gather),
+            "sha256": digest[:16]}
+        del pool, state, batch, gout, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def _close(torch, a, b, rtol: float, what: str) -> None:
@@ -421,9 +520,15 @@ def _e1(np, torch, corpus) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--child":
-        print(json.dumps(child(argv[1])), flush=True)
+    if len(argv) == 3 and argv[0] == "--child":
+        print(json.dumps(child(argv[1], tuple(argv[2].split(",")))), flush=True)
         return 0
+    only = SECTIONS
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only, argv = tuple(argv[1].split(",")), argv[2:]
+        if set(only) - set(SECTIONS):
+            print(f"unknown sections {sorted(set(only) - set(SECTIONS))}", file=sys.stderr)
+            return 2
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -432,7 +537,7 @@ def main(argv: list[str]) -> int:
     print(card, flush=True)
     rc = 0
     for root in argv:
-        out = subprocess.run([sys.executable, __file__, "--child", root],
+        out = subprocess.run([sys.executable, __file__, "--child", root, ",".join(only)],
                              capture_output=True, text=True, timeout=900)
         if out.returncode:
             print(f"{root}: exit {out.returncode}\n{out.stderr[-4000:]}", file=sys.stderr)
